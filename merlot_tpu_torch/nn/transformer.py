@@ -1,0 +1,133 @@
+"""Pre-LN transformer encoder stack, forward only (counterpart of
+merlot_tpu/nn/transformer.py).
+
+Per layer ``x += attn(LN(x)); x += mlp(LN(x))``, then a final LN; exact-erf
+gelu MLP. Validity masks stay multiplicative on every path (the JAX
+package's additive-bias form gives the same results). ``num_layers`` runs
+a prefix of the stack (how the lang-only tower shares the joint encoder's
+weights); colsum is summed over layers.
+
+Not ported: dropout (training), scan over layers, remat, the KV cache,
+cross-attention, the fused q/k/v forms and the fused LN+matmul.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm
+from merlot_tpu_torch.ops.activations import gelu
+from merlot_tpu_torch.ops.attention import attention_core
+
+
+@dataclass(frozen=True)
+class TransformerHParams:
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    initializer_range: float = 0.02
+    dtype: torch.dtype = torch.bfloat16
+    # fp32 softmax, or softmax in the compute dtype (the reference's bf16)
+    softmax_fp32: bool = True
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, hp: TransformerHParams, device=None):
+        super().__init__()
+        self.hp = hp
+        h = hp.hidden_size
+        for name in ("query", "key", "value", "out_proj"):
+            self.add_module(name, DenseTN(h, h, dtype=hp.dtype,
+                                          initializer_range=hp.initializer_range,
+                                          device=device))
+
+    def forward(self, x_norm: torch.Tensor, mask: Optional[torch.Tensor], *,
+                collect: str = "none", attn_backend: str = "auto"):
+        hp = self.hp
+        b, s, h = x_norm.shape
+        d_head = h // hp.num_heads
+        q, k, v = (getattr(self, n)(x_norm).reshape(b, s, hp.num_heads, d_head)
+                   for n in ("query", "key", "value"))
+        ctx, extra = attention_core(q, k, v, mask, collect=collect,
+                                    backend=attn_backend,
+                                    softmax_fp32=hp.softmax_fp32)
+        return self.out_proj(ctx.reshape(b, s, h)), extra
+
+
+class MlpBlock(nn.Module):
+    def __init__(self, hp: TransformerHParams, device=None):
+        super().__init__()
+        kw = dict(dtype=hp.dtype, initializer_range=hp.initializer_range,
+                  device=device)
+        self.intermediate = DenseTN(hp.hidden_size, hp.intermediate_size, **kw)
+        self.output = DenseTN(hp.intermediate_size, hp.hidden_size, **kw)
+
+    def forward(self, x_norm: torch.Tensor) -> torch.Tensor:
+        return self.output(gelu(self.intermediate(x_norm)))
+
+
+class TransformerLayer(nn.Module):
+    def __init__(self, hp: TransformerHParams, device=None):
+        super().__init__()
+        self.attn_ln = LayerNorm(hp.hidden_size, device=device)
+        self.attention = SelfAttention(hp, device=device)
+        self.mlp_ln = LayerNorm(hp.hidden_size, device=device)
+        self.mlp = MlpBlock(hp, device=device)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                collect: str = "none", attn_backend: str = "auto"):
+        attn_out, extra = self.attention(self.attn_ln(x), mask, collect=collect,
+                                         attn_backend=attn_backend)
+        x = x + attn_out
+        x = x + self.mlp(self.mlp_ln(x))
+        return x, extra
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of pre-LN layers ``layer00``, ``layer01``, ... + ``final_ln``.
+
+    Returns a dict with
+      hidden_state [B, S, H] (compute dtype);
+      attn_colsum  [B, S] fp32, summed over layers (collect='colsum');
+      attn_probs   [B, num_layers, S, S] fp32 head-meaned (collect='probs').
+    """
+
+    def __init__(self, hp: TransformerHParams, device=None):
+        super().__init__()
+        self.hp = hp
+        for i in range(hp.num_layers):
+            self.add_module(f"layer{i:02d}", TransformerLayer(hp, device=device))
+        self.final_ln = LayerNorm(hp.hidden_size, device=device)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
+                collect: str = "none", attn_backend: str = "auto",
+                num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        hp = self.hp
+        x = x.to(hp.dtype)
+        if mask is not None:
+            mask = mask.to(torch.float32)
+
+        n = hp.num_layers if num_layers is None else num_layers
+        if not 0 < n <= hp.num_layers:
+            raise ValueError(f"num_layers={n} outside 1..{hp.num_layers}")
+        colsum = None
+        probs_all = []
+        for i in range(n):
+            x, extra = getattr(self, f"layer{i:02d}")(
+                x, mask, collect, attn_backend)
+            if collect == "colsum":
+                colsum = extra if colsum is None else colsum + extra
+            elif collect == "probs":
+                probs_all.append(extra)
+        out: Dict[str, torch.Tensor] = {}
+        if collect == "colsum":
+            out["attn_colsum"] = colsum
+        elif collect == "probs":
+            out["attn_probs"] = torch.stack(probs_all, dim=1)
+        out["hidden_state"] = self.final_ln(x)
+        return out

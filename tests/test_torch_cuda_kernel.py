@@ -1,0 +1,118 @@
+"""The hand-written attention kernel against its plain PyTorch version, on
+a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
+card with ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py``
+(tests/conftest.py imports jax, which the GPU machine may lack).
+
+Tolerances: fp32 inputs 1e-5 (the same fp32 arithmetic summed in another
+order). bf16 inputs: both sides round the probs and ctx at the same points
+and differ only in the order of fp32 sums, so ctx may differ by at most
+BF16_ULPS bf16 ulps of the largest |ctx|, and by at most BF16_MEAN_TOL on
+average; softmax in the other dtype moves the mean by far more, which
+``test_bf16_check_sees_softmax_mode`` shows. colsum 1e-3 relative.
+"""
+
+import math
+
+import pytest
+import torch
+
+from merlot_tpu_torch.ops import cuda_attention
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(cuda, b, sq, sk, h, d, dtype, masked, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h * d), generator=g, device=cuda).to(dtype)
+               for s in (sq, sk, sk))
+    mask = None
+    if masked:
+        mask = (torch.rand((b, sq, sk), generator=g, device=cuda) < 0.7).float()
+        mask[:, :, 0] = 1.0
+        mask[0, min(3, sq - 1)] = 0.0           # a fully masked row
+    return q, k, v, mask
+
+
+BF16_ULPS = 1
+BF16_MEAN_TOL = 1e-5
+SHAPES = [  # b, sq, sk, h, d, masked, colsum
+    (2, 37, 37, 2, 64, True, True),
+    (3, 50, 129, 4, 32, False, True),
+    (1, 16, 2048, 2, 128, True, False),
+    (2, 100, 7, 3, 80, True, True),
+    (2, 33, 45, 2, 40, True, True),     # fp32 only: bf16 needs d % 16 == 0
+]
+CASES = [(dt, sm, *shape) for dt, sm in [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
+    for shape in SHAPES if dt == torch.float32 or shape[4] % 16 == 0]
+
+
+def _bf16_bound(ref):
+    """BF16_ULPS bf16 ulps (8 significant bits) of the largest |ref|."""
+    return BF16_ULPS * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32,b,sq,sk,h,d,masked,colsum", CASES)
+def test_kernel_matches_plain(cuda, dtype, softmax_fp32, b, sq, sk, h, d,
+                              masked, colsum):
+    q, k, v, mask = _inputs(cuda, b, sq, sk, h, d, dtype, masked)
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32, collect_colsum=colsum)
+    before = cuda_attention.launches
+    ctx, cs = cuda_attention.attention_fwd_cuda(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert cuda_attention.launches == before + 1
+    ref, ref_cs = cuda_attention.flash_attention_plain(q, k, v, mask, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(ctx, ref, atol=1e-5, rtol=1e-5)
+    else:
+        diff = (ctx.float() - ref.float()).abs()
+        assert diff.max().item() <= _bf16_bound(ref.float())
+        assert diff.mean().item() <= BF16_MEAN_TOL
+    if colsum:
+        torch.testing.assert_close(cs, ref_cs, atol=1e-4, rtol=1e-3)
+    else:
+        assert cs is None
+
+
+@pytest.mark.parametrize("softmax_fp32", [True, False])
+def test_bf16_check_sees_softmax_mode(cuda, softmax_fp32):
+    q, k, v, mask = _inputs(cuda, 2, 256, 256, 4, 64, torch.bfloat16, True)
+    kw = dict(num_heads=4, collect_colsum=False)
+    ctx, _ = cuda_attention.attention_fwd_cuda(q, k, v, mask,
+                                               softmax_fp32=softmax_fp32, **kw)
+    ref, _ = cuda_attention.flash_attention_plain(q, k, v, mask,
+                                                  softmax_fp32=softmax_fp32, **kw)
+    other, _ = cuda_attention.flash_attention_plain(q, k, v, mask,
+                                                    softmax_fp32=not softmax_fp32, **kw)
+    assert (ctx.float() - ref.float()).abs().mean().item() <= BF16_MEAN_TOL
+    assert (other.float() - ref.float()).abs().mean().item() > BF16_MEAN_TOL
+
+
+def test_kernel_refuses_bad_inputs(cuda):
+    q, k, v, mask = _inputs(cuda, 1, 8, 8, 2, 16, torch.float16, False)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_attention.attention_fwd_cuda(q, k, v, None, num_heads=2,
+                                          softmax_fp32=True, collect_colsum=False)
+    q, k, v, _ = _inputs(cuda, 1, 8, 8, 2, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_attention.attention_fwd_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                          k, v, None, num_heads=2, softmax_fp32=True,
+                                          collect_colsum=False)
+    q, k, v, _ = _inputs(cuda, 1, 8, 8, 2, 40, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_attention.attention_fwd_cuda(q, k, v, None, num_heads=2,
+                                          softmax_fp32=True, collect_colsum=False)
+    q, k, v, _ = _inputs(cuda, 1, 8, 8, 2, 16, torch.float32, False)
+    buf = torch.empty(q.numel() + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_attention.attention_fwd_cuda(buf[1:].view(q.shape), k, v, None,
+                                          num_heads=2, softmax_fp32=True,
+                                          collect_colsum=False)
