@@ -3,8 +3,9 @@ interface, at first use, and load them with ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` compiles
 ``csrc/<name>.cu`` into ``build/merlot_tpu_torch/lib<name>-<hash>.so``
-beside the package (the hash is of the source, so an edited source is
-rebuilt). Nothing here runs at import time.
+beside the package (the hash is of the source and the shared headers, so
+an edited source is rebuilt). ``build_libraries`` starts one nvcc per
+missing library, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Iterable
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -45,30 +47,53 @@ def find_nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(names: Iterable[str]) -> None:
+    """Compile every named source whose library is missing, one nvcc
+    process each, all started together; raises if any build fails."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                    capture_output=True, text=True)
+        todo = [n for n in dict.fromkeys(names) if not _lib_path(n).exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+        jobs = []
+        try:
+            for name in todo:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                jobs.append((name, tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            failed = []
+            for name, tmp, proc in jobs:
+                log, _ = proc.communicate()
+                build_logs[name] = log
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
-                build_logs[name] = proc.stdout + proc.stderr
-                os.replace(tmp, lib_path)
-            finally:
+                    failed.append(f"nvcc failed on {name}.cu:\n{log}")
+                else:
+                    os.replace(tmp, _lib_path(name))
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        finally:
+            for _, tmp, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-        lib = ctypes.CDLL(str(lib_path))
-        _loaded[name] = lib
-        return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+    if name not in _loaded:
+        build_libraries([name])
+        with _lock:
+            _loaded.setdefault(name, ctypes.CDLL(str(_lib_path(name))))
+    return _loaded[name]

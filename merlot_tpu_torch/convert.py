@@ -1,8 +1,10 @@
-"""Weight bridge: flax parameter leaves -> this package's state_dict.
+"""Weight bridge: flax parameter leaves -> this package's state_dict, and
+torch parameter names -> flax paths.
 
 Flax paths map to torch names one for one ("vision_backbone/resnet/
-stem_conv0/kernel" -> "vision_backbone.resnet.stem_conv0.weight"). Layouts
-differ only for the matmul and conv kernels:
+stem_conv0/kernel" -> "vision_backbone.resnet.stem_conv0.weight";
+``flax_path`` is the inverse). Layouts differ only for the matmul and conv
+kernels:
   * DenseTN kernel [in, out]  -> weight [out, in];
   * WSConv kernel HWIO        -> weight OIHW.
 Every other leaf keeps its shape.
@@ -34,6 +36,17 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"{path}: kernel of rank {arr.ndim}")
         out[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))
     return out
+
+
+def flax_path(torch_name: str) -> str:
+    """The flax path of a parameter from its torch name: the inverse of the
+    name map of ``params_from_flax`` ("merlot.encoder.layer00.attention.
+    query.weight" -> "merlot/encoder/layer00/attention/query/kernel"). Only
+    the matmul and conv kernels are named ``weight`` in this package."""
+    parts = torch_name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
 
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:

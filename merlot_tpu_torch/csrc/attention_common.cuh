@@ -1,0 +1,164 @@
+// Helpers shared by the attention forward (attention_fwd.cu) and backward
+// (attention_bwd.cu) kernels. Both recompute the same rounded, masked
+// scores and the same softmax from them, so those steps live here once:
+// the backward rebuilds the forward's probabilities with the same fp32
+// operations.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace merlot {
+
+constexpr int kKeyChunk = 64;  // keys staged in shared memory per round trip
+constexpr float kMaskPenalty = 1e10f;
+constexpr int kMaxSeq = 2048;
+constexpr int kMaxHeadDim = 128;
+constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kQRows = 16;  // query rows per tile
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and widened back to fp32
+template <typename T>
+__device__ __forceinline__ float round_as(float x) {
+  return to_float(from_float<T>(x));
+}
+
+__device__ __forceinline__ float round_sm(float x, bool sm_bf16) {
+  return sm_bf16 ? round_as<bf16>(x) : x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the rounded, masked score of (query row, key kk) from its fp32 dot product
+__device__ __forceinline__ float masked_score(float acc, const float* mask,
+                                              size_t mask_row, int kk,
+                                              float scale, bool sm_bf16) {
+  float s = round_sm(acc * scale, sm_bf16);
+  if (mask != nullptr) {
+    const float m = mask[mask_row + kk];
+    s = round_sm(s * m - kMaskPenalty * (1.f - m), sm_bf16);
+  }
+  return s;
+}
+
+// a probability rebuilt from its score and its row's max and sum: the same
+// fp32 operations as softmax_rows, so the same bits
+__device__ __forceinline__ float prob_from_stats(float s, float mx, float sum,
+                                                 bool sm_bf16) {
+  return round_sm(expf(s - mx) / sum, sm_bf16);
+}
+
+// softmax over each real row of s_p (row stride `ld`), in place, one warp
+// per row; the rows' max and sum go to row_max/row_sum when those are given
+__device__ void softmax_rows(float* s_p, int ld, int rows, int Sk, bool sm_bf16,
+                             float* row_max = nullptr, float* row_sum = nullptr) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
+  for (int row = warp; row < rows; row += n_warps) {
+    float* prow = s_p + (size_t)row * ld;
+    float mx = -INFINITY;
+    for (int j = lane; j < Sk; j += 32) mx = fmaxf(mx, prow[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < Sk; j += 32) {
+      const float e = expf(prow[j] - mx);
+      prow[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < Sk; j += 32) prow[j] = round_sm(prow[j] / sum, sm_bf16);
+    if (lane == 0 && row_max != nullptr) {
+      row_max[row] = mx;
+      row_sum[row] = sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor cores: mma.sync.m16n8k16 bf16 -> fp32 (row.col), lane = 4*g + t.
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments for one 16-deep step and one 8-column tile, transposed on the
+// way out of row-major [k][n] shared memory: lanes 0-7 address rows 0-7 of
+// the step, lanes 8-15 rows 8-15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const bf16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
+}
+
+// rows x D bf16 from global (row stride hd) into shared memory (row stride
+// ld), 16 bytes a thread; rows at or past `valid` are zero-filled
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
+                                           size_t hd, int rows, int valid, int D) {
+  const int vecs = D / 8;
+  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
+    const int r = i / vecs, c = 8 * (i % vecs);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// keys covered by a product over keys: Sk rounded up to the 16-key mma step
+__host__ __device__ __forceinline__ int mma_key_pad(int Sk) { return (Sk + 15) & ~15; }
+// score row stride: >= the padded keys and 8 (mod 32) floats, so that the
+// lanes of a fragment (rows g, columns 2t) spread over the banks
+__host__ __device__ __forceinline__ int mma_score_ld(int Sk) { return ((Sk + 31) & ~31) + 8; }
+
+template <typename K, typename... Args>
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace merlot

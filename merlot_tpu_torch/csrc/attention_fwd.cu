@@ -46,21 +46,11 @@
 // staging chunks lost to 64 by costing resident blocks. wgmma on 64-row
 // tiles with TMA-staged K/V is the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kKeyChunk = 64;  // keys staged in shared memory per round trip
-constexpr float kMaskPenalty = 1e10f;
-constexpr int kMaxSeq = 2048;
-constexpr int kMaxHeadDim = 128;
-constexpr size_t kMaxSmem = 227 * 1024;
-
-constexpr int kQRows = 16;  // query rows per block, both kernels
+using namespace merlot;
 
 constexpr int kFmaThreads = 256;
 constexpr int kFmaRowsPerThread = kQRows / 4;  // 4 row groups of 64 threads
@@ -71,72 +61,6 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaWarpKeyTiles = kKeyChunk / 8 / kMmaWarps;  // 8-key tiles per warp
 constexpr int kMmaMaxKSteps = kMaxHeadDim / 16;
 constexpr int kMmaMaxTilesPerWarp = kMaxHeadDim / 8 / kMmaWarps;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and widened back to fp32
-template <typename T>
-__device__ __forceinline__ float round_as(float x) {
-  return to_float(from_float<T>(x));
-}
-
-__device__ __forceinline__ float round_sm(float x, bool sm_bf16) {
-  return sm_bf16 ? round_as<bf16>(x) : x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the rounded, masked score of (tile row, key kk) from its fp32 dot product
-__device__ __forceinline__ float masked_score(float acc, const float* mask,
-                                              size_t mask_row, int kk,
-                                              float scale, bool sm_bf16) {
-  float s = round_sm(acc * scale, sm_bf16);
-  if (mask != nullptr) {
-    const float m = mask[mask_row + kk];
-    s = round_sm(s * m - kMaskPenalty * (1.f - m), sm_bf16);
-  }
-  return s;
-}
-
-// phase 2: softmax over each real row of s_p (row stride `ld`), in place
-__device__ void softmax_rows(float* s_p, int ld, int rows, int Sk, bool sm_bf16) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int row = warp; row < rows; row += n_warps) {
-    float* prow = s_p + (size_t)row * ld;
-    float mx = -INFINITY;
-    for (int j = lane; j < Sk; j += 32) mx = fmaxf(mx, prow[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Sk; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Sk; j += 32) prow[j] = round_sm(prow[j] / sum, sm_bf16);
-  }
-}
 
 // phase 3: per-tile colsum over real rows (softmax-dtype probs) into
 // `part` (may be null), then the probs rounded to T in place
@@ -268,54 +192,6 @@ attention_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Tensor-core kernel: bf16, D a multiple of 16, 16 query rows per block.
 // Fragment layouts are those of mma.sync.m16n8k16 (row.col): lane = 4*g + t.
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments of V for one 16-key step and one 8-column tile, transposed
-// on the way out of row-major [key][d] shared memory: lanes 0-7 address
-// keys 0-7 of the step, lanes 8-15 keys 8-15
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const bf16* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-// rows x D bf16 from global (row stride hd) into shared memory (row stride
-// ld), 16 bytes a thread; rows at or past `valid` are zero-filled
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
-                                           size_t hd, int rows, int valid, int D) {
-  const int vecs = D / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
-    const int r = i / vecs, c = 8 * (i % vecs);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// keys covered by the value product: Sk rounded up to the 16-key mma step
-__host__ __device__ __forceinline__ int mma_key_pad(int Sk) { return (Sk + 15) & ~15; }
-// score row stride: >= the padded keys and 8 (mod 32) floats, so that the
-// lanes of a fragment (rows g, columns 2t) spread over the banks
-__host__ __device__ __forceinline__ int mma_score_ld(int Sk) { return ((Sk + 31) & ~31) + 8; }
 
 __global__ void __launch_bounds__(kMmaThreads)
 attention_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -464,16 +340,6 @@ size_t fma_smem(int Sk, int D) {
 size_t mma_smem(int Sk, int D) {
   return sizeof(float) * kQRows * mma_score_ld(Sk) +
          sizeof(bf16) * (size_t)(kQRows + kKeyChunk) * (D + 8);
-}
-
-template <typename K, typename... Args>
-cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace

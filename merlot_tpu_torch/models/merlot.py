@@ -1,17 +1,21 @@
-"""MerlotModel — the joint video-frame + caption encoder, forward only
-(counterpart of merlot_tpu/models/merlot.py).
+"""MerlotModel — the joint video-frame + caption encoder (counterpart of
+merlot_tpu/models/merlot.py).
 
 Per forward:
   * every frame runs through the ViT backbone; CLS#1 is the image-side
     contrastive feature, CLS#0 + the 2x2-pooled grid feed the joint encoder;
+  * with ``mask_input``, a language-only tower (the first
+    ``num_lang_transformer_hidden_layers`` layers of the joint encoder when
+    ``share_params``) gives per-chunk CLS contrastive features and the
+    attention mass each token receives, which guides SpanBERT masking;
   * vision tokens get a per-segment index PE (the shuffled index for the
     temporal-ordering objective) plus a fresh 2-D grid PE, then an fp32 LN;
   * the joint bidirectional transformer runs over [viz ‖ lang] under the
     dense validity mask.
 
-The parameter tree mirrors the flax one name for name (see convert.py).
-Only the ``mask_input=False`` path is ported: the lang-only tower and
-attention-guided masking come with the pretraining forward.
+Hidden dropout runs unless ``deterministic``, from ``generator``, which also
+makes the masking draws unless ``masking_draws`` gives them. The parameter
+tree mirrors the flax one name for name (see convert.py).
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ import torch
 from torch import nn
 
 from merlot_tpu_torch.models.config import MerlotConfig
-from merlot_tpu_torch.nn.layers import (DenseTN, LayerNorm, _param,
+from merlot_tpu_torch.nn.layers import (DenseTN, LayerNorm, _param, dropout,
                                         trunc_normal_)
 from merlot_tpu_torch.nn.transformer import TransformerEncoder, TransformerHParams
 from merlot_tpu_torch.nn.vit import PositionEmbedder2D, VisionBackbone
 from merlot_tpu_torch.ops.activations import gelu
+from merlot_tpu_torch.ops.masking import attention_guided_span_mask
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -89,6 +94,10 @@ class MerlotModel(nn.Module):
             hidden_size=c.hidden_size, num_layers=c.vit_num_layers,
             num_heads=c.num_attention_heads, intermediate_size=c.intermediate_size,
             initializer_range=c.initializer_range,
+            hidden_dropout_prob=(c.vit_hidden_dropout_prob
+                                 if c.vit_hidden_dropout_prob is not None
+                                 else c.hidden_dropout_prob),
+            attention_probs_dropout_prob=c.attention_probs_dropout_prob,
             dtype=dtype, softmax_fp32=c.attention_softmax_fp32)
         self.vision_backbone = VisionBackbone(
             patch_size=c.patch_size, hidden_size=c.hidden_size,
@@ -96,7 +105,8 @@ class MerlotModel(nn.Module):
             spatial_pool_size=c.spatial_pool_size, vit_hp=vit_hp,
             initializer_range=c.initializer_range, dtype=dtype, device=device)
 
-        joint_hp = dataclasses.replace(vit_hp, num_layers=c.num_hidden_layers)
+        joint_hp = dataclasses.replace(vit_hp, num_layers=c.num_hidden_layers,
+                                       hidden_dropout_prob=c.hidden_dropout_prob)
         self.encoder = TransformerEncoder(joint_hp, device=device)
         if not c.share_params:
             self.langonly_encoder = TransformerEncoder(
@@ -147,8 +157,11 @@ class MerlotModel(nn.Module):
                 self.lm_output_bias.zero_()
 
     # ------------------------------------------------------------------
-    def embed_words(self, ids_2d: torch.Tensor, which: str = "joint") -> torch.Tensor:
-        """Word + position embedding, LN (fp32), cast to the compute dtype."""
+    def embed_words(self, ids_2d: torch.Tensor, which: str = "joint",
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Word + position embedding, LN (fp32), dropout, cast to the compute
+        dtype."""
         L = ids_2d.shape[1]
         if L > self.cfg.max_position_embeddings:
             raise ValueError(f"{L} tokens > {self.cfg.max_position_embeddings}")
@@ -158,6 +171,8 @@ class MerlotModel(nn.Module):
         else:
             normed = self.langonly_embed_norm(
                 word + self.langonly_position_embeddings[:L][None])
+        normed = dropout(normed, self.cfg.hidden_dropout_prob,
+                         deterministic=deterministic, generator=generator)
         return normed.to(self.compute_dtype)
 
     def vision_pos_emb(self, B: int, group: int, viz_chunk_len: int,
@@ -183,19 +198,24 @@ class MerlotModel(nn.Module):
                 shuffled_idx_img: Optional[torch.Tensor] = None,
                 img_mask: Optional[torch.Tensor] = None,
                 collect_attention: str = "none",
-                attn_backend: str = "auto") -> Dict[str, Any]:
-        """Forward pass (the JAX ``__call__`` with ``deterministic=True``).
+                deterministic: bool = True,
+                attn_backend: str = "auto",
+                generator: Optional[torch.Generator] = None,
+                masking_draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, Any]:
+        """Forward pass.
 
         image: [n_images, h, w, 3] in [0, 1] (or uint8);
         input_ids: [batch, num_chunks, L_chunk] int, or [batch, L];
+        mask_input: run the lang-only tower and attention-guided masking;
         shuffled_idx_img: [batch, num_chunks] per-segment PE index;
         img_mask: [batch, num_chunks] validity (None = all valid);
-        collect_attention: 'none' | 'probs' (adds cross-modal telemetry).
+        collect_attention: 'none' | 'probs' (adds cross-modal telemetry);
+        generator: dropout masks and, unless ``masking_draws`` gives them
+        (``ops.masking.masking_draws``), the masking draws.
         """
-        if mask_input:
-            raise NotImplementedError(
-                "the lang-only tower and attention-guided masking are not ported")
         c = self.cfg
+        drop = dict(deterministic=deterministic, generator=generator)
         dev = image.device
         if input_ids.dim() == 2:
             batch_size, lang_chunk_len = input_ids.shape
@@ -211,7 +231,7 @@ class MerlotModel(nn.Module):
         L = lang_chunk_len * group
 
         # ---------------- vision tower --------------------------------
-        vinfo = self.vision_backbone(image, attn_backend=attn_backend)
+        vinfo = self.vision_backbone(image, attn_backend=attn_backend, **drop)
         num_h, num_w = vinfo["num_h"], vinfo["num_w"]
         viz_chunk_len = num_h * num_w + 1
         P = viz_chunk_len * group
@@ -242,9 +262,28 @@ class MerlotModel(nn.Module):
             B, group, viz_chunk_len, num_h, num_w, shuffled_idx_img)
         image_feats = self.viz_final_ln(image_feats).to(self.compute_dtype)
 
-        # ---------------- language side --------------------------------
+        # ---------------- language tower + masking --------------------
+        out: Dict[str, Any] = {}
         ids_to_use = input_ids3.reshape(B, L)
-        lang_embs = self.embed_words(ids_to_use, which="joint")
+        if mask_input:
+            lang_trg_h, attn_mass = self._langonly(
+                input_ids3, batch_size, num_chunks, lang_chunk_len,
+                attn_backend=attn_backend, **drop)
+            out["lang_trg_h"] = lang_trg_h
+            # the mass only ranks tokens (JAX's top_k passes it no gradient)
+            masked_ids, masked_idx = attention_guided_span_mask(
+                ids_to_use, attn_mass.detach().reshape(B, L),
+                vocab_size=c.vocab_size, masking_rate=c.masking_rate,
+                topk_perc=c.masking_use_topk_from_attn_perc,
+                choose_topk_prob=c.masking_choose_topk_prob,
+                do_spanbert=c.masking_do_spanbert,
+                spanbert_len_probs=c.masking_spanbert_len_probs,
+                use_attn=c.masking_use_attn, generator=generator,
+                draws=masking_draws)
+            out["lang_mask_info"] = {"masked_ids": masked_ids,
+                                     "masked_idx": masked_idx}
+            ids_to_use = masked_ids
+        lang_embs = self.embed_words(ids_to_use, which="joint", **drop)
         lang_valid = ids_to_use != 0
 
         # ---------------- joint encoder -------------------------------
@@ -262,9 +301,9 @@ class MerlotModel(nn.Module):
 
         einfo = self.encoder(encoder_input, attention_mask,
                              collect="probs" if collect_attention == "probs" else "none",
-                             attn_backend=attn_backend)
+                             attn_backend=attn_backend, **drop)
         hidden = einfo["hidden_state"]
-        out: Dict[str, Any] = {
+        out.update({
             "encoder_hidden_states": {
                 "viz": hidden[:, :P * c.num_imgs].float(),
                 "lang": hidden[:, P * c.num_imgs:].float(),
@@ -276,11 +315,36 @@ class MerlotModel(nn.Module):
                        "num_h": num_h, "num_w": num_w,
                        "batch_size": batch_size, "num_chunks": num_chunks},
             "input_ids": input_ids3,
-        }
+        })
         if collect_attention == "probs":
             out["attention_log"] = self._attention_log(
                 einfo["attn_probs"], is_valid, P * c.num_imgs)
         return out
+
+    def _langonly(self, input_ids3, batch_size, num_chunks, lang_chunk_len, *,
+                  attn_backend, deterministic, generator):
+        """Language-only tower: per-chunk CLS features [batch*num_chunks, H]
+        fp32 and the attention mass each token receives, summed over layers."""
+        c = self.cfg
+        if c.langonly_num_chunks_in_group is not None:
+            g = c.langonly_num_chunks_in_group
+            if num_chunks % g:
+                raise ValueError(f"{num_chunks} chunks not in groups of {g}")
+            ids_2d = input_ids3.reshape(batch_size * (num_chunks // g),
+                                        lang_chunk_len * g)
+        else:
+            ids_2d = input_ids3.reshape(batch_size, lang_chunk_len * num_chunks)
+        drop = dict(deterministic=deterministic, generator=generator)
+        word_embs = self.embed_words(ids_2d, which="langonly", **drop)
+        valid = ids_2d != 0
+        mask = (valid[:, None] & valid[:, :, None]).float()
+        enc = self.encoder if c.share_params else self.langonly_encoder
+        n_layers = c.num_lang_transformer_hidden_layers if c.share_params else None
+        info = enc(word_embs, mask, collect="colsum", attn_backend=attn_backend,
+                   num_layers=n_layers, **drop)
+        pooled = info["hidden_state"].reshape(
+            batch_size * num_chunks, lang_chunk_len, c.hidden_size)[:, 0]
+        return pooled.float(), info["attn_colsum"]
 
     def _attention_log(self, probs, is_valid, p_len):
         """Cross-modal attention-mass telemetry."""

@@ -46,6 +46,19 @@ def init_params(module: nn.Module, gen: torch.Generator) -> None:
             m.init_weights(gen)
 
 
+def dropout(x: torch.Tensor, rate: float, *, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate), in x's dtype; the identity when
+    ``deterministic`` or ``rate == 0``. The keep mask is drawn from
+    ``generator`` (the device's default generator when None)."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+
 def _param(*shape, device=None) -> nn.Parameter:
     """An fp32 parameter, uninitialised until ``init_params`` or a load."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))

@@ -1,14 +1,18 @@
-"""Pre-LN transformer encoder stack, forward only (counterpart of
+"""Pre-LN transformer encoder stack (counterpart of
 merlot_tpu/nn/transformer.py).
 
-Per layer ``x += attn(LN(x)); x += mlp(LN(x))``, then a final LN; exact-erf
-gelu MLP. Validity masks stay multiplicative on every path (the JAX
-package's additive-bias form gives the same results). ``num_layers`` runs
-a prefix of the stack (how the lang-only tower shares the joint encoder's
-weights); colsum is summed over layers.
+Per layer ``x += drop(attn(LN(x))); x += drop(mlp(LN(x)))``, then a final
+LN; exact-erf gelu MLP; hidden dropout at the JAX package's two sites
+unless ``deterministic``, from an explicit ``torch.Generator``. Validity
+masks stay multiplicative on every path (the JAX package's additive-bias
+form gives the same results). ``num_layers`` runs a prefix of the stack
+(how the lang-only tower shares the joint encoder's weights); colsum is
+summed over layers. ``attn_backend`` picks the attention path per call:
+'cuda' (training_backend on a card) runs the forward and backward kernels.
 
-Not ported: dropout (training), scan over layers, remat, the KV cache,
-cross-attention, the fused q/k/v forms and the fused LN+matmul.
+Not ported: attention-prob dropout (0 in every config), scan over layers,
+remat, the KV cache, cross-attention, the fused q/k/v forms and the fused
+LN+matmul.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm
+from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import attention_core
 
@@ -31,6 +35,8 @@ class TransformerHParams:
     num_heads: int = 12
     intermediate_size: int = 3072
     initializer_range: float = 0.02
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     # fp32 softmax, or softmax in the compute dtype (the reference's bf16)
     softmax_fp32: bool = True
@@ -47,8 +53,12 @@ class SelfAttention(nn.Module):
                                           device=device))
 
     def forward(self, x_norm: torch.Tensor, mask: Optional[torch.Tensor], *,
-                collect: str = "none", attn_backend: str = "auto"):
+                collect: str = "none", attn_backend: str = "auto",
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         hp = self.hp
+        if not deterministic and hp.attention_probs_dropout_prob > 0.0:
+            raise NotImplementedError("attention-prob dropout is not ported")
         b, s, h = x_norm.shape
         d_head = h // hp.num_heads
         q, k, v = (getattr(self, n)(x_norm).reshape(b, s, hp.num_heads, d_head)
@@ -56,19 +66,25 @@ class SelfAttention(nn.Module):
         ctx, extra = attention_core(q, k, v, mask, collect=collect,
                                     backend=attn_backend,
                                     softmax_fp32=hp.softmax_fp32)
-        return self.out_proj(ctx.reshape(b, s, h)), extra
+        out = self.out_proj(ctx.reshape(b, s, h))
+        return dropout(out, hp.hidden_dropout_prob, deterministic=deterministic,
+                       generator=generator), extra
 
 
 class MlpBlock(nn.Module):
     def __init__(self, hp: TransformerHParams, device=None):
         super().__init__()
+        self.hp = hp
         kw = dict(dtype=hp.dtype, initializer_range=hp.initializer_range,
                   device=device)
         self.intermediate = DenseTN(hp.hidden_size, hp.intermediate_size, **kw)
         self.output = DenseTN(hp.intermediate_size, hp.hidden_size, **kw)
 
-    def forward(self, x_norm: torch.Tensor) -> torch.Tensor:
-        return self.output(gelu(self.intermediate(x_norm)))
+    def forward(self, x_norm: torch.Tensor, *, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.output(gelu(self.intermediate(x_norm)))
+        return dropout(out, self.hp.hidden_dropout_prob,
+                       deterministic=deterministic, generator=generator)
 
 
 class TransformerLayer(nn.Module):
@@ -80,11 +96,14 @@ class TransformerLayer(nn.Module):
         self.mlp = MlpBlock(hp, device=device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                collect: str = "none", attn_backend: str = "auto"):
+                collect: str = "none", attn_backend: str = "auto",
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        kw = dict(deterministic=deterministic, generator=generator)
         attn_out, extra = self.attention(self.attn_ln(x), mask, collect=collect,
-                                         attn_backend=attn_backend)
+                                         attn_backend=attn_backend, **kw)
         x = x + attn_out
-        x = x + self.mlp(self.mlp_ln(x))
+        x = x + self.mlp(self.mlp_ln(x), **kw)
         return x, extra
 
 
@@ -106,7 +125,9 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect: str = "none", attn_backend: str = "auto",
-                num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                num_layers: Optional[int] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         hp = self.hp
         x = x.to(hp.dtype)
         if mask is not None:
@@ -119,7 +140,8 @@ class TransformerEncoder(nn.Module):
         probs_all = []
         for i in range(n):
             x, extra = getattr(self, f"layer{i:02d}")(
-                x, mask, collect, attn_backend)
+                x, mask, collect, attn_backend, deterministic=deterministic,
+                generator=generator)
             if collect == "colsum":
                 colsum = extra if colsum is None else colsum + extra
             elif collect == "probs":

@@ -15,7 +15,7 @@ Images are NHWC [B, H, W, 3] in [0, 1] (float) or uint8.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -165,8 +165,9 @@ class VisionBackbone(nn.Module):
         self.patches_pre_ln = LayerNorm(hidden_size, device=device)
         self.encoder = TransformerEncoder(vit_hp, device=device)
 
-    def forward(self, image: torch.Tensor, *,
-                attn_backend: str = "auto") -> Dict[str, Any]:
+    def forward(self, image: torch.Tensor, *, attn_backend: str = "auto",
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         p = self.patch_size
         b, h0, w0, _ = image.shape
         if h0 % p or w0 % p:
@@ -186,8 +187,9 @@ class VisionBackbone(nn.Module):
         x = torch.cat([x.new_zeros(b, self.num_cls_emb, d), x], dim=1)
         x = self.patches_pre_ln(x + self.pos_emb2d(h1, w1, 1)[None])
 
-        hidden = self.encoder(x.to(self.dtype), None,
-                              attn_backend=attn_backend)["hidden_state"]
+        hidden = self.encoder(x.to(self.dtype), None, attn_backend=attn_backend,
+                              deterministic=deterministic,
+                              generator=generator)["hidden_state"]
         cls = hidden[:, :self.num_cls_emb]
         seq = hidden[:, self.num_cls_emb:]
         sp = self.spatial_pool_size

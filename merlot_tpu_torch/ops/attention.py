@@ -13,10 +13,11 @@ fp32 and bf16), so only the multiplicative form is kept.
                over query rows (what attention-guided masking reads);
   - 'probs'  : head-meaned probs [B, Sq, Sk] fp32 (telemetry).
 
-Backends: 'plain' is the PyTorch composition below; 'cuda' is the
-hand-written attention-forward kernel (ops/cuda_attention.py), taken where
-the call is fusable and the shape is supported, exactly as the JAX package
-takes its Pallas kernel; 'auto' means 'plain'.
+Backends: 'plain' is the PyTorch composition below (autograd through it);
+'cuda' is the hand-written attention kernels (ops/cuda_attention.py): the
+forward K1 and, when a gradient is taken, the backward K2, taken where the
+call is fusable and the shape is supported, exactly as the JAX package
+takes its Pallas kernels; 'auto' means 'plain'.
 """
 
 from __future__ import annotations
@@ -29,9 +30,14 @@ MASK_PENALTY = 1e10
 
 
 def inference_backend(device: torch.device | str) -> str:
-    """Backend for forward-only paths: the kernel on a CUDA device, the
-    plain composition elsewhere (as JAX picks 'pallas' only on a TPU)."""
+    """The backend of a device: the kernels on a CUDA device (the forward
+    K1 and, where a gradient is taken, the backward K2), the plain
+    composition elsewhere (as JAX picks 'pallas' only on a TPU)."""
     return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
+# training (grad) paths pick their backend by the same rule
+training_backend = inference_backend
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,22 +77,25 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             softmax_fp32=softmax_fp32)
 
 
-def _plain_attention(q, k, v, mask, *, collect, softmax_fp32=True):
-    """The plain PyTorch path (counterpart of ``_xla_attention``).
-
-    Scores are exact fp32 dot products (bf16 inputs widen losslessly),
-    scaled, then rounded to the softmax dtype; probs are cast to q.dtype
-    for the value product, which accumulates in fp32."""
-    d_head = q.shape[-1]
-    scale = 1.0 / (d_head ** 0.5)
+def attention_probs(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:
+    """Softmax probs [B, H, Sq, Sk] in the softmax dtype. Scores are exact
+    fp32 dot products (bf16 inputs widen losslessly), scaled, then rounded
+    to the softmax dtype before the mask and the softmax."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
     sm_dtype = torch.float32 if softmax_fp32 else q.dtype
-
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     scores = scores.to(sm_dtype)
     if mask is not None:
         m = mask.to(sm_dtype)[:, None]          # broadcast over heads
         scores = scores * m - MASK_PENALTY * (1 - m)
-    probs = torch.softmax(scores, dim=-1)
+    return torch.softmax(scores, dim=-1)
+
+
+def _plain_attention(q, k, v, mask, *, collect, softmax_fp32=True):
+    """The plain PyTorch path (counterpart of ``_xla_attention``): probs
+    from ``attention_probs``, cast to q.dtype for the value product, which
+    accumulates in fp32."""
+    probs = attention_probs(q, k, mask, softmax_fp32=softmax_fp32)
 
     extra = None
     if collect == "colsum":

@@ -1,14 +1,19 @@
-"""Attention forward kernel (K1) for Hopper, and its plain PyTorch version.
+"""Attention kernels for Hopper, forward (K1) and backward (K2), and their
+plain PyTorch versions.
 
-Counterpart of merlot_tpu/ops/pallas_attention.py ``flash_attention`` /
-``_flash_fwd``. The kernel is ``csrc/attention_fwd.cu``, built with nvcc at
-first use and called through ctypes. It takes the natural [B, S, H*D]
+Counterpart of merlot_tpu/ops/pallas_attention.py ``flash_attention``:
+``_flash_fwd`` (K1), ``_flash_bwd_pallas`` (K2) and the custom_vjp
+``_flash_p``/``_fwd``/``_bwd`` around them, which becomes
+``FlashAttention``, a ``torch.autograd.Function``. The kernels are
+``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, built with nvcc at
+first use and called through ctypes. They take the natural [B, S, H*D]
 layout, an optional multiplicative [B, Sq, Sk] fp32 mask, fp32 or bf16
-softmax, and optionally returns the colsum [B, Sk] fp32.
+softmax; the forward optionally returns the colsum [B, Sk] fp32, and the
+backward takes its cotangent.
 
-``flash_attention`` launches the kernel for CUDA tensors and uses
-``flash_attention_plain`` for CPU tensors; it never falls back from one to
-the other. ``launches`` counts kernel launches.
+``FlashAttention`` launches the kernels for CUDA tensors and uses the plain
+versions for CPU tensors; it never falls back from one to the other.
+``launches`` and ``bwd_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -19,19 +24,20 @@ from typing import Optional, Tuple
 import torch
 
 from merlot_tpu_torch._build import load_library
-from merlot_tpu_torch.ops.attention import _plain_attention
+from merlot_tpu_torch.ops.attention import _plain_attention, attention_probs
 
 MAX_KERNEL_SEQ = 2048
 MAX_HEAD_DIM = 128
 
-# kernel launches since the last reset (set it to 0 to reset)
+# launches of K1 and of K2 since the last reset (set them to 0 to reset)
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_supported(sq: int, sk: int, d_head: int, dtype: torch.dtype) -> bool:
-    """Shapes and dtypes the kernel takes; callers use the plain path
+    """Shapes and dtypes the kernels take; callers use the plain path
     otherwise. bf16 runs on the tensor cores in 16-wide head-dim steps, so
     its head dim must be a multiple of 16; fp32 takes any head dim."""
     if dtype not in _DTYPE_CODE:
@@ -42,7 +48,7 @@ def kernel_supported(sq: int, sk: int, d_head: int, dtype: torch.dtype) -> bool:
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
+    """Build (at first use) and load K1's library."""
     lib = load_library("attention_fwd")
     fn = lib.merlot_attention_fwd
     if fn.argtypes is None:
@@ -55,72 +61,122 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def attention_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
-                       mask: Optional[torch.Tensor], *, num_heads: int,
-                       softmax_fp32: bool, collect_colsum: bool
-                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the kernel. q3 [B, Sq, H*D]; k3/v3 [B, Sk, H*D], contiguous
-    CUDA tensors of one dtype (fp32, or bf16 with a head dim that is a
-    multiple of 16); mask [B, Sq, Sk] contiguous
-    fp32 or None. Returns (ctx [B, Sq, H*D] in q3.dtype, colsum [B, Sk]
-    fp32 or None)."""
-    global launches
-    tensors = [q3, k3, v3] + ([mask] if mask is not None else [])
-    if any(t.device.type != "cuda" or t.device != q3.device for t in tensors):
-        raise ValueError("attention_fwd_cuda: all tensors must be on one CUDA device")
+def load_bwd_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load K2's library."""
+    lib = load_library("attention_bwd")
+    fn = lib.merlot_attention_bwd
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 10 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(name: str, q3, k3, v3, mask, num_heads: int,
+                  like_q=(), fp32=()) -> Tuple[int, int, int, int]:
+    """Validate a launch's tensors; returns (B, Sq, Sk, d_head). ``like_q``
+    must match q3's shape and dtype; ``fp32`` are fp32 tensors of any
+    shape (their shapes are the caller's to check)."""
+    present = [t for t in (q3, k3, v3, mask, *like_q, *fp32) if t is not None]
+    if any(t.device.type != "cuda" or t.device != q3.device for t in present):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
     if q3.dtype not in _DTYPE_CODE or k3.dtype != q3.dtype or v3.dtype != q3.dtype:
-        raise ValueError(f"attention_fwd_cuda: q/k/v must share dtype fp32 or bf16, "
+        raise ValueError(f"{name}: q/k/v must share dtype fp32 or bf16, "
                          f"got {q3.dtype}, {k3.dtype}, {v3.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("attention_fwd_cuda: inputs must be contiguous")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("attention_fwd_cuda: inputs must be 16-byte aligned")
+    if not all(t.is_contiguous() for t in present):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in present):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
     if q3.dim() != 3 or k3.dim() != 3 or v3.shape != k3.shape:
-        raise ValueError(f"attention_fwd_cuda: bad shapes {tuple(q3.shape)}, "
+        raise ValueError(f"{name}: bad shapes {tuple(q3.shape)}, "
                          f"{tuple(k3.shape)}, {tuple(v3.shape)}")
     b, sq, hd = q3.shape
     sk = k3.shape[1]
     if k3.shape[0] != b or k3.shape[2] != hd or hd % num_heads != 0:
-        raise ValueError(f"attention_fwd_cuda: bad shapes {tuple(q3.shape)}, "
+        raise ValueError(f"{name}: bad shapes {tuple(q3.shape)}, "
                          f"{tuple(k3.shape)} for {num_heads} heads")
     d = hd // num_heads
     if not kernel_supported(sq, sk, d, q3.dtype):
-        raise ValueError(f"attention_fwd_cuda: unsupported Sq={sq} Sk={sk} d={d} "
-                         f"for {q3.dtype}")
+        raise ValueError(f"{name}: unsupported Sq={sq} Sk={sk} d={d} for {q3.dtype}")
     if mask is not None and (mask.dtype != torch.float32
                              or tuple(mask.shape) != (b, sq, sk)):
-        raise ValueError(f"attention_fwd_cuda: mask must be fp32 {(b, sq, sk)}, "
+        raise ValueError(f"{name}: mask must be fp32 {(b, sq, sk)}, "
                          f"got {mask.dtype} {tuple(mask.shape)}")
+    for t in like_q:
+        if t.shape != q3.shape or t.dtype != q3.dtype:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does not match "
+                             f"q {tuple(q3.shape)} {q3.dtype}")
+    if any(t is not None and t.dtype != torch.float32 for t in fp32):
+        raise ValueError(f"{name}: expected fp32")
+    return b, sq, sk, d
 
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def attention_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                       mask: Optional[torch.Tensor], *, num_heads: int,
+                       softmax_fp32: bool, collect_colsum: bool
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch K1. q3 [B, Sq, H*D]; k3/v3 [B, Sk, H*D], contiguous CUDA
+    tensors of one dtype (fp32, or bf16 with a head dim that is a multiple
+    of 16); mask [B, Sq, Sk] contiguous fp32 or None. Returns (ctx
+    [B, Sq, H*D] in q3.dtype, colsum [B, Sk] fp32 or None)."""
+    global launches
+    b, sq, sk, d = _check_inputs("attention_fwd_cuda", q3, k3, v3, mask, num_heads)
     lib = load_kernel()
     out = torch.empty_like(q3)
     part = colsum = None
     if collect_colsum:
-        tile = lib.merlot_attention_fwd_q_tile()
-        n_tiles = -(-sq // tile)
+        n_tiles = -(-sq // lib.merlot_attention_fwd_q_tile())
         part = torch.empty((b, num_heads, n_tiles, sk), dtype=torch.float32,
                            device=q3.device)
         colsum = torch.empty((b, sk), dtype=torch.float32, device=q3.device)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     err = lib.merlot_attention_fwd(
-        ptr(q3), ptr(k3), ptr(v3), ptr(mask), ptr(out), ptr(part), ptr(colsum),
-        b, sq, sk, num_heads, d, _DTYPE_CODE[q3.dtype], int(softmax_fp32),
-        1.0 / (d ** 0.5), stream)
+        _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(out), _ptr(part),
+        _ptr(colsum), b, sq, sk, num_heads, d, _DTYPE_CODE[q3.dtype],
+        int(softmax_fp32), 1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel failed: cudaError_t {err}")
     launches += 1
     return out, colsum
 
 
+def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                       mask: Optional[torch.Tensor], g3: torch.Tensor,
+                       gcol: Optional[torch.Tensor], *, num_heads: int,
+                       softmax_fp32: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch K2. q3/k3/v3/mask as for ``attention_fwd_cuda``; g3 the
+    cotangent of ctx (like q3, contiguous); gcol the cotangent of the
+    colsum [B, Sk] fp32 or None. Returns (dq, dk, dv) in the input dtype."""
+    global bwd_launches
+    b, sq, sk, d = _check_inputs("attention_bwd_cuda", q3, k3, v3, mask, num_heads,
+                                 like_q=(g3,), fp32=(gcol,))
+    if gcol is not None and tuple(gcol.shape) != (b, sk):
+        raise ValueError(f"attention_bwd_cuda: gcol must be {(b, sk)}, "
+                         f"got {tuple(gcol.shape)}")
+    lib = load_bwd_kernel()
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
+    stats = torch.empty(3 * b * num_heads * sq, dtype=torch.float32, device=q3.device)
+    stream = torch.cuda.current_stream(q3.device).cuda_stream
+    err = lib.merlot_attention_bwd(
+        _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(g3), _ptr(gcol),
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b, sq, sk, num_heads, d,
+        _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"attention_bwd kernel failed: cudaError_t {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
 def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                           mask: Optional[torch.Tensor], *, num_heads: int,
                           softmax_fp32: bool, collect_colsum: bool
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The kernel's function in plain PyTorch, same arguments and results."""
+    """K1's function in plain PyTorch, same arguments and results."""
     b, sq, hd = q3.shape
     sk = k3.shape[1]
     d = hd // num_heads
@@ -132,28 +188,84 @@ def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     return ctx.reshape(b, sq, hd), colsum
 
 
+def attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                        mask: Optional[torch.Tensor], g3: torch.Tensor,
+                        gcol: Optional[torch.Tensor], *, num_heads: int,
+                        softmax_fp32: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's function in plain PyTorch (the TPU kernel's ``_attn_bwd_kernel``),
+    same arguments and results: P recomputed as the forward computes it and
+    held in fp32, every product on fp32 operands."""
+    b, sq, hd = q3.shape
+    sk = k3.shape[1]
+    d = hd // num_heads
+    scale = 1.0 / (d ** 0.5)
+    q, do = (t.reshape(b, sq, num_heads, d) for t in (q3, g3))
+    k, v = (t.reshape(b, sk, num_heads, d) for t in (k3, v3))
+    p = attention_probs(q, k, mask, softmax_fp32=softmax_fp32).float()
+    do, q, k, v = do.float(), q.float(), k.float(), v.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    if gcol is not None:
+        dp = dp + (gcol.float() / num_heads)[:, None, None, :]
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    if mask is not None:
+        ds = ds * mask.float()[:, None]
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return (dq.reshape(b, sq, hd).to(q3.dtype), dk.reshape(b, sk, hd).to(k3.dtype),
+            dv.reshape(b, sk, hd).to(v3.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with K1 as its forward and K2 as its backward on CUDA
+    tensors, and their plain versions on CPU tensors (the custom_vjp
+    ``_flash_p`` of the JAX package). Inputs as for ``attention_fwd_cuda``;
+    returns (ctx, colsum or None)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, mask, num_heads: int, softmax_fp32: bool,
+                collect_colsum: bool):
+        kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32,
+                  collect_colsum=collect_colsum)
+        if q3.device.type == "cuda":
+            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, **kw)
+        elif q3.device.type == "cpu":
+            out, colsum = flash_attention_plain(q3, k3, v3, mask, **kw)
+        else:
+            raise ValueError(f"flash_attention: no path for device {q3.device}")
+        ctx.save_for_backward(q3, k3, v3, mask)
+        ctx.num_heads, ctx.softmax_fp32 = num_heads, softmax_fp32
+        ctx.set_materialize_grads(False)
+        return out, colsum
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_colsum):
+        q3, k3, v3, mask = ctx.saved_tensors
+        g3 = torch.zeros_like(q3) if g_ctx is None else g_ctx.contiguous()
+        gcol = None if g_colsum is None else g_colsum.float().contiguous()
+        fn = attention_bwd_cuda if q3.device.type == "cuda" else attention_bwd_plain
+        dq, dk, dv = fn(q3, k3, v3, mask, g3, gcol, num_heads=ctx.num_heads,
+                        softmax_fp32=ctx.softmax_fp32)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor], *, collect: str = "none",
                     softmax_fp32: bool = False
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """attention_core-compatible entry. q [B, Sq, H, D]; k/v [B, Sk, H, D];
     mask [B, Sq, Sk] (1 = attend) or None. Returns (ctx [B, Sq, H, D],
-    colsum [B, Sk] fp32 or None). CUDA tensors go to the kernel, CPU
-    tensors to the plain version."""
+    colsum [B, Sk] fp32 or None), differentiable through
+    ``FlashAttention``."""
     if collect not in ("none", "colsum"):
         raise ValueError(f"bad collect={collect}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
-    args = (q.reshape(b, sq, h * d), k.reshape(b, sk, h * d),
-            v.reshape(b, sk, h * d), mask)
-    kw = dict(num_heads=h, softmax_fp32=softmax_fp32,
-              collect_colsum=collect == "colsum")
-    if q.device.type == "cuda":
-        ctx, colsum = attention_fwd_cuda(*args, **kw)
-    elif q.device.type == "cpu":
-        ctx, colsum = flash_attention_plain(*args, **kw)
-    else:
-        raise ValueError(f"flash_attention: no path for device {q.device}")
+    ctx, colsum = FlashAttention.apply(
+        q.reshape(b, sq, h * d), k.reshape(b, sk, h * d), v.reshape(b, sk, h * d),
+        mask, h, softmax_fp32, collect == "colsum")
     return ctx.reshape(b, sq, h, d), colsum

@@ -1,5 +1,5 @@
-"""The hand-written attention kernel against its plain PyTorch version, on
-a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
+"""The hand-written attention kernels (K1 forward, K2 backward) against
+their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py``
 (tests/conftest.py imports jax, which the GPU machine may lack).
 
@@ -9,6 +9,12 @@ and differ only in the order of fp32 sums, so ctx may differ by at most
 BF16_ULPS bf16 ulps of the largest |ctx|, and by at most BF16_MEAN_TOL on
 average; softmax in the other dtype moves the mean by far more, which
 ``test_bf16_check_sees_softmax_mode`` shows. colsum 1e-3 relative.
+
+K2 (dO ~ 0.1 N(0, 1)): fp32 inputs 1e-5 of the largest |grad|; bf16 inputs
+at most BF16_ULPS bf16 ulps of the largest |grad| and BWD_MEAN_TOL on
+average (K2 rebuilds P bit for bit and runs every product on fp32
+operands, so only the order of fp32 sums differs); dQ exactly 0 on fully
+masked rows.
 """
 
 import math
@@ -17,6 +23,7 @@ import pytest
 import torch
 
 from merlot_tpu_torch.ops import cuda_attention
+from merlot_tpu_torch.ops.attention import attention_core
 
 pytestmark = pytest.mark.gpu
 
@@ -116,3 +123,60 @@ def test_kernel_refuses_bad_inputs(cuda):
         cuda_attention.attention_fwd_cuda(buf[1:].view(q.shape), k, v, None,
                                           num_heads=2, softmax_fp32=True,
                                           collect_colsum=False)
+
+
+BWD_MEAN_TOL = 1e-6
+
+
+def _bwd_extra(cuda, b, sq, sk, h, d, dtype, colsum, seed=1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    do = (0.1 * torch.randn((b, sq, h * d), generator=g, device=cuda)).to(dtype)
+    gcol = torch.randn((b, sk), generator=g, device=cuda) if colsum else None
+    return do, gcol
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32,b,sq,sk,h,d,masked,colsum", CASES)
+def test_bwd_kernel_matches_plain(cuda, dtype, softmax_fp32, b, sq, sk, h, d,
+                                  masked, colsum):
+    q, k, v, mask = _inputs(cuda, b, sq, sk, h, d, dtype, masked)
+    do, gcol = _bwd_extra(cuda, b, sq, sk, h, d, dtype, colsum)
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32)
+    before = cuda_attention.bwd_launches
+    got = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    torch.cuda.synchronize()
+    assert cuda_attention.bwd_launches == before + 1
+    ref = cuda_attention.attention_bwd_plain(q, k, v, mask, do, gcol, **kw)
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        diff = (a.float() - r.float()).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-5 * r.abs().max().item()
+        else:
+            assert diff.max().item() <= _bf16_bound(r.float())
+            assert diff.mean().item() <= BWD_MEAN_TOL
+    if masked:
+        assert not got[0][0, min(3, sq - 1)].any()      # the fully masked row
+
+
+def test_flash_attention_autograd_runs_both_kernels(cuda):
+    """Autograd through FlashAttention on CUDA tensors launches K1 forward
+    and K2 backward once each, takes a non-contiguous dO, and matches
+    autograd through the plain versions."""
+    q, k, v, mask = _inputs(cuda, 2, 50, 50, 4, 64, torch.bfloat16, True)
+    grads = []
+    for backend in ("cuda", "plain"):
+        leaves = [t.reshape(2, 50, 4, 64).detach().requires_grad_() for t in (q, k, v)]
+        before = (cuda_attention.launches, cuda_attention.bwd_launches)
+        ctx, _ = attention_core(*leaves, mask, backend=backend, softmax_fp32=False)
+        loss = (ctx.transpose(1, 2).float() * torch.arange(
+            50, device=cuda).float().view(1, 1, 50, 1)).sum()     # non-contiguous dO
+        grads.append(torch.autograd.grad(loss, leaves))
+        launched = (cuda_attention.launches - before[0],
+                    cuda_attention.bwd_launches - before[1])
+        assert launched == ((1, 1) if backend == "cuda" else (0, 0))
+    for a, r in zip(*grads):
+        diff = (a.float() - r.float()).abs()
+        # autograd through the plain bf16 path rounds dP and dS to bf16
+        # (tensors of the input dtype); K2 keeps them in fp32, as the TPU
+        # kernel does: a few bf16 ulps of the largest |grad| at most
+        assert diff.max().item() <= 4 * _bf16_bound(r.float())

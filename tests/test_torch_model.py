@@ -147,7 +147,8 @@ def test_model_forward_matches_jax(pair):
 def test_model_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         MerlotModel(MerlotConfig(**dict(TINY, scan_layers=True)))
-    tm = MerlotModel(MerlotConfig(**TINY))
+    # attention-prob dropout (0 in every config) is refused in training
+    tm = MerlotModel(MerlotConfig(**dict(TINY, attention_probs_dropout_prob=0.1)))
     imgs, ids, _ = _inputs()
     with pytest.raises(NotImplementedError):
-        tm(torch.from_numpy(imgs), torch.from_numpy(ids), mask_input=True)
+        tm(torch.from_numpy(imgs), torch.from_numpy(ids), deterministic=False)
