@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out details.json]
 
 1. builds the attention kernels from csrc/ with nvcc, one process each, in
-   parallel: K1 (forward) and K2 (backward);
+   parallel: K1 (forward), K2 (backward) and K3 (the stacked KV cache);
 2. K1 phase: holds K1 against its plain PyTorch version at the two
    zero-shot shapes (fp32 softmax) and the three pretrain shapes (bf16
    softmax), all in bf16, and times K1, the plain version and, as a
@@ -33,7 +33,29 @@
    warmup); one step's loss and gradients through the kernels match the
    plain attention's within a bound, and a backward with the mask dropped
    exceeds it; then torch.profiler over two more steps gives the device
-   time by kernel family and the device's idle share.
+   time by kernel family and the device's idle share;
+6. K3 phase: holds K3 against its plain version at grover-medium's heads
+   (16 x 64) with causal masks over cache positions and zero cache rows
+   past the position: decode (B=8 bf16 and fp32, B=1 bf16; Sk=1537, the
+   server's max_len, and 1216, bench.py's grover mode) and prefill (B=8
+   bf16, B=2 fp32; Sq=1024), with two fault probes that must fail the
+   bounds (the mask dropped; the values read from the key half), and
+   times K3, the plain version and SDPA on the buffer's k/v views beside
+   the bound;
+7. Grover decode phase: grover-medium (configs/grover_medium.json, full
+   width and depth, seeded random weights, bf16, fused qkv and the stacked
+   cache) under bench.py's grover method (B=8, prefix 1024, 32 and 192
+   new tokens, p=0.005, k_prefilter 1024): decode tokens/s from the
+   slope, the prefill ms, 24 K3 launches per prefill and per decode step,
+   K3 ms per decode step (CUDA events), and torch.profiler over one
+   32-token generation (K3's device time, the idle share); the logits of a prefill and 8
+   argmax decode steps through K3 against the plain attention fed the same
+   tokens, with a mask-less plain run checked to exceed the bound; and a
+   short fp32 generation (fp32 K3);
+8. server phase: the port's DenoiseHTTPServer on 127.0.0.1 with the
+   server's defaults (grover-medium, max_len 1537, top_p 0.94, --bf16,
+   batching at max_batch 8) answers 4 concurrent POST /api/ask, coalesced
+   (/stats mean_batch > 1), with 4 JSONL records and the seconds per batch.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -53,6 +75,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -121,9 +144,46 @@ LAUNCHES_PER_STEP = 36
 TRAIN_GRAD_TOL = 0.1
 TRAIN_LOSS_RTOL = 1e-4
 
-# the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W)
+# the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
+# bf16 on the tensor cores, fp32 outside them, device memory
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+
+# K3 at grover-medium's heads. Shapes: (name, batch, Sq, Sk, position of
+# the first query, dtype); Sk is the server's max_len 1537, or 1216 (bench.py's
+# grover mode: prefix 1024 + 192); the cache is zero past the last query
+GROVER_HEADS, GROVER_D = 16, 64
+STACKED_SHAPES = [
+    ("decode_b8_bf16", 8, 1, 1537, 1100, "bf16"),
+    ("decode_b8_fp32", 8, 1, 1537, 1100, "fp32"),
+    ("decode_b1_bf16", 1, 1, 1537, 1100, "bf16"),
+    ("prefill_b8_bf16", 8, 1024, 1537, 0, "bf16"),
+    ("prefill_b2_fp32", 2, 1024, 1537, 0, "fp32"),
+    ("decode_b8_bf16_bench", 8, 1, 1216, 1100, "bf16"),
+]
+# bf16 takes K1's bounds (CTX_ULPS, CTX_MEAN_TOL). fp32: the largest error
+# over the largest |ctx|, both sides fp32 with sums in another order: 6.7e-7
+# measured at decode (0 at prefill) on the H100, so 4.5x margin; the fault
+# probes move it by > 0.18
+STACKED_FP32_RTOL = 3e-6
+# the Grover decode phase: bench.py's grover method
+GROVER_BATCH, GROVER_PREFIX, GROVER_GENS = 8, 1024, (32, 192)
+GROVER_REPEATS = 3
+GREEDY_STEPS = 8
+# prefill + 8 argmax decode steps, K3 vs the plain attention fed the same
+# tokens: the largest |logit difference| (fp32 logits of |x| up to ~4.3,
+# bf16 activations through 24 layers). Measured 0.054 on the H100, so 2.8x
+# margin; the mask-less plain run moves them by 0.56 (decode) and 2.7
+# (prefill)
+GROVER_LOGIT_TOL = 0.15
+SERVER_REQUESTS = 4
+SERVER_TEXTS = [
+    "so today were gonna make pasta with a to mate sauce from scratch",
+    "the whether tomorrow is gonna be sunny in the after noon they said",
+    "first you wanna pre heat the oven two three fifty degrees okay",
+    "and thats how you fix a flat tire on a bike real quick guys",
+]
 
 # configs/pretrain_5seg.yaml, model block (init_checkpoint left out: the
 # weights are random, drawn from a seed)
@@ -201,11 +261,11 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def bound(flops: float, nbytes: float) -> tuple:
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the bf16 tensor-core peak and the bytes over the
-    device-memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    operations over the peak of their type (bf16 on the tensor cores by
+    default) and the bytes over the device-memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -742,10 +802,12 @@ def train_phase(dev) -> dict:
 
 
 def kernel_family(name: str) -> str:
-    """A coarse family for a kernel name in a profile: this package's two
+    """A coarse family for a kernel name in a profile: this package's
     kernels, library matmuls and convolutions, or everything else
     (elementwise, reductions, norms, copies, RNG)."""
     low = name.lower()
+    if "attention_decode" in low:
+        return "K3 attention_decode"
     if "attention_fwd" in low:
         return "K1 attention_fwd"
     if "attention_bwd" in low:
@@ -757,18 +819,16 @@ def kernel_family(name: str) -> str:
     return "elementwise, reduction and other"
 
 
-def profile_steps(dev, step, model, state, batch) -> dict:
-    """torch.profiler over two train steps: device time by kernel and the
+def profile_device(run, label: str, family=kernel_family, **info) -> dict:
+    """torch.profiler over run(): device time by kernel family and the
     device's idle share (the profiler's own overhead counts as idle)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator(device=dev).manual_seed(4)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            step(model, state, batch, g)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -776,19 +836,443 @@ def profile_steps(dev, step, model, state, batch) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:40]
     families = {}
     for e in events:
-        fam = kernel_family(e.key)
+        fam = family(e.key)
         ms, n = families.get(fam, (0.0, 0))
         families[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    summary = {"steps": 2, "wall_ms": wall_ms, "device_ms": total,
+    summary = {**info, "wall_ms": wall_ms, "device_ms": total,
                "device_idle_share": 1 - total / wall_ms if wall_ms else None,
                "families": {f: {"ms": ms, "launches": n}
                             for f, (ms, n) in sorted(families.items(),
                                                      key=lambda x: -x[1][0])},
                "top_kernels": [{"name": e.key, "ms": e.self_device_time_total / 1e3,
                                 "count": e.count} for e in top]}
-    print(f"[profile] {json.dumps({k: summary[k] for k in summary if k != 'top_kernels'})}",
+    print(f"[{label}] {json.dumps({k: summary[k] for k in summary if k != 'top_kernels'})}",
           flush=True)
     return summary
+
+
+def profile_steps(dev, step, model, state, batch) -> dict:
+    """torch.profiler over two train steps."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def run():
+        for _ in range(2):
+            step(model, state, batch, g)
+    return profile_device(run, "profile", steps=2)
+
+
+# ---------------------------------------------------------------------------
+# K3 and Grover serving
+
+
+def stacked_inputs(dev, g, b, sq, sk, pos0, dtype):
+    """q, kv ~ N(0, 1) with the cache rows past the last query zero, and the
+    causal mask over cache positions [1, Sq, Sk] (one for the batch, as the
+    model builds it)."""
+    import torch
+    hd = GROVER_HEADS * GROVER_D
+    q = torch.randn((b, sq, hd), generator=g, device=dev).to(dtype)
+    kv = torch.randn((b, sk, 2 * hd), generator=g, device=dev).to(dtype)
+    kv[:, pos0 + sq:] = 0
+    mask = (torch.arange(sk, device=dev)[None]
+            <= pos0 + torch.arange(sq, device=dev)[:, None]).float()[None]
+    return q, kv, mask
+
+
+def stacked_bound(b, sq, sk, dtype) -> tuple:
+    """K3's bound: 4*B*H*Sq*Sk*D operations at the peak of the input type;
+    kv, q and ctx once each in that type and the shared mask in fp32."""
+    import torch
+    hd = GROVER_HEADS * GROVER_D
+    elem = 2 if dtype == torch.bfloat16 else 4
+    flops = 4 * b * GROVER_HEADS * sq * sk * GROVER_D
+    nbytes = elem * (b * sk * 2 * hd + 2 * b * sq * hd) + 4 * sq * sk
+    return bound(flops, nbytes, PEAK_BF16_FLOPS if elem == 2 else PEAK_FP32_FLOPS)
+
+
+def rotating_ms(fn, inputs: list, iters: int = 10) -> float:
+    """CUDA-event ms per call of fn over copies of its inputs taken in
+    turn, so that a small cache is not served from L2 as the 24 layers'
+    caches of a decode step would not be."""
+    k = [0]
+
+    def call():
+        fn(*inputs[k[0] % len(inputs)])
+        k[0] += 1
+    return cuda_ms(call, iters=iters)
+
+
+def stacked_within(row: dict, max_err: float, mean_err: float) -> bool:
+    if row["dtype"] == "fp32":
+        return max_err <= STACKED_FP32_RTOL * row["ref_max_abs"]
+    return max_err <= row["max_abs_err_bound"] and mean_err <= CTX_MEAN_TOL
+
+
+def stacked_shape(dev, g, spec) -> dict:
+    """K3 and its plain version at one shape: errors, fault probes, times."""
+    import torch
+    import torch.nn.functional as F
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    name, b, sq, sk, pos0, dt = spec
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype)
+    hd = GROVER_HEADS * GROVER_D
+    kw = dict(num_heads=GROVER_HEADS, softmax_fp32=True)
+    ctx = ca.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+    torch.cuda.synchronize()
+    ref = ca.flash_attention_stacked_plain(q, kv, mask, **kw)
+
+    def errs(x):
+        d = (x.float() - ref.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    ref_max = ref.float().abs().max().item()
+    row = {"shape": name, "batch": b, "sq": sq, "sk": sk, "first_query_pos": pos0,
+           "dtype": dt, "ref_max_abs": ref_max,
+           "max_abs_err_bound": (CTX_ULPS * bf16_ulp(ref_max) if dt == "bf16"
+                                 else STACKED_FP32_RTOL * ref_max)}
+    row["max_abs_err"], row["mean_abs_err"] = errs(ctx)
+    # fault probes: the zero slots join the softmax; the values come from
+    # the key half of the buffer
+    row["no_mask_max_abs_diff"], row["no_mask_mean_abs_diff"] = errs(
+        ca.flash_attention_stacked_plain(q, kv, None, **kw))
+    row["v_from_k_max_abs_diff"], row["v_from_k_mean_abs_diff"] = errs(
+        ca.flash_attention_stacked_plain(q, torch.cat([kv[..., :hd], kv[..., :hd]], -1),
+                                         mask, **kw))
+    n_copies = max(1, min(32, math.ceil(160e6 / (kv.numel() * kv.element_size()))))
+    copies = [(q.clone(), kv.clone(), mask) for _ in range(n_copies)]
+    row["timing_copies"] = n_copies
+    row["ms"] = rotating_ms(lambda *a: ca.attention_stacked_fwd_cuda(*a, **kw), copies)
+    row["plain_ms"] = rotating_ms(lambda *a: ca.flash_attention_stacked_plain(*a, **kw),
+                                  copies)
+    # the yardstick: SDPA on the k/v views of the buffer, the mask as an
+    # additive -1e10 bias in the input dtype
+    def sdpa(q3, kv3, m):
+        heads = lambda t, s: t.view(b, s, GROVER_HEADS, GROVER_D).transpose(1, 2)
+        bias = ((m - 1.0) * 1e10).to(dtype)[:, None]
+        return F.scaled_dot_product_attention(heads(q3, sq), heads(kv3[..., :hd], sk),
+                                              heads(kv3[..., hd:], sk), attn_mask=bias)
+    row["library_ms"] = rotating_ms(sdpa, copies)
+    row["bound_ms"], row["bound_by"] = stacked_bound(b, sq, sk, dtype)
+    del copies
+    return row
+
+
+def check_stacked_row(row: dict) -> None:
+    name = row["shape"]
+    check(stacked_within(row, row["max_abs_err"], row["mean_abs_err"]),
+          f"K3 {name}: max err {row['max_abs_err']} (bound {row['max_abs_err_bound']}), "
+          f"mean {row['mean_abs_err']}")
+    for probe in ("no_mask", "v_from_k"):
+        check(not stacked_within(row, row[f"{probe}_max_abs_diff"],
+                                 row[f"{probe}_mean_abs_diff"]),
+              f"K3 {name}: the {probe} fault passes the bounds, so they cannot see it")
+
+
+def stacked_phase(dev) -> list[dict]:
+    """K3 against its plain version at the six shapes."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for spec in STACKED_SHAPES:
+        row = stacked_shape(dev, g, spec)
+        print(f"[kernel3] {json.dumps(row)}", flush=True)
+        check_stacked_row(row)
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def grover_model(dev, bf16: bool):
+    """grover-medium as the denoiser serves it (fused qkv, stacked cache),
+    weights from seed 0; with bf16, cast for serving."""
+    import dataclasses
+    import torch
+    from merlot_tpu_torch.models.grover import (GroverConfig, GroverLM,
+                                                cast_params_for_serving)
+    from merlot_tpu_torch.nn.layers import init_params
+    cfg = dataclasses.replace(
+        GroverConfig.from_json_file(str(ROOT / "configs" / "grover_medium.json")),
+        use_bfloat16=bf16, fused_qkv=True, stacked_kv=True)
+    model = GroverLM(cfg, device=dev).eval()
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    if bf16:
+        cast_params_for_serving(model)
+    return model
+
+
+def split_spans(spans: list) -> tuple:
+    """(prefill ms, decode launches, their ms) of one generation's spans:
+    the prefill's 24 launches come first."""
+    return spans_ms(spans[:24]), len(spans) - 24, spans_ms(spans[24:])
+
+
+def greedy_logits(model, ctx, max_len: int, feed=None) -> tuple:
+    """The prefill and GREEDY_STEPS decode steps, each fed the argmax of the
+    logits before it (the sampler at p tiny), or the tokens ``feed``:
+    (logits at every prefill position [B, P, V] fp32, logits of the decode
+    steps' inputs' successors [steps + 1, B, V] fp32 (the prefill's last
+    position first), fed tokens [steps, B])."""
+    import torch
+    from merlot_tpu_torch.models.grover import lm_logits_for_hidden
+    with torch.inference_mode():
+        cache = model.empty_cache(ctx.shape[0], max_len)
+        _, cache, h = model(ctx, cache=cache, return_hidden=True, compute_logits=False)
+        prefill = lm_logits_for_hidden(model.word_embed, model.cfg, h)
+        logits = [prefill[:, -1]]
+        toks = []
+        for i in range(GREEDY_STEPS):
+            toks.append(logits[-1].argmax(-1) if feed is None else feed[i])
+            lg, cache = model(toks[-1][:, None], cache=cache,
+                              position_offset=ctx.shape[1] + i)
+            logits.append(lg[:, 0])
+        return prefill, torch.stack(logits), torch.stack(toks)
+
+
+def logits_gap(a: tuple, b: tuple) -> dict:
+    """Largest |difference| of the prefill and of the decode logits."""
+    return {"prefill": (a[0] - b[0]).abs().max().item(),
+            "decode": (a[1] - b[1]).abs().max().item()}
+
+
+def check_generation(toks, probs, ctx, vocab: int) -> None:
+    import torch
+    b, prefix = ctx.shape
+    check(torch.equal(toks[:, :prefix].cpu(), torch.from_numpy(ctx)),
+          "generation: the prefix was not kept")
+    gen = toks[:, prefix:]
+    check(bool(((gen > 0) & (gen < vocab)).all()), "generation: tokens out of range")
+    check(bool(torch.isfinite(probs).all()) and bool(((probs >= 0) & (probs <= 1)).all()),
+          "generation: probs not in [0, 1]")
+    check(bool((probs[:, 1:] > 0).all()), "generation: a zero prob")
+
+
+def grover_family(name: str) -> str:
+    """kernel_family on the Grover path, where K1 is never launched (the
+    phase checks it), so K1's tiled kernels are K3's prefill."""
+    fam = kernel_family(name)
+    return "K3 prefill (K1's tiled kernels)" if fam == "K1 attention_fwd" else fam
+
+
+def grover_phase(dev) -> dict:
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.models.grover import make_seq2seq_sampler
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = grover_model(dev, bf16=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    ctx = np.random.default_rng(0).integers(100, 50257, (GROVER_BATCH, GROVER_PREFIX))
+    ctx_t = torch.from_numpy(ctx).to(dev)
+    lo, hi = GROVER_GENS
+    samplers = {g: make_seq2seq_sampler(model, max_len=GROVER_PREFIX + g,
+                                        prefix_len=GROVER_PREFIX, p_for_topp=0.005,
+                                        eos_token=-1, k_prefilter=1024)
+                for g in GROVER_GENS}
+    gen = torch.Generator(device=dev)
+    for g in GROVER_GENS:                           # warm-up
+        samplers[g](ctx, gen.manual_seed(1))
+    prefill_s = []
+    for _ in range(GROVER_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model(ctx_t, cache=model.empty_cache(GROVER_BATCH, GROVER_PREFIX + hi),
+                  return_hidden=True, compute_logits=False)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+
+    # the main path: counts set to 0 just before, read just after
+    ca.launches = ca.bwd_launches = ca.stacked_launches = 0
+    times = {g: [] for g in GROVER_GENS}
+    outs = {}
+    for r in range(GROVER_REPEATS):
+        for g in GROVER_GENS:
+            t0 = time.perf_counter()
+            outs[g] = samplers[g](ctx, gen.manual_seed(10 + r))
+            torch.cuda.synchronize()
+            times[g].append(time.perf_counter() - t0)
+    spans: list = []
+    with wrapped(ca, "attention_stacked_fwd_cuda", event_timed(spans)):
+        samplers[hi](ctx, gen.manual_seed(20))
+    torch.cuda.synchronize()
+    k3_prefill_ms, n_dec, k3_decode_ms = split_spans(spans)
+    # device time by kernel over one generation of `lo` tokens: K3's own
+    # time on the path (the events above also hold the host's gaps
+    # between launches when the step is host-bound), and the idle share
+    prof = profile_device(lambda: samplers[lo](ctx, gen.manual_seed(21)), "grover-profile",
+                          family=grover_family, batch=GROVER_BATCH,
+                          prefix=GROVER_PREFIX, tokens=lo)
+    k3_dec, k3_pre = (prof["families"].get(f, {"ms": 0.0, "launches": 0}) for f in
+                      ("K3 attention_decode", "K3 prefill (K1's tiled kernels)"))
+    # one short fp32 generation: the prefill and 32 steps through fp32 K3
+    model32 = grover_model(dev, bf16=False)
+    t0 = time.perf_counter()
+    toks32, probs32 = make_seq2seq_sampler(
+        model32, max_len=GROVER_PREFIX + 33, prefix_len=GROVER_PREFIX, p_for_topp=0.005,
+        eos_token=-1, k_prefilter=1024)(ctx, gen.manual_seed(30))
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                "attention_stacked": ca.stacked_launches}
+    del model32
+    want = 24 * (GROVER_REPEATS * sum(GROVER_GENS) + hi + lo + 33)
+    check(launches == {"attention_fwd": 0, "attention_bwd": 0, "attention_stacked": want},
+          f"Grover path launches {launches}, want {want} of K3 only")
+    check(n_dec == 24 * (hi - 1), f"K3 launches: {n_dec} over {hi - 1} decode steps")
+    check((k3_pre["launches"], k3_dec["launches"]) == (24, 24 * (lo - 1)),
+          f"the profile shows {k3_pre['launches']} K3 prefill and {k3_dec['launches']} "
+          f"K3 decode kernels over {lo - 1} steps")
+    for g in GROVER_GENS:
+        check_generation(*outs[g], ctx, cfg.vocab_size)
+    check_generation(toks32, probs32, ctx, cfg.vocab_size)
+
+    # kernels against the plain attention: the kernel run's argmax tokens
+    # are fed to the plain runs, so all see the same inputs
+    max_len = GROVER_PREFIX + hi
+    kern = greedy_logits(model, ctx_t, max_len)
+    toks = kern[2]
+    plain_spans: list = []
+    with wrapped(ca, "attention_stacked_fwd_cuda",
+                 lambda f: event_timed(plain_spans)(ca.flash_attention_stacked_plain)):
+        plain = greedy_logits(model, ctx_t, max_len, feed=toks)
+    no_mask = lambda q3, kv3, mask, **kw: ca.flash_attention_stacked_plain(q3, kv3, None, **kw)
+    with wrapped(ca, "attention_stacked_fwd_cuda", lambda f: no_mask):
+        broken = greedy_logits(model, ctx_t, max_len, feed=toks)
+    check(ca.stacked_launches == launches["attention_stacked"] + 24 * (GREEDY_STEPS + 1),
+          "the plain runs launched K3")
+    plain_prefill_ms, n_plain_dec, plain_decode_ms = split_spans(plain_spans)
+    gap = logits_gap(kern, plain)
+    nm_gap = logits_gap(broken, plain)
+    diff, nm_diff = max(gap.values()), max(nm_gap.values())
+    same_argmax = (kern[1].argmax(-1) == plain[1].argmax(-1)).float().mean().item()
+    logits_max = max(plain[0].abs().max().item(), plain[1].abs().max().item())
+    del kern, plain, broken
+
+    best = {g: min(times[g]) for g in GROVER_GENS}
+    per_tok = (best[hi] - best[lo]) / (hi - lo)
+    result = {"params": n_params, "init_s": init_s, "batch": GROVER_BATCH,
+              "prefix": GROVER_PREFIX, "gens": list(GROVER_GENS),
+              "run_seconds": {str(g): times[g] for g in GROVER_GENS},
+              "decode_tokens_per_s": GROVER_BATCH / per_tok,
+              "decode_ms_per_step": 1e3 * per_tok,
+              "prefill_ms": 1e3 * statistics.median(prefill_s),
+              "prefill_ms_runs": [1e3 * x for x in prefill_s],
+              "launches": launches,
+              "k3_launches_prefill": k3_pre["launches"],
+              "k3_launches_per_decode_step": k3_dec["launches"] / (lo - 1),
+              "k3_prefill_ms": k3_prefill_ms,
+              "k3_event_ms_per_decode_step": k3_decode_ms / (hi - 1),
+              "k3_device_ms_per_decode_step": k3_dec["ms"] / (lo - 1),
+              "plain_prefill_ms": plain_prefill_ms,
+              "plain_event_ms_per_decode_step": plain_decode_ms / n_plain_dec * 24,
+              "profile": {k: v for k, v in prof.items() if k != "top_kernels"},
+              "fp32_generation_s": fp32_s,
+              "logits_max_abs_diff_vs_plain": gap,
+              "logits_max_abs": logits_max,
+              "argmax_agreement_vs_plain": same_argmax,
+              "no_mask_logits_max_abs_diff": nm_gap,
+              "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"[grover] {json.dumps(result)}", flush=True)
+    check(diff <= GROVER_LOGIT_TOL, f"K3 vs plain logits: {diff} > {GROVER_LOGIT_TOL}")
+    check(nm_diff > GROVER_LOGIT_TOL,
+          f"dropping the mask moves the logits by only {nm_diff}: the comparison "
+          "cannot see it")
+    del model, samplers
+    torch.cuda.empty_cache()
+    return result
+
+
+def server_phase(dev, log_path: Path) -> dict:
+    """The port's denoise server with its defaults, answering concurrent
+    requests over HTTP on 127.0.0.1."""
+    import threading
+    import urllib.request
+    import torch
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.tools.denoise_server import (DenoiseHTTPServer, Denoiser,
+                                                       make_handler)
+
+    t0 = time.perf_counter()
+    den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), None, max_len=1537,
+                   top_p=0.94, bf16=True, max_batch=8, device=dev)
+    init_s = time.perf_counter() - t0
+    batch_s, batch_sizes = [], []
+    run_batch = den.run_batch
+
+    def timed_run_batch(ctxs, eos):
+        t = time.perf_counter()
+        out = run_batch(ctxs, eos)
+        batch_s.append(time.perf_counter() - t)
+        batch_sizes.append(len(ctxs))
+        return out
+    den.run_batch = timed_run_batch
+    log_path.unlink(missing_ok=True)
+    server = DenoiseHTTPServer(("127.0.0.1", 0), make_handler(den, str(log_path)))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers, errors = [None] * SERVER_REQUESTS, []
+
+    def ask(i):
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/api/ask",
+                data=json.dumps({"noisyasr": SERVER_TEXTS[i]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                answers[i] = json.loads(resp.read())
+        except Exception as e:
+            errors.append(repr(e))
+
+    try:
+        ca.launches = ca.bwd_launches = ca.stacked_launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(SERVER_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall_s = time.perf_counter() - t0
+        launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                    "attention_stacked": ca.stacked_launches}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    records = log_path.read_text().strip().splitlines() if log_path.exists() else []
+    result = {"init_s": init_s, "requests": SERVER_REQUESTS, "wall_s": wall_s,
+              "batch_seconds": batch_s, "batch_sizes": batch_sizes,
+              "stats": stats, "launches": launches, "log_records": len(records),
+              "answers": [None if a is None else {"gen_chars": len(a["gen"]), "ppl": a["ppl"]}
+                          for a in answers],
+              "errors": errors}
+    print(f"[server] {json.dumps(result)}", flush=True)
+    check(not errors, f"server: {errors}")
+    for a in answers:
+        check(a is not None and isinstance(a["gen"], str)
+              and isinstance(a["ppl"], float) and math.isfinite(a["ppl"]),
+              f"server: bad answer {None if a is None else a['ppl']}")
+    check(stats["batched_requests"] == SERVER_REQUESTS and stats["mean_batch"] > 1,
+          f"server: requests not coalesced {stats}")
+    check(len(records) == SERVER_REQUESTS, f"server: {len(records)} log records")
+    check(launches["attention_stacked"] > 0 and launches["attention_stacked"] % 24 == 0
+          and launches["attention_fwd"] == launches["attention_bwd"] == 0,
+          f"server: launches {launches}")
+    del den
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -811,18 +1295,25 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
+    libs = ("attention_fwd", "attention_bwd", "attention_stacked")
     t0 = time.perf_counter()
-    _build.build_libraries(["attention_fwd", "attention_bwd"])
+    _build.build_libraries(libs)
     build_s = time.perf_counter() - t0
-    print(f"[build] attention_fwd, attention_bwd in {build_s:.1f}s", flush=True)
-    for name in ("attention_fwd", "attention_bwd"):
+    print(f"[build] {', '.join(libs)} in {build_s:.1f}s", flush=True)
+    for name in libs:
         print(_build.build_logs.get(name, ""), flush=True)
 
     k1_rows = kernel_phase(dev)
     k2_rows = bwd_kernel_phase(dev)
+    k3_rows = stacked_phase(dev)
     sl = slice_phase(dev)
     tr, model, state, step, batch = train_phase(dev)
     prof = profile_steps(dev, step, model, state, batch)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    gv = grover_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
 
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
@@ -860,17 +1351,38 @@ def main() -> int:
         "library_ms": 12 * sum(tb[n]["library_ms"] for n in train_shapes),
         "library_note": "backward of scaled_dot_product_attention: fp32 softmax, "
                         "no colsum cotangent; not the same rounding"}
+    # per decode step on the Grover path: 24 launches at its shape (B=8,
+    # Sk=1216), the kernel, the plain version, SDPA and the bound all from
+    # the K3 phase's timing of that shape (the path's own CUDA-event spans
+    # include the host's gaps between launches); K3's device time on the
+    # path, from the profile, beside them
+    k3 = {r["shape"]: r for r in k3_rows}["decode_b8_bf16_bench"]
+    k3_record = {
+        "name": "attention_stacked", "route": "cuda",
+        "source": "merlot_tpu_torch/csrc/attention_stacked.cu",
+        "replaces": "merlot_tpu/ops/pallas_attention.py:656",
+        "launches": gv["launches"]["attention_stacked"]
+        + sv["launches"]["attention_stacked"],
+        "launches_by_path": {"grover_decode": gv["launches"]["attention_stacked"],
+                             "server": sv["launches"]["attention_stacked"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        "ms": 24 * k3["ms"], "plain_ms": 24 * k3["plain_ms"],
+        "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": 24 * k3["library_ms"],
+        "path_device_ms": gv["k3_device_ms_per_decode_step"],
+        "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, bf16"}
+    records = [k1_record, k2_record, k3_record]
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernel_shapes": k1_rows,
-             "bwd_kernel_shapes": k2_rows, "slice": sl, "train": tr,
-             "profile": prof, "records": [k1_record, k2_record],
-             "ptxas": {n: _build.build_logs.get(n, "")
-                       for n in ("attention_fwd", "attention_bwd")}},
+             "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
+             "slice": sl, "train": tr, "profile": prof, "grover": gv, "server": sv,
+             "records": records,
+             "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},
             indent=1))
-    print(json.dumps({"kernels": [k1_record, k2_record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

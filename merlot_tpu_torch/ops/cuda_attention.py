@@ -1,5 +1,5 @@
-"""Attention kernels for Hopper, forward (K1) and backward (K2), and their
-plain PyTorch versions.
+"""Attention kernels for Hopper, forward (K1), backward (K2) and the cached
+forward over a stacked KV cache (K3), and their plain PyTorch versions.
 
 Counterpart of merlot_tpu/ops/pallas_attention.py ``flash_attention``:
 ``_flash_fwd`` (K1), ``_flash_bwd_pallas`` (K2) and the custom_vjp
@@ -11,9 +11,15 @@ layout, an optional multiplicative [B, Sq, Sk] fp32 mask, fp32 or bf16
 softmax; the forward optionally returns the colsum [B, Sk] fp32, and the
 backward takes its cotangent.
 
-``FlashAttention`` launches the kernels for CUDA tensors and uses the plain
-versions for CPU tensors; it never falls back from one to the other.
-``launches`` and ``bwd_launches`` count kernel launches.
+K3 (``flash_attention_stacked``, ``csrc/attention_stacked.cu``) is the
+counterpart of ``flash_attention_stacked``: Grover's serving attention over
+one [B, Sk, 2*H*D] cache buffer per layer, keys in columns [:H*D] and
+values in [H*D:], with a mask of [B or 1, Sq, Sk]. Forward only.
+
+``FlashAttention`` and ``flash_attention_stacked`` launch the kernels for
+CUDA tensors and use the plain versions for CPU tensors; they never fall
+back from one to the other. ``launches``, ``bwd_launches`` and
+``stacked_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -29,9 +35,10 @@ from merlot_tpu_torch.ops.attention import _plain_attention, attention_probs
 MAX_KERNEL_SEQ = 2048
 MAX_HEAD_DIM = 128
 
-# launches of K1 and of K2 since the last reset (set them to 0 to reset)
+# launches of K1, K2 and K3 since the last reset (set them to 0 to reset)
 launches = 0
 bwd_launches = 0
+stacked_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -68,6 +75,17 @@ def load_bwd_kernel() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 10 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load_stacked_kernel() -> ctypes.CDLL:
+    """Build (at first use) and load K3's library."""
+    lib = load_library("attention_stacked")
+    fn = lib.merlot_attention_stacked_fwd
+    if fn.argtypes is None:
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 4 + [i] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -170,6 +188,99 @@ def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         raise RuntimeError(f"attention_bwd kernel failed: cudaError_t {err}")
     bwd_launches += 1
     return dq, dk, dv
+
+
+def _check_stacked(q3, kv3, mask, num_heads: int) -> Tuple[int, int, int, int]:
+    """Validate K3's tensors; returns (B, Sq, Sk, d_head)."""
+    name = "attention_stacked_fwd_cuda"
+    present = [t for t in (q3, kv3, mask) if t is not None]
+    if any(t.device.type != "cuda" or t.device != q3.device for t in present):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    if q3.dtype not in _DTYPE_CODE or kv3.dtype != q3.dtype:
+        raise ValueError(f"{name}: q/kv must share dtype fp32 or bf16, "
+                         f"got {q3.dtype}, {kv3.dtype}")
+    if not all(t.is_contiguous() for t in present):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in present):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if q3.dim() != 3 or kv3.dim() != 3 or q3.shape[2] % num_heads != 0:
+        raise ValueError(f"{name}: bad shapes {tuple(q3.shape)}, {tuple(kv3.shape)} "
+                         f"for {num_heads} heads")
+    b, sq, hd = q3.shape
+    sk = kv3.shape[1]
+    if tuple(kv3.shape) != (b, sk, 2 * hd):
+        raise ValueError(f"{name}: kv must be {(b, sk, 2 * hd)}, got {tuple(kv3.shape)}")
+    d = hd // num_heads
+    # the decode path reads a head's row in 16-byte vectors
+    if not kernel_supported(sq, sk, d, q3.dtype) or d % (16 // q3.element_size()):
+        raise ValueError(f"{name}: unsupported Sq={sq} Sk={sk} d={d} for {q3.dtype}")
+    if mask is not None and (mask.dtype != torch.float32 or mask.dim() != 3
+                             or mask.shape[0] not in (1, b)
+                             or tuple(mask.shape[1:]) != (sq, sk)):
+        raise ValueError(f"{name}: mask must be fp32 {(b, sq, sk)} or {(1, sq, sk)}, "
+                         f"got {mask.dtype} {tuple(mask.shape)}")
+    return b, sq, sk, d
+
+
+def attention_stacked_fwd_cuda(q3: torch.Tensor, kv3: torch.Tensor,
+                               mask: Optional[torch.Tensor], *, num_heads: int,
+                               softmax_fp32: bool) -> torch.Tensor:
+    """Launch K3. q3 [B, Sq, H*D]; kv3 [B, Sk, 2*H*D] with keys in columns
+    [:H*D] and values in [H*D:], contiguous CUDA tensors of one dtype (fp32,
+    or bf16 with a head dim that is a multiple of 16); mask [B, Sq, Sk] or
+    [1, Sq, Sk] (one for the whole batch) contiguous fp32, or None. Returns
+    ctx [B, Sq, H*D] in q3.dtype."""
+    global stacked_launches
+    b, sq, sk, d = _check_stacked(q3, kv3, mask, num_heads)
+    lib = load_stacked_kernel()
+    out = torch.empty_like(q3)
+    stream = torch.cuda.current_stream(q3.device).cuda_stream
+    err = lib.merlot_attention_stacked_fwd(
+        _ptr(q3), _ptr(kv3), _ptr(mask), _ptr(out), b, sq, sk, num_heads, d,
+        int(mask is not None and mask.shape[0] == b), _DTYPE_CODE[q3.dtype],
+        int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"attention_stacked kernel failed: cudaError_t {err}")
+    stacked_launches += 1
+    return out
+
+
+def flash_attention_stacked_plain(q3: torch.Tensor, kv3: torch.Tensor,
+                                  mask: Optional[torch.Tensor], *, num_heads: int,
+                                  softmax_fp32: bool) -> torch.Tensor:
+    """K3's function in plain PyTorch, same arguments and result: the keys
+    and values are the two column halves of kv3."""
+    b, sq, hd = q3.shape
+    sk = kv3.shape[1]
+    d = hd // num_heads
+    ctx, _ = _plain_attention(
+        q3.reshape(b, sq, num_heads, d), kv3[..., :hd].reshape(b, sk, num_heads, d),
+        kv3[..., hd:].reshape(b, sk, num_heads, d), mask, collect="none",
+        softmax_fp32=softmax_fp32)
+    return ctx.reshape(b, sq, hd)
+
+
+def flash_attention_stacked(q: torch.Tensor, kv: torch.Tensor,
+                            mask: Optional[torch.Tensor], *,
+                            softmax_fp32: bool = False) -> torch.Tensor:
+    """Forward-only attention over a stacked KV buffer (serving). q
+    [B, Sq, H, D]; kv [B, Sk, 2*H*D], keys in columns [:H*D], values in
+    [H*D:]; mask [B or 1, Sq, Sk] (1 = attend) or None. Returns ctx
+    [B, Sq, H, D]: K3 on CUDA tensors (a shape it refuses raises), the
+    plain version on CPU tensors."""
+    b, sq, h, d = q.shape
+    q3 = q.reshape(b, sq, h * d)
+    if mask is not None:
+        mask = mask.to(torch.float32).contiguous()
+    if q.device.type == "cuda":
+        ctx = attention_stacked_fwd_cuda(q3.contiguous(), kv, mask, num_heads=h,
+                                         softmax_fp32=softmax_fp32)
+    elif q.device.type == "cpu":
+        ctx = flash_attention_stacked_plain(q3, kv, mask, num_heads=h,
+                                            softmax_fp32=softmax_fp32)
+    else:
+        raise ValueError(f"flash_attention_stacked: no path for device {q.device}")
+    return ctx.reshape(b, sq, h, d)
 
 
 def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,

@@ -1,5 +1,5 @@
-"""The hand-written attention kernels (K1 forward, K2 backward) against
-their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
+"""The hand-written attention kernels (K1 forward, K2 backward, K3 over the
+stacked KV cache) against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py``
 (tests/conftest.py imports jax, which the GPU machine may lack).
 
@@ -15,6 +15,10 @@ at most BF16_ULPS bf16 ulps of the largest |grad| and BWD_MEAN_TOL on
 average (K2 rebuilds P bit for bit and runs every product on fp32
 operands, so only the order of fp32 sums differs); dQ exactly 0 on fully
 masked rows.
+
+K3: the bounds of K1 (fp32 1e-5; bf16 BF16_ULPS of the largest |ctx| and
+BF16_MEAN_TOL on average), on causal masks over cache positions with zero
+cache rows past the position.
 """
 
 import math
@@ -180,3 +184,67 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
         # (tensors of the input dtype); K2 keeps them in fp32, as the TPU
         # kernel does: a few bf16 ulps of the largest |grad| at most
         assert diff.max().item() <= 4 * _bf16_bound(r.float())
+
+
+# K3: cached attention over the stacked KV cache, fp32 inputs 1e-5, bf16
+# inputs the bounds of K1 (the same rounding points, sums in another order)
+STACKED_SHAPES = [  # b, sq, sk, h, d, shared mask
+    (8, 1, 1537, 16, 64, True),      # the server's decode step
+    (1, 1, 300, 4, 64, False),
+    (2, 5, 100, 2, 32, True),        # decode kernel, several query rows
+    (3, 8, 77, 3, 128, False),
+    (2, 40, 129, 4, 64, True),       # prefill: K1's tiled kernels
+    (1, 17, 2048, 2, 128, False),
+]
+STACKED_CASES = [(dt, sm, *shape) for dt, sm in [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
+    for shape in STACKED_SHAPES]
+
+
+def _stacked_inputs(cuda, b, sq, sk, h, d, dtype, shared, seed=0):
+    """q, a stacked cache whose rows past the last query's position are
+    zero, and the causal mask over cache positions ([1, Sq, Sk] if shared)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, sq, h * d), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((b, sk, 2 * h * d), generator=g, device=cuda).to(dtype)
+    pos0 = max(sk // 2 - sq, 0)
+    kv[:, pos0 + sq:] = 0
+    mask = (torch.arange(sk, device=cuda)[None] <=
+            pos0 + torch.arange(sq, device=cuda)[:, None]).float()[None]
+    return q, kv, mask if shared else mask.expand(b, sq, sk).contiguous()
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32,b,sq,sk,h,d,shared", STACKED_CASES)
+def test_stacked_kernel_matches_plain(cuda, dtype, softmax_fp32, b, sq, sk, h, d,
+                                      shared):
+    q, kv, mask = _stacked_inputs(cuda, b, sq, sk, h, d, dtype, shared)
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32)
+    before = cuda_attention.stacked_launches
+    ctx = cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+    torch.cuda.synchronize()
+    assert cuda_attention.stacked_launches == before + 1
+    ref = cuda_attention.flash_attention_stacked_plain(q, kv, mask, **kw)
+    assert ctx.dtype == dtype and ctx.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(ctx, ref, atol=1e-5, rtol=1e-5)
+    else:
+        diff = (ctx.float() - ref.float()).abs()
+        assert diff.max().item() <= _bf16_bound(ref.float())
+        assert diff.mean().item() <= BF16_MEAN_TOL
+
+
+def test_stacked_kernel_refuses_bad_inputs(cuda):
+    q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 64, torch.bfloat16, True)
+    kw = dict(num_heads=2, softmax_fp32=True)
+    with pytest.raises(ValueError, match="kv must be"):
+        cuda_attention.attention_stacked_fwd_cuda(q, kv[..., :128].contiguous(), mask, **kw)
+    with pytest.raises(ValueError, match="mask must be"):
+        cuda_attention.attention_stacked_fwd_cuda(q, kv, mask[:, :, :10].contiguous(), **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_attention.attention_stacked_fwd_cuda(q.float(), kv, mask, **kw)
+    q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 40, torch.bfloat16, True)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+    q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 30, torch.float32, True)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
