@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--out details.json]
 
-1. builds the attention kernels from csrc/ with nvcc, one process each, in
-   parallel: K1 (forward), K2 (backward) and K3 (the stacked KV cache);
+1. builds the kernels from csrc/ with nvcc, one process each, in
+   parallel: K1 (attention forward), K2 (backward), K3 (the stacked KV
+   cache), K4 (fused GroupNorm) and K5 (LayerNorm fused into matmuls);
 2. K1 phase: holds K1 against its plain PyTorch version at the two
    zero-shot shapes (fp32 softmax) and the three pretrain shapes (bf16
    softmax), all in bf16, and times K1, the plain version and, as a
@@ -16,6 +17,16 @@
    also shows that its check sees a fault (the other softmax mode; at the
    lang shape, the missing colsum cotangent) and that dQ is exactly 0 on
    fully masked rows;
+3b. K4 phase: holds K4 against its plain version at the 13 distinct
+   GroupNorm shapes of the train step's LiteResNet (128 frames of 192x352)
+   and the zero-shot stem (20 frames of 384x384), bf16, with fault probes
+   that must fail the bounds (channels grouped by c mod 32, the residual
+   left out, the ReLU left out, where they apply), and times K4, the plain
+   version and F.group_norm (+ add, ReLU) beside the bytes bound;
+3c. K5 phase: the same for K5 at the ten LayerNorm+matmul shapes of the
+   train step and zero-shot (q/k/v J=3 and the MLP J=1, K=768, bf16; the
+   zero-shot rows leave tails), with two fault probes (z kept in fp32,
+   beta left out), beside F.layer_norm + F.linear and the operations bound;
 4. zero-shot phase: MerlotModel at the configs/pretrain_5seg.yaml model
    block (full width and depth, seeded random weights on the card) runs
    zero-shot story ordering on 3 batches of 2 synthetic stories, checks the
@@ -24,6 +35,10 @@
    sees a broken attention (the joint mask dropped), and reports stories/s
    and K1's time per batch (CUDA events around its launches), both as the
    median over the batches;
+4b. fused zero-shot phase: the same weights with both fused norms on
+   (fuse_ln_matmul, the GroupNorm backend on K4): 24 K1, 54 K4 and 48 K5
+   launches per batch, probs against the unfused kernel run, stories/s and
+   K4/K5 ms per batch;
 5. train phase: MerlotPretrainModel and AdamW at the configs/pretrain_4seg.yaml
    model and optimizer blocks (full width and depth, seeded random weights
    on the card), bench.py's batch (8 x 16 chunks x 32 tokens, with padded
@@ -34,6 +49,14 @@
    plain attention's within a bound, and a backward with the mask dropped
    exceeds it; then torch.profiler over two more steps gives the device
    time by kernel family and the device's idle share;
+5b. fused train phase: the train step with both fused norms on: 36 K1,
+   36 K2, 54 K4 and 72 K5 launches per step, segments/s, K4 and K5 ms per
+   step, peak memory, the loss falling; one step's loss and grads against
+   the unfused kernel step's at its weights and masking (a K4 backward
+   without the ReLU mask and a K5 backward without dgamma must exceed the
+   bounds), and torch.profiler over two steps; then the A/B: unfused and
+   fused steps in turns, fresh models, 3 warm-up and 8 timed steps each,
+   with the host's enqueue time per step;
 6. K3 phase: holds K3 against its plain version at grover-medium's heads
    (16 x 64) with causal masks over cache positions and zero cache rows
    past the position: decode (B=8 bf16 and fp32, B=1 bf16; Sk=1537, the
@@ -143,6 +166,99 @@ LAUNCHES_PER_STEP = 36
 # 0.68 and must exceed TRAIN_GRAD_TOL (2.6x the kernel's, 6.8x below it).
 TRAIN_GRAD_TOL = 0.1
 TRAIN_LOSS_RTOL = 1e-4
+
+# K4 at every distinct GroupNorm site of the train step's LiteResNet (128
+# frames of 192x352) and at the zero-shot stem (20 frames of 384x384):
+# (name, frames, HW, C, kind, sites per ViT forward); kind "relu" is
+# GN + ReLU, "proj" GN alone (the projection shortcut), "res" GN + residual
+# + ReLU. The train step's 13 shapes cover its 54 sites.
+GN_SHAPES = [
+    ("stem_c32", 128, 16896, 32, "relu", 2),
+    ("stem_c64", 128, 16896, 64, "relu", 1),
+    ("group1_proj", 128, 4224, 256, "proj", 1),
+    ("group1_c64", 128, 4224, 64, "relu", 6),
+    ("group1_res", 128, 4224, 256, "res", 3),
+    ("group2_c128_hw4224", 128, 4224, 128, "relu", 2),
+    ("group2_proj", 128, 1056, 512, "proj", 1),
+    ("group2_c128", 128, 1056, 128, "relu", 6),
+    ("group2_res", 128, 1056, 512, "res", 4),
+    ("group3_c256_hw1056", 128, 1056, 256, "relu", 2),
+    ("group3_proj", 128, 264, 1024, "proj", 1),
+    ("group3_c256", 128, 264, 256, "relu", 16),
+    ("group3_res", 128, 264, 1024, "res", 9),
+    ("zeroshot_stem_c32", 20, 36864, 32, "relu", 2),
+    ("zeroshot_stem_c64", 20, 36864, 64, "relu", 1),
+]
+GN_GROUPS, GN_EPS = 32, 1e-4
+# out (bf16) against the plain version: both round at the same points and
+# differ only in the order of the fp32 statistic sums, so an element
+# differs by at most one bf16 ulp, and rarely: the largest error at most
+# GN_ULPS ulps of the largest |out|, the mean at most GN_MEAN_TOL; mean and
+# rstd within GN_STAT_TOL (absolute; rstd relative). Fault probes that must
+# fail these bounds: channels grouped by c mod 32 instead of c / (C/32)
+# (where a group holds more than one channel), the residual left out, the
+# ReLU left out (where the site has them).
+# On the H100 the largest error was 1 ulp of the element (at most the
+# bound), the mean 0.9e-8 to 3.9e-8 and the statistics 0.7e-7 to 6.4e-7;
+# the probes move the mean by 4.3e-2 or more. So GN_MEAN_TOL is 25x the
+# kernel's largest mean and GN_STAT_TOL 15x its largest statistic error.
+GN_ULPS = 1
+GN_MEAN_TOL = 1e-6
+GN_STAT_TOL = 1e-5
+# K5 at every LayerNorm+matmul site, K = 768: (name, rows M, consumers J,
+# N): the train step's ViT (128 frames x 266 tokens), joint (32 x 396) and
+# lang (8 x 512) towers, and zero-shot's ViT (20 x 578) and joint (4 x 885),
+# whose row counts leave tails past the last 64-row block
+LN_SHAPES = [
+    ("pretrain_vit_qkv", 34048, 3, 768),
+    ("pretrain_vit_mlp", 34048, 1, 3072),
+    ("pretrain_joint_qkv", 12672, 3, 768),
+    ("pretrain_joint_mlp", 12672, 1, 3072),
+    ("pretrain_lang_qkv", 4096, 3, 768),
+    ("pretrain_lang_mlp", 4096, 1, 3072),
+    ("zeroshot_vit_qkv", 11560, 3, 768),
+    ("zeroshot_vit_mlp", 11560, 1, 3072),
+    ("zeroshot_joint_qkv", 3540, 3, 768),
+    ("zeroshot_joint_mlp", 3540, 1, 3072),
+]
+LN_EPS = 1e-5
+# y (bf16) against the plain version: the same rounding points (z and each
+# product rounded to bf16 before the bias), fp32 sums in another order: the
+# largest error at most LN_ULPS ulps of the largest |y|, the mean at most
+# LN_MEAN_TOL. Fault probes that must fail them: z kept in fp32 (a rounding
+# point moved), beta left out.
+# On the H100 the largest error was at most 1 ulp of the largest |y|, the
+# mean 1.7e-7 to 4.9e-7 (LN_MEAN_TOL is 20x that); z kept in fp32 moves
+# the mean by 7.4e-4, beta left out by 4.2e-2.
+LN_ULPS = 1
+LN_MEAN_TOL = 1e-5
+# the fused paths' launches: K1, K4, K5 per zero-shot batch; K1, K2, K4, K5
+# per train step
+# the A/B of the unfused and fused steps: warm-up and timed steps per run
+AB_WARMUP, AB_STEPS = 3, 8
+FUSED_LAUNCHES_PER_BATCH = (24, 54, 48)
+FUSED_LAUNCHES_PER_STEP = (36, 36, 54, 72)
+# fused vs unfused zero-shot probs: two more sums in another order in every
+# layer (the GroupNorm statistics, the LayerNorm statistics and products)
+# than the kernel-vs-plain attention comparison, through 24 bf16 layers:
+# 3.1e-3 to 6.2e-3 on the H100, so 2.4x margin; K4 with the residual left
+# out must exceed it
+FUSED_SLICE_TOL = 1.5e-2
+# fused vs unfused grads (grad_gap). The unfused path rounds dz and dW of
+# every pre-LN product to bf16 (autograd through bf16 matmuls), the fused
+# one keeps them fp32 as the JAX kernel's backward does: a ~2^-9 relative
+# difference in every grad that reaches the ViT's input. In the LiteResNet
+# that difference is magnified where a tensor's grad nearly cancels (the
+# weight-standardized conv kernels, and the GroupNorms that feed another
+# conv + GroupNorm, which make the loss blind to their scale): 1.13 of such
+# a tensor's largest |grad| on the H100 (stem_gn2's gamma; the median
+# tensor 0.0046). FUSED_RESNET_GRAD_TOL is 2.6x that, as TRAIN_GRAD_TOL is
+# for the attention comparison, and a K4 backward without the ReLU mask
+# must exceed it (1.1e6 on the H100). The other tensors read at most
+# 0.0091 (the position embeddings): FUSED_GRAD_TOL is 2.7x that, and a K5
+# backward without dgamma must exceed it (1.0).
+FUSED_RESNET_GRAD_TOL = 3.0
+FUSED_GRAD_TOL = 0.025
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores, fp32 outside them, device memory
@@ -511,6 +627,242 @@ def bwd_kernel_phase(dev) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K4 and K5
+
+
+def gn_inputs(dev, g, b, hw, c, res):
+    """x bf16 [b, hw, c] shaped like a conv output (per-channel offsets and
+    scales around N(0, 1)), gamma ~ 1 + 0.1 N, beta ~ 0.1 N, and a bf16
+    residual ~ N(0, 1) or None."""
+    import torch
+    x = torch.randn((b, hw, c), generator=g, device=dev)
+    x = (x * (1 + 0.5 * torch.rand(c, generator=g, device=dev))
+         + 0.5 * torch.randn(c, generator=g, device=dev)).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    beta = 0.1 * torch.randn(c, generator=g, device=dev)
+    r = (torch.randn((b, hw, c), generator=g, device=dev).to(torch.bfloat16)
+         if res else None)
+    return x, gamma, beta, r
+
+
+def gn_within(row: dict, max_err: float, mean_err: float) -> bool:
+    return max_err <= row["max_abs_err_bound"] and mean_err <= GN_MEAN_TOL
+
+
+def gn_shape(dev, g, spec) -> dict:
+    """K4 and its plain version at one shape: errors, fault probes, times."""
+    import torch
+    import torch.nn.functional as F
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import norms
+
+    name, b, hw, c, kind, sites = spec
+    relu, res = kind != "proj", kind == "res"
+    x, gamma, beta, r = gn_inputs(dev, g, b, hw, c, res)
+    kw = dict(num_groups=GN_GROUPS, epsilon=GN_EPS, relu=relu)
+    out, mean, rstd = cg.group_norm_act_cuda(x, gamma, beta, r, **kw)
+    torch.cuda.synchronize()
+
+    def plain(x, gamma, beta, r, relu=relu):
+        return norms.group_norm_act_plain(x, gamma, beta, r, GN_GROUPS, GN_EPS, relu)
+
+    ref, ref_mean, ref_rstd = plain(x, gamma, beta, r)
+
+    def errs(o):
+        d = (o.float() - ref.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    ref_max = ref.float().abs().max().item()
+    row = {"shape": name, "frames": b, "hw": hw, "channels": c, "kind": kind,
+           "sites_per_forward": sites, "ref_max_abs": ref_max,
+           "max_abs_err_bound": GN_ULPS * bf16_ulp(ref_max)}
+    row["max_abs_err"], row["mean_abs_err"] = errs(out)
+    row["mean_stat_max_abs_err"] = (mean - ref_mean).abs().max().item()
+    row["rstd_stat_max_rel_err"] = ((rstd - ref_rstd).abs() / ref_rstd).max().item()
+    probes = {}
+    if c > GN_GROUPS:
+        # group g holds channels g, g + 32, ...: run the plain version on the
+        # channels permuted so that those sit together, and permute back
+        perm = torch.arange(c, device=dev).view(c // GN_GROUPS, GN_GROUPS).t().reshape(-1)
+        o, _, _ = plain(x[..., perm].contiguous(), gamma[perm], beta[perm],
+                        None if r is None else r[..., perm].contiguous())
+        probes["groups_by_c_mod_32"] = errs(o[..., torch.argsort(perm)])
+    if res:
+        probes["residual_left_out"] = errs(plain(x, gamma, beta, None)[0])
+    if relu:
+        probes["relu_left_out"] = errs(plain(x, gamma, beta, r, relu=False)[0])
+    row["probes"] = {k: {"max_abs_diff": a, "mean_abs_diff": m} for k, (a, m) in probes.items()}
+    row["ms"] = cuda_ms(lambda: cg.group_norm_act_cuda(x, gamma, beta, r, **kw))
+    row["plain_ms"] = cuda_ms(lambda: plain(x, gamma, beta, r))
+    # the yardstick: torch's group_norm on the NCHW view of the channels-last
+    # memory, then the add and the ReLU where the site has them (gamma and
+    # beta in bf16; not the same rounding)
+    gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+    def library():
+        y = F.group_norm(x.permute(0, 2, 1), GN_GROUPS, gb, bb, GN_EPS)
+        if r is not None:
+            y = y + r.permute(0, 2, 1)
+        return F.relu(y) if relu else y
+
+    row["library_ms"] = cuda_ms(library)
+    # x read once, out written once, the residual read once; per element the
+    # sums (2), the normalize (4), the add and the ReLU, in fp32
+    n = b * hw * c
+    nbytes = 2 * n * (3 if res else 2) + 8 * c + 8 * b * GN_GROUPS
+    row["bound_ms"], row["bound_by"] = bound((6 + res + relu) * n, nbytes, PEAK_FP32_FLOPS)
+    return row
+
+
+def check_gn_row(row: dict) -> None:
+    name = row["shape"]
+    check(gn_within(row, row["max_abs_err"], row["mean_abs_err"]),
+          f"K4 {name}: max err {row['max_abs_err']} (bound {row['max_abs_err_bound']}), "
+          f"mean {row['mean_abs_err']} (bound {GN_MEAN_TOL})")
+    check(row["mean_stat_max_abs_err"] <= GN_STAT_TOL
+          and row["rstd_stat_max_rel_err"] <= GN_STAT_TOL,
+          f"K4 {name}: stats err {row['mean_stat_max_abs_err']}, "
+          f"{row['rstd_stat_max_rel_err']}")
+    check(bool(row["probes"]), f"K4 {name}: no fault probe applies")
+    for probe, d in row["probes"].items():
+        check(not gn_within(row, d["max_abs_diff"], d["mean_abs_diff"]),
+              f"K4 {name}: the {probe} fault passes the bounds, so they cannot see it")
+
+
+def gn_kernel_phase(dev) -> list[dict]:
+    """K4 against its plain version at the 15 GroupNorm shapes."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for spec in GN_SHAPES:
+        row = gn_shape(dev, g, spec)
+        print(f"[kernel4] {json.dumps(row)}", flush=True)
+        check_gn_row(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ln_within(row: dict, max_err: float, mean_err: float) -> bool:
+    return max_err <= row["max_abs_err_bound"] and mean_err <= LN_MEAN_TOL
+
+
+def ln_shape(dev, g, spec) -> dict:
+    """K5 and its plain version at one shape: errors, fault probes, times."""
+    import torch
+    import torch.nn.functional as F
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    from merlot_tpu_torch.ops import norms
+
+    name, m, j, n = spec
+    k = HEADS * D_HEAD
+    bf16 = torch.bfloat16
+    # a residual stream: rows with offsets and scales of their own
+    x = ((torch.randn((m, k), generator=g, device=dev)
+          + 0.5 * torch.randn((m, 1), generator=g, device=dev))
+         * (1 + torch.rand((m, 1), generator=g, device=dev))).to(bf16)
+    gamma = 1 + 0.1 * torch.randn(k, generator=g, device=dev)
+    beta = 0.1 * torch.randn(k, generator=g, device=dev)
+    ws = [0.02 * torch.randn((n, k), generator=g, device=dev) for _ in range(j)]
+    bs = [0.01 * torch.randn(n, generator=g, device=dev) for _ in range(j)]
+    w, bias = torch.cat(ws).to(bf16), torch.cat(bs).to(bf16)
+    kw = dict(num_out=j, epsilon=LN_EPS)
+    y = lm.ln_matmul_cuda(x, gamma, beta, w, bias, **kw)
+    torch.cuda.synchronize()
+    ref = torch.stack(norms.ln_matmul_plain(x, gamma, beta, ws, bs, LN_EPS))
+
+    def errs(o):
+        d = (o.float() - ref.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    ref_max = ref.float().abs().max().item()
+    row = {"shape": name, "rows": m, "k": k, "consumers": j, "n": n,
+           "ref_max_abs": ref_max, "max_abs_err_bound": LN_ULPS * bf16_ulp(ref_max)}
+    row["max_abs_err"], row["mean_abs_err"] = errs(y)
+    # fault probes: z kept in fp32 (the products of fp32 z and the bf16
+    # weights, each rounded to bf16 before the bias); beta left out
+    z32 = norms.layer_norm(x.float(), gamma, beta, LN_EPS)
+    probes = {
+        "z_in_fp32": errs(torch.stack([F.linear(z32, wj.to(bf16).float()).to(bf16)
+                                       + bj.to(bf16) for wj, bj in zip(ws, bs)])),
+        "beta_left_out": errs(torch.stack(norms.ln_matmul_plain(
+            x, gamma, torch.zeros_like(beta), ws, bs, LN_EPS)))}
+    del z32
+    row["probes"] = {p: {"max_abs_diff": a, "mean_abs_diff": d} for p, (a, d) in probes.items()}
+    row["ms"] = cuda_ms(lambda: lm.ln_matmul_cuda(x, gamma, beta, w, bias, **kw))
+    row["plain_ms"] = cuda_ms(lambda: norms.ln_matmul_plain(x, gamma, beta, ws, bs, LN_EPS))
+    # the yardstick: torch's layer_norm, then one linear over the J weights
+    # concatenated (two calls; gamma and beta in bf16, not the same rounding)
+    gb, bb = gamma.to(bf16), beta.to(bf16)
+    row["library_ms"] = cuda_ms(lambda: F.linear(F.layer_norm(x, (k,), gb, bb, LN_EPS),
+                                                 w, bias))
+    nbytes = 2 * (m * k + j * n * k + j * n + j * m * n) + 8 * k
+    row["bound_ms"], row["bound_by"] = bound(2 * m * k * j * n, nbytes)
+    return row
+
+
+def check_ln_row(row: dict) -> None:
+    name = row["shape"]
+    check(ln_within(row, row["max_abs_err"], row["mean_abs_err"]),
+          f"K5 {name}: max err {row['max_abs_err']} (bound {row['max_abs_err_bound']}), "
+          f"mean {row['mean_abs_err']} (bound {LN_MEAN_TOL})")
+    for probe, d in row["probes"].items():
+        check(not ln_within(row, d["max_abs_diff"], d["mean_abs_diff"]),
+              f"K5 {name}: the {probe} fault passes the bounds, so they cannot see it")
+
+
+def ln_kernel_phase(dev) -> list[dict]:
+    """K5 against its plain version at the ten LayerNorm+matmul shapes."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for spec in LN_SHAPES:
+        row = ln_shape(dev, g, spec)
+        print(f"[kernel5] {json.dumps(row)}", flush=True)
+        check_ln_row(row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def fused_norms():
+    """Both GroupNorm backends on K4 inside the block (the port's defaults,
+    like the JAX package's, are the unfused composition)."""
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    with wrapped(cg, "BACKEND", lambda _: "cuda"), \
+            wrapped(cg, "TRAIN_BACKEND", lambda _: "cuda"):
+        yield
+
+
+def counts() -> tuple:
+    """(K1, K2, K4, K5) launches so far."""
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    return ca.launches, ca.bwd_launches, cg.launches, lm.launches
+
+
+def reset_counts() -> None:
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    ca.launches = ca.bwd_launches = ca.stacked_launches = cg.launches = lm.launches = 0
+
+
+@contextlib.contextmanager
+def norm_spans(s4: list, s5: list):
+    """CUDA events around every K4 and K5 launch inside the block."""
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    with wrapped(cg, "group_norm_act_cuda", event_timed(s4)), \
+            wrapped(lm, "ln_matmul_cuda", event_timed(s5)):
+        yield
+
+
 def synthetic_stories(seed: int, image_size, dev):
     import numpy as np
     import torch
@@ -627,6 +979,76 @@ def slice_phase(dev) -> dict:
     check(no_mask_diff > SLICE_TOL,
           f"dropping the joint mask moves the probs by only {no_mask_diff}: "
           "the slice comparison cannot see a broken attention")
+    return result, model, warm, batches, outs
+
+
+def fused_slice_phase(dev, model, warm, batches, outs) -> dict:
+    """Zero-shot with both fused norms on: the same weights in a model with
+    fuse_ln_matmul, the GroupNorm backend on K4; probs against the unfused
+    kernel run's on the same batches."""
+    import dataclasses
+    import torch
+    from merlot_tpu_torch.downstream.sort_story.zero_shot import make_zero_shot_fn
+    from merlot_tpu_torch.models.merlot import MerlotModel
+
+    fused = MerlotModel(dataclasses.replace(model.cfg, fuse_ln_matmul=True), device=dev).eval()
+    fused.load_state_dict(model.state_dict())
+    fn = make_zero_shot_fn(STORIES, CHUNKS)
+    with fused_norms():
+        check_probs(fn(fused, *warm))                # warm-up, not counted
+        torch.cuda.synchronize()
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        fouts, seconds, k4_ms, k5_ms, per_batch = [], [], [], [], []
+        for images, sents in batches:
+            s4, s5 = [], []
+            before = counts()
+            t0 = time.perf_counter()
+            with norm_spans(s4, s5):
+                fouts.append(fn(fused, images, sents))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            k4_ms.append(spans_ms(s4))
+            k5_ms.append(spans_ms(s5))
+            after = counts()
+            per_batch.append((after[0] - before[0], after[2] - before[2], after[3] - before[3]))
+        k1, _, k4, k5 = counts()
+    for out in fouts:
+        check_probs(out)
+    diffs = [max_diff(f, o) for f, o in zip(fouts, outs)]
+    # what the comparison can see: the first batch with K4's residual left
+    # out, and with K5's MLP products zeroed
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    no_res = lambda f: lambda x, gamma, beta, residual, **kw: f(x, gamma, beta, None, **kw)
+    no_mlp = lambda f: lambda *a, num_out, **kw: (
+        f(*a, num_out=num_out, **kw) * (num_out != 1))
+    with fused_norms(), wrapped(cg, "group_norm_act_cuda", no_res):
+        no_residual_diff = max_diff(fn(fused, *batches[0]), outs[0])
+    with fused_norms(), wrapped(lm, "ln_matmul_cuda", no_mlp):
+        no_mlp_diff = max_diff(fn(fused, *batches[0]), outs[0])
+    med = statistics.median(seconds)
+    result = {"launches": {"attention_fwd": k1, "groupnorm": k4, "ln_matmul": k5},
+              "launches_per_batch": per_batch, "batch_seconds": seconds,
+              "stories_per_s": STORIES / med,
+              "stories_per_s_spread": [STORIES / max(seconds), STORIES / min(seconds)],
+              "k4_ms_per_batch": k4_ms, "k4_ms": statistics.median(k4_ms),
+              "k5_ms_per_batch": k5_ms, "k5_ms": statistics.median(k5_ms),
+              "vs_unfused_max_abs_diff": diffs,
+              "no_residual_max_abs_diff": no_residual_diff,
+              "no_mlp_max_abs_diff": no_mlp_diff,
+              "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    print(f"[fused-slice] {json.dumps(result)}", flush=True)
+    check(per_batch == [FUSED_LAUNCHES_PER_BATCH] * BATCHES,
+          f"fused zero-shot K1/K4/K5 launches per batch {per_batch}, "
+          f"want {FUSED_LAUNCHES_PER_BATCH}")
+    check(max(diffs) <= FUSED_SLICE_TOL,
+          f"fused vs unfused slice: {diffs} > {FUSED_SLICE_TOL}")
+    for probe in ("no_residual", "no_mlp"):
+        check(result[f"{probe}_max_abs_diff"] > FUSED_SLICE_TOL,
+              f"the {probe} fault moves the fused probs by only "
+              f"{result[f'{probe}_max_abs_diff']}: the comparison cannot see it")
+    del fused
     return result
 
 
@@ -670,13 +1092,19 @@ def loss_and_grads(model, batch, draws) -> tuple:
 
 def grad_gap(grads: dict, ref: dict) -> dict:
     """Each tensor's largest gradient difference over its largest |grad|,
-    floored at 1e-3 of the largest |grad| of all; the worst tensor."""
+    floored at 1e-3 of the largest |grad| of all; the worst tensor, and the
+    worst of the LiteResNet's tensors and of all the others."""
     floor = 1e-3 * max(r.abs().max().item() for r in ref.values())
     per = {n: (grads[n] - r).abs().max().item() / max(r.abs().max().item(), floor)
            for n, r in ref.items()}
     worst = max(per, key=per.get)
-    return {"max_rel": per[worst], "worst_tensor": worst,
-            "median_rel": statistics.median(per.values())}
+    out = {"max_rel": per[worst], "worst_tensor": worst,
+           "median_rel": statistics.median(per.values())}
+    for part, names in (("resnet", [n for n in per if ".resnet." in n]),
+                        ("rest", [n for n in per if ".resnet." not in n])):
+        w = max(names, key=per.get)
+        out[f"max_rel_{part}"], out[f"worst_tensor_{part}"] = per[w], w
+    return out
 
 
 def train_phase(dev) -> dict:
@@ -758,6 +1186,10 @@ def train_phase(dev) -> dict:
     pin = lambda f: lambda *a, **kw: masking[0]
     with wrapped(merlot_mod, "attention_guided_span_mask", record):
         kernel_loss, kernel_grads = loss_and_grads(model, batch, draws)
+    # what the fused step is held to: these weights, masking and grads
+    ref = {"state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+           "masking": masking[0], "draws": draws, "loss": kernel_loss,
+           "grads": kernel_grads}
     ca.launches = ca.bwd_launches = 0
     s1, s2 = [], []
     with wrapped(merlot_mod, "attention_guided_span_mask", pin), \
@@ -798,7 +1230,170 @@ def train_phase(dev) -> dict:
     check(broken["max_rel"] > TRAIN_GRAD_TOL,
           f"a backward without the mask moves the grads by only "
           f"{broken}: the train comparison cannot see it")
-    return result, model, state, step, batch
+    return result, model, state, step, batch, ref
+
+
+def fused_train_phase(dev, ref) -> dict:
+    """The train step with both fused norms on (fuse_ln_matmul, the
+    GroupNorm backend on K4): timed steps, launches, peak memory, the loss
+    falling, one step's loss and grads against the unfused kernel step's at
+    the same weights and masking (and a GroupNorm backward without the ReLU
+    mask checked to fail that bound), and torch.profiler over two steps."""
+    import dataclasses
+    import torch
+    from merlot_tpu_torch.models import merlot as merlot_mod
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+    from merlot_tpu_torch.ops import norms
+    from merlot_tpu_torch.ops.masking import masking_draws
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+    from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL), fuse_ln_matmul=True)
+    model = MerlotPretrainModel(cfg, device=dev)
+    opt = MerlotAdamW(AdamWConfig.from_config(PRETRAIN_4SEG_OPTIMIZER))
+    state = init_train_state(model, opt, seed=0)
+    batch = pretrain_batch(cfg, dev)
+    step = make_train_step(model, opt)
+    g = torch.Generator(device=dev).manual_seed(1)
+    segments = TRAIN_BATCH * TRAIN_CHUNKS
+    with fused_norms():
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = {k: float(v) for k, v in step(model, state, batch, g).items()}
+        torch.cuda.synchronize()
+        check(all(math.isfinite(v) for v in first.values()), f"fused step 1 metrics {first}")
+
+        # the timed steps, then one more with CUDA events around every K4
+        # and K5 launch: counts set to 0 just before, read just after
+        reset_counts()
+        seconds, per_step, losses = [], [], []
+        s4, s5 = [], []
+        for i in range(TRAIN_STEPS + 1):
+            before = counts()
+            t0 = time.perf_counter()
+            with norm_spans(s4, s5) if i == TRAIN_STEPS else contextlib.nullcontext():
+                metrics = step(model, state, batch, g)
+            torch.cuda.synchronize()
+            if i < TRAIN_STEPS:
+                seconds.append(time.perf_counter() - t0)
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+            losses.append(metrics["loss"].item())
+        k4_ms, k5_ms = spans_ms(s4), spans_ms(s5)
+        k1, k2, k4, k5 = counts()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(per_step == [FUSED_LAUNCHES_PER_STEP] * (TRAIN_STEPS + 1),
+              f"fused K1/K2/K4/K5 launches per step {per_step}, "
+              f"want {FUSED_LAUNCHES_PER_STEP}")
+        check(all(math.isfinite(x) for x in losses), f"fused losses {losses}")
+
+        # the loss falls on the repeated batch (no warmup, fixed draws)
+        fall_opt = MerlotAdamW(AdamWConfig.from_config(
+            dict(PRETRAIN_4SEG_OPTIMIZER, num_warmup_steps=0)))
+        fall_state = fall_opt.init(dict(model.named_parameters()))
+        fall_step = make_train_step(model, fall_opt)
+        s = cfg.num_chunks_in_group
+        draws = masking_draws(segments // s, TRAIN_TOKENS * s, vocab_size=cfg.vocab_size,
+                              generator=torch.Generator(device=dev).manual_seed(2),
+                              device=dev)
+        fall = [fall_step(model, fall_state, batch,
+                          torch.Generator(device=dev).manual_seed(3),
+                          masking_draws=draws)["loss"].item()
+                for _ in range(LOSS_FALL_STEPS)]
+        check(fall[-1] < fall[0], f"the fused loss does not fall on a repeated batch: {fall}")
+
+        # one step's loss and grads against the unfused kernel step's, at its
+        # weights and with its masking
+        model.load_state_dict(ref["state"])
+        pin = lambda f: lambda *a, **kw: ref["masking"]
+        no_relu_mask = lambda f: lambda dy, x, gamma, mean, rstd, out, *a: f(
+            dy, x, gamma, mean, rstd, None, *a)
+        no_dgamma = lambda f: lambda *a: (lambda dx, dg, *rest: (dx, torch.zeros_like(dg),
+                                                                 *rest))(*f(*a))
+        with wrapped(merlot_mod, "attention_guided_span_mask", pin):
+            fused_loss, fused_grads = loss_and_grads(model, batch, ref["draws"])
+            with wrapped(norms, "group_norm_act_bwd", no_relu_mask):
+                broken = grad_gap(loss_and_grads(model, batch, ref["draws"])[1], ref["grads"])
+            with wrapped(lm, "ln_matmul_bwd", no_dgamma):
+                broken_ln = grad_gap(loss_and_grads(model, batch, ref["draws"])[1],
+                                     ref["grads"])
+        gap = grad_gap(fused_grads, ref["grads"])
+        loss_rel = abs(fused_loss - ref["loss"]) / abs(ref["loss"])
+        del fused_grads
+        prof = profile_steps(dev, step, model, state, batch, label="fused-profile")
+
+    med = statistics.median(seconds)
+    result = {"segments_per_step": segments, "step_seconds": seconds,
+              "segments_per_s": segments / med,
+              "segments_per_s_spread": [segments / max(seconds), segments / min(seconds)],
+              "k4_ms": k4_ms, "k5_ms": k5_ms,
+              "launches": {"attention_fwd": k1, "attention_bwd": k2, "groupnorm": k4,
+                           "ln_matmul": k5},
+              "launches_per_step": per_step, "peak_mem_gib": peak_gib,
+              "step1_metrics": first, "timed_losses": losses, "loss_fall_no_warmup": fall,
+              "fused_loss": fused_loss, "unfused_loss": ref["loss"],
+              "loss_rel_diff": loss_rel, "grads_vs_unfused": gap,
+              "no_relu_mask_backward_vs_unfused": broken,
+              "no_dgamma_ln_backward_vs_unfused": broken_ln,
+              "profile": {k: v for k, v in prof.items() if k != "top_kernels"}}
+    print(f"[fused-train] {json.dumps(result)}", flush=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"fused vs unfused loss: {loss_rel}")
+    check(gap["max_rel_resnet"] <= FUSED_RESNET_GRAD_TOL
+          and gap["max_rel_rest"] <= FUSED_GRAD_TOL,
+          f"fused vs unfused grads: {gap} > {FUSED_RESNET_GRAD_TOL}, {FUSED_GRAD_TOL}")
+    check(broken["max_rel_resnet"] > FUSED_RESNET_GRAD_TOL,
+          f"a GroupNorm backward without the ReLU mask moves the grads by only "
+          f"{broken}: the fused train comparison cannot see it")
+    check(broken_ln["max_rel_rest"] > FUSED_GRAD_TOL,
+          f"a LayerNorm+matmul backward without dgamma moves the grads by only "
+          f"{broken_ln}: the fused train comparison cannot see it")
+    del model, state, step, batch
+    return result, prof
+
+
+def ab_phase(dev) -> dict:
+    """The unfused and the fused train step in turns (unfused, fused, fused,
+    unfused), each a fresh model from seed 0 after AB_WARMUP steps: the host
+    clock per step and the host's enqueue time (until step() returns)."""
+    import dataclasses
+    import torch
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+    from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    runs = []
+    for fused in (False, True, True, False):
+        cfg = dataclasses.replace(MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL),
+                                  fuse_ln_matmul=fused)
+        model = MerlotPretrainModel(cfg, device=dev)
+        opt = MerlotAdamW(AdamWConfig.from_config(PRETRAIN_4SEG_OPTIMIZER))
+        state = init_train_state(model, opt, seed=0)
+        batch = pretrain_batch(cfg, dev)
+        step = make_train_step(model, opt)
+        g = torch.Generator(device=dev).manual_seed(1)
+        with fused_norms() if fused else contextlib.nullcontext():
+            for _ in range(AB_WARMUP):
+                step(model, state, batch, g)
+            torch.cuda.synchronize()
+            wall, enqueue = [], []
+            for _ in range(AB_STEPS):
+                t0 = time.perf_counter()
+                step(model, state, batch, g)
+                enqueue.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+        segments = TRAIN_BATCH * TRAIN_CHUNKS
+        runs.append({"fused": fused, "step_seconds": wall, "enqueue_seconds": enqueue,
+                     "segments_per_s": segments / statistics.median(wall),
+                     "enqueue_share": statistics.median(enqueue) / statistics.median(wall)})
+        del model, state, step, batch, opt
+        torch.cuda.empty_cache()
+    result = {"runs": runs,
+              "unfused_segments_per_s": [r["segments_per_s"] for r in runs if not r["fused"]],
+              "fused_segments_per_s": [r["segments_per_s"] for r in runs if r["fused"]]}
+    print(f"[train-ab] {json.dumps(result)}", flush=True)
+    return result
 
 
 def kernel_family(name: str) -> str:
@@ -806,6 +1401,10 @@ def kernel_family(name: str) -> str:
     kernels, library matmuls and convolutions, or everything else
     (elementwise, reductions, norms, copies, RNG)."""
     low = name.lower()
+    if any(t in low for t in ("gn_stats", "gn_finalize", "gn_apply")):
+        return "K4 groupnorm"
+    if "ln_matmul" in low:
+        return "K5 ln_matmul"
     if "attention_decode" in low:
         return "K3 attention_decode"
     if "attention_fwd" in low:
@@ -851,7 +1450,7 @@ def profile_device(run, label: str, family=kernel_family, **info) -> dict:
     return summary
 
 
-def profile_steps(dev, step, model, state, batch) -> dict:
+def profile_steps(dev, step, model, state, batch, label: str = "profile") -> dict:
     """torch.profiler over two train steps."""
     import torch
 
@@ -860,7 +1459,7 @@ def profile_steps(dev, step, model, state, batch) -> dict:
     def run():
         for _ in range(2):
             step(model, state, batch, g)
-    return profile_device(run, "profile", steps=2)
+    return profile_device(run, label, steps=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1275,46 +1874,9 @@ def server_phase(dev, log_path: Path) -> dict:
     return result
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", help="write the run's details to this JSON file")
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from merlot_tpu_torch import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    print(card, flush=True)
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
-          flush=True)
-
-    libs = ("attention_fwd", "attention_bwd", "attention_stacked")
-    t0 = time.perf_counter()
-    _build.build_libraries(libs)
-    build_s = time.perf_counter() - t0
-    print(f"[build] {', '.join(libs)} in {build_s:.1f}s", flush=True)
-    for name in libs:
-        print(_build.build_logs.get(name, ""), flush=True)
-
-    k1_rows = kernel_phase(dev)
-    k2_rows = bwd_kernel_phase(dev)
-    k3_rows = stacked_phase(dev)
-    sl = slice_phase(dev)
-    tr, model, state, step, batch = train_phase(dev)
-    prof = profile_steps(dev, step, model, state, batch)
-    del model, state, step, batch
-    torch.cuda.empty_cache()
-    gv = grover_phase(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
-
+def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
+                   gv, sv) -> list[dict]:
+    """The kernels line: one record per kernel from the phases' results."""
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
     zs = {r["shape"]: r for r in k1_rows}
@@ -1371,14 +1933,114 @@ def main() -> int:
         "library_ms": 24 * k3["library_ms"],
         "path_device_ms": gv["k3_device_ms_per_decode_step"],
         "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, bf16"}
-    records = [k1_record, k2_record, k3_record]
+    # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
+    # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
+    # on the fused path (torch.profiler over two steps, halved), "event_ms"
+    # CUDA events around its launches on the path (median of the timed
+    # steps; they hold the host's gaps inside a K4 call's three launches),
+    # the others sums over the sites of the per-shape times
+    gn = {r["shape"]: r for r in k4_rows}
+    train_gn = [spec for spec in GN_SHAPES if spec[1] == TRAIN_BATCH * TRAIN_CHUNKS]
+    check(sum(spec[5] for spec in train_gn) == FUSED_LAUNCHES_PER_STEP[2],
+          "the GroupNorm shapes do not cover the train step's sites")
+    gn_step = lambda key: sum(spec[5] * gn[spec[0]][key] for spec in train_gn)
+    k4_record = {
+        "name": "groupnorm", "route": "cuda",
+        "source": "merlot_tpu_torch/csrc/groupnorm.cu",
+        "replaces": "merlot_tpu/ops/pallas_groupnorm.py:151",
+        "launches": fsl["launches"]["groupnorm"] + ftr["launches"]["groupnorm"],
+        "launches_by_path": {"zero_shot_fused": fsl["launches"]["groupnorm"],
+                             "train_fused": ftr["launches"]["groupnorm"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
+        "ms": fprof["families"]["K4 groupnorm"]["ms"] / 2, "event_ms": ftr["k4_ms"],
+        "plain_ms": gn_step("plain_ms"),
+        "bound_ms": gn_step("bound_ms"), "bound_by": gn["stem_c64"]["bound_by"],
+        "library_ms": gn_step("library_ms"), "shape_sum_ms": gn_step("ms"),
+        "zero_shot_ms_per_batch": fsl["k4_ms"],
+        "library_note": "F.group_norm on the NCHW view, + add, ReLU: not the same rounding",
+        "unit": "per train step: 54 launches over 13 shapes, 128 frames, bf16"}
+    ln = {r["shape"]: r for r in k5_rows}
+    train_ln = [spec[0] for spec in LN_SHAPES if spec[0].startswith("pretrain")]
+    ln_step = lambda key: 12 * sum(ln[n][key] for n in train_ln)
+    k5_record = {
+        "name": "ln_matmul", "route": "cuda",
+        "source": "merlot_tpu_torch/csrc/ln_matmul.cu",
+        "replaces": "merlot_tpu/ops/pallas_ln_matmul.py:117",
+        "launches": fsl["launches"]["ln_matmul"] + ftr["launches"]["ln_matmul"],
+        "launches_by_path": {"zero_shot_fused": fsl["launches"]["ln_matmul"],
+                             "train_fused": ftr["launches"]["ln_matmul"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
+        "ms": fprof["families"]["K5 ln_matmul"]["ms"] / 2, "event_ms": ftr["k5_ms"],
+        "plain_ms": ln_step("plain_ms"),
+        "bound_ms": ln_step("bound_ms"), "bound_by": ln["pretrain_vit_qkv"]["bound_by"],
+        "library_ms": ln_step("library_ms"), "shape_sum_ms": ln_step("ms"),
+        "zero_shot_ms_per_batch": fsl["k5_ms"],
+        "library_note": "F.layer_norm then one F.linear over the J weights: two calls, "
+                        "not the same rounding",
+        "unit": "per train step: 72 launches, 12 layers x (q/k/v, MLP) x 3 towers, K=768, bf16"}
+    return [k1_record, k2_record, k3_record, k4_record, k5_record]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="write the run's details to this JSON file")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from merlot_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card, flush=True)
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    libs = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul")
+    t0 = time.perf_counter()
+    _build.build_libraries(libs)
+    build_s = time.perf_counter() - t0
+    print(f"[build] {', '.join(libs)} in {build_s:.1f}s", flush=True)
+    for name in libs:
+        print(_build.build_logs.get(name, ""), flush=True)
+
+    k1_rows = kernel_phase(dev)
+    k2_rows = bwd_kernel_phase(dev)
+    k3_rows = stacked_phase(dev)
+    k4_rows = gn_kernel_phase(dev)
+    k5_rows = ln_kernel_phase(dev)
+    sl, *zero_shot = slice_phase(dev)
+    fsl = fused_slice_phase(dev, *zero_shot)
+    del zero_shot
+    tr, model, state, step, batch, ref = train_phase(dev)
+    prof = profile_steps(dev, step, model, state, batch)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    ftr, fprof = fused_train_phase(dev, ref)
+    del ref
+    torch.cuda.empty_cache()
+    ab = ab_phase(dev)
+    gv = grover_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
+
+    records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
+                             ftr, fprof, gv, sv)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernel_shapes": k1_rows,
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
-             "slice": sl, "train": tr, "profile": prof, "grover": gv, "server": sv,
+             "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
+             "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
+             "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
+             "grover": gv, "server": sv,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},
             indent=1))

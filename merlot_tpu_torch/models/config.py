@@ -5,8 +5,9 @@ loads jax and flax (``merlot_tpu/__init__.py``), and this package never
 does. The fields, defaults and ``from_dict`` are identical, so a config
 built for one package builds the other. Execution-strategy fields that the
 PyTorch port does not implement (``scan_layers``, ``remat``,
-``fuse_ln_matmul``, ``fused_qkv*``, ``stem_space_to_depth``) are kept so
-that configs parse unchanged; the modules refuse them when set.
+``fused_qkv*``, ``stem_space_to_depth``) are kept so that configs parse
+unchanged; the modules refuse or ignore them. ``fuse_ln_matmul`` is ported
+(K5, ``ops/cuda_ln_matmul.py``).
 """
 
 from __future__ import annotations
@@ -83,8 +84,8 @@ class MerlotConfig:
     # fp32 softmax (default, safer) vs compute-dtype softmax (the
     # reference's bf16 behaviour; halves attention HBM traffic)
     attention_softmax_fp32: bool = True
-    # fuse pre-LNs into their consumer matmuls (pallas LN+matmul kernel;
-    # identical math + param tree, off-TPU falls back to unfused)
+    # fuse pre-LNs into their consumer matmuls (the LN+matmul kernel K5 on
+    # a card, its plain version on the CPU; identical math + param tree)
     fuse_ln_matmul: bool = False
     # one [H, 3H] q/k/v projection per attention (bit-identical outputs,
     # unchanged param tree; see TransformerHParams.fused_qkv)

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from merlot_tpu_torch.ops import norms
+from merlot_tpu_torch.ops import cuda_groupnorm, norms
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -108,7 +108,10 @@ class LayerNorm(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm(32, eps 1e-4) with one-pass fp32 statistics over NHWC
     input; ``residual`` and ``relu`` fold the shortcut add and activation
-    that follow it (the unfused composition, as the JAX path runs it)."""
+    that follow it. ``backend`` picks the implementation
+    (``ops.cuda_groupnorm.group_norm_act``): 'plain', the unfused
+    composition, or 'cuda', the fused kernel K4; None takes
+    ``cuda_groupnorm.BACKEND`` ('plain' unless set)."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -121,9 +124,10 @@ class GroupNorm(nn.Module):
             self.beta.zero_()
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                relu: bool = False) -> torch.Tensor:
-        return norms.group_norm_act(x, self.gamma, self.beta, residual=residual,
-                                    relu=relu)
+                relu: bool = False, backend: Optional[str] = None) -> torch.Tensor:
+        return cuda_groupnorm.group_norm_act(x, self.gamma, self.beta,
+                                             residual=residual, relu=relu,
+                                             backend=backend)
 
 
 def _same_pads(size: int, k: int, stride: int):

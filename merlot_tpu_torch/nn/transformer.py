@@ -9,10 +9,13 @@ form gives the same results). ``num_layers`` runs a prefix of the stack
 (how the lang-only tower shares the joint encoder's weights); colsum is
 summed over layers. ``attn_backend`` picks the attention path per call:
 'cuda' (training_backend on a card) runs the forward and backward kernels.
+With ``fuse_ln_matmul`` each pre-LN is fused into its consumer products
+(``ops.cuda_ln_matmul.ln_matmul``: K5 on a card): the attention LN into
+q/k/v and the MLP LN into the intermediate product, over the same
+parameters.
 
 Not ported: attention-prob dropout (0 in every config), scan over layers,
-remat, the KV cache, cross-attention, the fused q/k/v forms and the fused
-LN+matmul.
+remat, the KV cache, cross-attention and the fused q/k/v forms.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import attention_core
+from merlot_tpu_torch.ops.cuda_ln_matmul import ln_matmul
 
 
 @dataclass(frozen=True)
@@ -40,6 +44,8 @@ class TransformerHParams:
     dtype: torch.dtype = torch.bfloat16
     # fp32 softmax, or softmax in the compute dtype (the reference's bf16)
     softmax_fp32: bool = True
+    # fuse each pre-LN into its consumer products (same math and parameters)
+    fuse_ln_matmul: bool = False
 
 
 class SelfAttention(nn.Module):
@@ -55,14 +61,23 @@ class SelfAttention(nn.Module):
     def forward(self, x_norm: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect: str = "none", attn_backend: str = "auto",
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, ln_params=None):
+        """ln_params: the fp32 (gamma, beta) of the pre-attention LN. When
+        given, ``x_norm`` is the raw residual stream and the LN is fused
+        into the q/k/v products."""
         hp = self.hp
         if not deterministic and hp.attention_probs_dropout_prob > 0.0:
             raise NotImplementedError("attention-prob dropout is not ported")
         b, s, h = x_norm.shape
         d_head = h // hp.num_heads
-        q, k, v = (getattr(self, n)(x_norm).reshape(b, s, hp.num_heads, d_head)
-                   for n in ("query", "key", "value"))
+        names = ("query", "key", "value")
+        if ln_params is not None:
+            dense = [getattr(self, n) for n in names]
+            qkv = ln_matmul(x_norm.to(hp.dtype), *ln_params, [d.weight for d in dense],
+                            [d.bias for d in dense])
+        else:
+            qkv = [getattr(self, n)(x_norm) for n in names]
+        q, k, v = (t.reshape(b, s, hp.num_heads, d_head) for t in qkv)
         ctx, extra = attention_core(q, k, v, mask, collect=collect,
                                     backend=attn_backend,
                                     softmax_fp32=hp.softmax_fp32)
@@ -81,8 +96,18 @@ class MlpBlock(nn.Module):
         self.output = DenseTN(hp.intermediate_size, hp.hidden_size, **kw)
 
     def forward(self, x_norm: torch.Tensor, *, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = self.output(gelu(self.intermediate(x_norm)))
+                generator: Optional[torch.Generator] = None,
+                ln_params=None) -> torch.Tensor:
+        """ln_params: the fp32 (gamma, beta) of the pre-MLP LN; when given,
+        ``x_norm`` is the raw residual stream and the LN is fused into the
+        intermediate product."""
+        inter = self.intermediate
+        if ln_params is not None:
+            (h0,) = ln_matmul(x_norm.to(self.hp.dtype), *ln_params, [inter.weight],
+                              [inter.bias])
+        else:
+            h0 = inter(x_norm)
+        out = self.output(gelu(h0))
         return dropout(out, self.hp.hidden_dropout_prob,
                        deterministic=deterministic, generator=generator)
 
@@ -90,6 +115,7 @@ class MlpBlock(nn.Module):
 class TransformerLayer(nn.Module):
     def __init__(self, hp: TransformerHParams, device=None):
         super().__init__()
+        self.fuse_ln_matmul = hp.fuse_ln_matmul
         self.attn_ln = LayerNorm(hp.hidden_size, device=device)
         self.attention = SelfAttention(hp, device=device)
         self.mlp_ln = LayerNorm(hp.hidden_size, device=device)
@@ -100,6 +126,15 @@ class TransformerLayer(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         kw = dict(deterministic=deterministic, generator=generator)
+        if self.fuse_ln_matmul:
+            # the raw residual stream and the LN's parameters: the LN runs
+            # inside the consumer products
+            attn_out, extra = self.attention(
+                x, mask, collect=collect, attn_backend=attn_backend,
+                ln_params=(self.attn_ln.gamma, self.attn_ln.beta), **kw)
+            x = x + attn_out
+            return x + self.mlp(x, ln_params=(self.mlp_ln.gamma, self.mlp_ln.beta),
+                                **kw), extra
         attn_out, extra = self.attention(self.attn_ln(x), mask, collect=collect,
                                          attn_backend=attn_backend, **kw)
         x = x + attn_out

@@ -10,6 +10,10 @@
   * patches are LN'd in fp32, then run through the ViT in the compute
     dtype; a 2x2 avg-pool shrinks the grid before the joint encoder.
 
+The stem's GroupNorm backend is ``ops.cuda_groupnorm.BACKEND`` on
+forward-only (deterministic) calls and ``TRAIN_BACKEND`` in training, as
+the JAX package picks ``pallas_groupnorm.BACKEND``/``TRAIN_BACKEND``.
+
 Images are NHWC [B, H, W, 3] in [0, 1] (float) or uint8.
 """
 
@@ -24,6 +28,7 @@ from merlot_tpu_torch.nn.layers import (GroupNorm, LayerNorm, WSConv, _param,
                                         avg_pool_same, avg_pool_valid,
                                         trunc_normal_)
 from merlot_tpu_torch.nn.transformer import TransformerEncoder, TransformerHParams
+from merlot_tpu_torch.ops import cuda_groupnorm
 
 
 class PositionEmbedder2D(nn.Module):
@@ -58,7 +63,8 @@ class PositionEmbedder2D(nn.Module):
 
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 -> (avgpool if downsampling) -> 1x1, GN+relu, avg-pool
-    shortcut."""
+    shortcut; ``gn_backend`` is every GroupNorm's backend (None: the
+    module default)."""
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
                  use_projection: bool = False, dtype=torch.bfloat16, device=None):
@@ -76,22 +82,25 @@ class BottleneckBlock(nn.Module):
         self.conv3 = WSConv(filters, 4 * filters, 1, **kw)
         self.gn3 = GroupNorm(4 * filters, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gn_backend: Optional[str] = None) -> torch.Tensor:
+        gn = dict(backend=gn_backend)
         shortcut = x
         if self.use_projection:
             s = (avg_pool_same(x, self.strides, self.strides)
                  if self.strides > 1 else x)
-            shortcut = self.proj_gn(self.proj_conv(s))
-        y = self.gn1(self.conv1(x), relu=True)
-        y = self.gn2(self.conv2(y), relu=True)
+            shortcut = self.proj_gn(self.proj_conv(s), **gn)
+        y = self.gn1(self.conv1(x), relu=True, **gn)
+        y = self.gn2(self.conv2(y), relu=True, **gn)
         if self.strides > 1:
             y = avg_pool_same(y, self.strides, self.strides)
-        return self.gn3(self.conv3(y), residual=shortcut, relu=True)
+        return self.gn3(self.conv3(y), residual=shortcut, relu=True, **gn)
 
 
 class LiteResNet(nn.Module):
     """The reference's "lite resnet50": 3-conv stem + N bottleneck groups.
-    Total downsampling is 4 * 2^(len(layers)-1): /16 for [3, 4, 9]."""
+    Total downsampling is 4 * 2^(len(layers)-1): /16 for [3, 4, 9].
+    ``gn_backend`` is every GroupNorm's backend (None: the module
+    default)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  dtype=torch.bfloat16, device=None):
@@ -117,13 +126,14 @@ class LiteResNet(nn.Module):
                 cin = 4 * filters
         self.out_channels = cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem_gn0(self.stem_conv0(x), relu=True)
-        x = self.stem_gn1(self.stem_conv1(x), relu=True)
-        x = self.stem_gn2(self.stem_conv2(x), relu=True)
+    def forward(self, x: torch.Tensor, gn_backend: Optional[str] = None) -> torch.Tensor:
+        gn = dict(backend=gn_backend)
+        x = self.stem_gn0(self.stem_conv0(x), relu=True, **gn)
+        x = self.stem_gn1(self.stem_conv1(x), relu=True, **gn)
+        x = self.stem_gn2(self.stem_conv2(x), relu=True, **gn)
         x = avg_pool_same(x, 2, 2)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, gn_backend)
         return x
 
 
@@ -177,7 +187,9 @@ class VisionBackbone(nn.Module):
             image = image.float() * (1.0 / 255.0)
         img_norm = image.to(self.dtype) - 0.5
         if self.has_resnet:
-            x = self.post_resnet_proj(self.resnet(img_norm))
+            gn = (cuda_groupnorm.BACKEND if deterministic
+                  else cuda_groupnorm.TRAIN_BACKEND)
+            x = self.post_resnet_proj(self.resnet(img_norm, gn_backend=gn))
         else:
             x = self.patch_conv(img_norm)
 

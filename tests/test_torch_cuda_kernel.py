@@ -1,5 +1,6 @@
-"""The hand-written attention kernels (K1 forward, K2 backward, K3 over the
-stacked KV cache) against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
+"""The hand-written kernels (attention: K1 forward, K2 backward, K3 over the
+stacked KV cache; K4 the fused GroupNorm; K5 the LayerNorm fused into its
+consumer products) against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py``
 (tests/conftest.py imports jax, which the GPU machine may lack).
 
@@ -26,7 +27,7 @@ import math
 import pytest
 import torch
 
-from merlot_tpu_torch.ops import cuda_attention
+from merlot_tpu_torch.ops import cuda_attention, cuda_groupnorm, cuda_ln_matmul, norms
 from merlot_tpu_torch.ops.attention import attention_core
 
 pytestmark = pytest.mark.gpu
@@ -248,3 +249,154 @@ def test_stacked_kernel_refuses_bad_inputs(cuda):
     q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 30, torch.float32, True)
     with pytest.raises(ValueError, match="unsupported"):
         cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+
+
+# K4: fused GroupNorm(+residual+ReLU) over channels-last [B, HW, C]. fp32
+# inputs 1e-5 (the same fp32 steps, sums in another order); bf16 inputs at
+# most BF16_ULPS bf16 ulps of the largest |out| and BF16_MEAN_TOL on
+# average (an fp32 difference of the statistics flips an element's bf16
+# rounding now and then); mean and rstd 1e-5.
+GN_SHAPES = [  # b, hw, c, groups, kind
+    (2, 37, 64, 32, "relu"),
+    (3, 100, 256, 32, "res"),
+    (1, 5, 32, 32, "proj"),
+    (2, 1000, 1024, 32, "res"),
+    (4, 3000, 32, 32, "relu"),       # several row chunks per image
+    (2, 77, 40, 4, "relu"),          # 10 channels per group
+]
+GN_CASES = [(dt, *shape) for dt in (torch.float32, torch.bfloat16) for shape in GN_SHAPES]
+
+
+def _gn_inputs(cuda, b, hw, c, dtype, res, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((b, hw, c), generator=g, device=cuda)
+         + torch.randn(c, generator=g, device=cuda)).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(c, generator=g, device=cuda)
+    r = torch.randn((b, hw, c), generator=g, device=cuda).to(dtype) if res else None
+    return x, gamma, beta, r
+
+
+@pytest.mark.parametrize("dtype,b,hw,c,groups,kind", GN_CASES)
+def test_groupnorm_kernel_matches_plain(cuda, dtype, b, hw, c, groups, kind):
+    x, gamma, beta, r = _gn_inputs(cuda, b, hw, c, dtype, kind == "res")
+    kw = dict(num_groups=groups, epsilon=1e-4, relu=kind != "proj")
+    before = cuda_groupnorm.launches
+    out, mean, rstd = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, r, **kw)
+    torch.cuda.synchronize()
+    assert cuda_groupnorm.launches == before + 1
+    ref, ref_mean, ref_rstd = norms.group_norm_act_plain(x, gamma, beta, r, groups,
+                                                         kw["epsilon"], kw["relu"])
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(mean, ref_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, ref_rstd, atol=1e-5, rtol=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        diff = (out.float() - ref.float()).abs()
+        assert diff.max().item() <= _bf16_bound(ref.float())
+        assert diff.mean().item() <= BF16_MEAN_TOL
+
+
+def test_groupnorm_kernel_refuses_bad_inputs(cuda):
+    x, gamma, beta, _ = _gn_inputs(cuda, 2, 6, 64, torch.bfloat16, False)
+    kw = dict(num_groups=32, epsilon=1e-4, relu=True)
+    with pytest.raises(ValueError, match="contiguous"):      # an NCHW tensor's NHWC view
+        cuda_groupnorm.group_norm_act_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                                           gamma, beta, None, **kw)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        cuda_groupnorm.group_norm_act_cuda(x.half(), gamma, beta, None, **kw)
+    x, gamma, beta, _ = _gn_inputs(cuda, 2, 6, 36, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, None, **dict(kw, num_groups=4))
+
+
+def test_groupnorm_autograd_runs_the_kernel(cuda):
+    """GroupNormAct on CUDA tensors launches K4 once, and its saved-stats
+    backward matches autograd through the unfused composition (fp32)."""
+    x, gamma, beta, r = _gn_inputs(cuda, 2, 300, 128, torch.float32, True)
+    dy = torch.randn_like(x)
+    grads = []
+    for backend in ("cuda", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta, r)]
+        before = cuda_groupnorm.launches
+        out = cuda_groupnorm.group_norm_act(*leaves[:3], residual=leaves[3], relu=True,
+                                            backend=backend)
+        assert cuda_groupnorm.launches == before + (backend == "cuda")
+        grads.append(torch.autograd.grad(out, leaves, dy))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+# K5: LayerNorm fused into J consumer products, bf16: at most BF16_ULPS bf16
+# ulps of the largest |y| and BF16_MEAN_TOL on average (the same rounding
+# points, fp32 sums in another order)
+LN_SHAPES = [  # m, k, n, j
+    (100, 768, 768, 3),              # a row tail
+    (64, 128, 256, 1),
+    (130, 256, 40, 2),               # N not a multiple of 128: tiles span consumers
+    (4096, 768, 3072, 1),
+    (3540, 768, 768, 3),             # the zero-shot joint tower's rows
+]
+
+
+def _ln_inputs(cuda, m, k, n, j, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((m, k), generator=g, device=cuda)
+         + torch.randn((m, 1), generator=g, device=cuda)).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(k, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(k, generator=g, device=cuda)
+    ws = [0.02 * torch.randn((n, k), generator=g, device=cuda) for _ in range(j)]
+    bs = [0.01 * torch.randn(n, generator=g, device=cuda) for _ in range(j)]
+    return x, gamma, beta, ws, bs
+
+
+@pytest.mark.parametrize("m,k,n,j", LN_SHAPES)
+def test_ln_matmul_kernel_matches_plain(cuda, m, k, n, j):
+    x, gamma, beta, ws, bs = _ln_inputs(cuda, m, k, n, j)
+    before = cuda_ln_matmul.launches
+    y = cuda_ln_matmul.ln_matmul_cuda(x, gamma, beta, torch.cat(ws).bfloat16(),
+                                      torch.cat(bs).bfloat16(), num_out=j, epsilon=1e-5)
+    torch.cuda.synchronize()
+    assert cuda_ln_matmul.launches == before + 1
+    ref = torch.stack(norms.ln_matmul_plain(x, gamma, beta, ws, bs))
+    assert y.shape == (j, m, n) and y.dtype == torch.bfloat16
+    diff = (y.float() - ref.float()).abs()
+    assert diff.max().item() <= _bf16_bound(ref.float())
+    assert diff.mean().item() <= BF16_MEAN_TOL
+
+
+def test_ln_matmul_kernel_refuses_bad_inputs(cuda):
+    x, gamma, beta, ws, bs = _ln_inputs(cuda, 64, 128, 128, 1)
+    w, b = ws[0].bfloat16(), bs[0].bfloat16()
+    kw = dict(num_out=1, epsilon=1e-5)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_ln_matmul.ln_matmul_cuda(x.float(), gamma, beta, ws[0], bs[0], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ln_matmul.ln_matmul_cuda(x.t().contiguous().t(), gamma, beta, w, b, **kw)
+    x, gamma, beta, ws, bs = _ln_inputs(cuda, 64, 96, 128, 1)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_ln_matmul.ln_matmul_cuda(x, gamma, beta, ws[0].bfloat16(), bs[0].bfloat16(),
+                                      **kw)
+
+
+def test_ln_matmul_autograd_runs_the_kernel(cuda):
+    """LnMatmul on CUDA tensors launches K5 once; its backward (bf16
+    operands, fp32 products through torch.mm's out_dtype) matches the same
+    Function on CPU copies (products on widened operands)."""
+    x, gamma, beta, ws, bs = _ln_inputs(cuda, 200, 256, 128, 3)
+    dys = [torch.randn((200, 128), device=cuda).bfloat16() for _ in range(3)]
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, gamma, beta, *ws, *bs)]
+        before = cuda_ln_matmul.launches
+        ys = cuda_ln_matmul.ln_matmul(leaves[0], leaves[1], leaves[2], leaves[3:6],
+                                      leaves[6:])
+        assert cuda_ln_matmul.launches == before + (dev.type == "cuda")
+        grads.append(torch.autograd.grad(ys, leaves, [d.to(dev) for d in dys]))
+    for a, r in zip(*grads):
+        err = (a.float().cpu() - r.float()).abs().max().item()
+        if r.dtype == torch.bfloat16:      # dx, rounded once from fp32
+            assert err <= _bf16_bound(r.float())
+        else:                              # fp32 sums in another order
+            assert err <= 1e-4 * r.abs().max().item()
