@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU drive of the PyTorch port (merlot_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--out details.json]
+    python3 chip_smoke.py [--out details.json] [--parent DIR]
 
 1. builds the kernels from csrc/ with nvcc, one process each, in
    parallel: K1 (attention forward), K2 (backward), K3 (the stacked KV
@@ -16,7 +16,13 @@
    the masks and a nonzero colsum cotangent at the lang shape; each shape
    also shows that its check sees a fault (the other softmax mode; at the
    lang shape, the missing colsum cotangent) and that dQ is exactly 0 on
-   fully masked rows;
+   fully masked rows; K2 fed K1's saved row max and sum must equal K2
+   computing them itself, and two runs must agree bit for bit;
+3a. ablation phase: K1's probe at the three pretrain shapes (the kernel,
+   its fp32 softmax, the softmax removed, the pass for the row max and sum
+   skipped, and SDPA), timed in turns; with ``--parent DIR`` (a checkout of
+   the commit of K1's and K2's first designs) those designs are built from
+   DIR and timed in turns with the current K1, K2 and K3 prefill;
 3b. K4 phase: holds K4 against its plain version at the 13 distinct
    GroupNorm shapes of the train step's LiteResNet (128 frames of 192x352)
    and the zero-shot stem (20 frames of 384x384), bf16, with fault probes
@@ -135,6 +141,11 @@ CTX_ULPS = 1
 CTX_MEAN_TOL = 1e-5
 UNIFORM_ULPS = 2
 COLSUM_RTOL = 1e-3     # fp32 sums of the same probs in another order
+# K1's saved row max and sum against the plain version's (relative; the max
+# relative to at least 1): the fp32 softmax sums the same products and exps
+# in another order; in the bf16 softmax a score may also round to the other
+# bf16 neighbour (2^-7 relative)
+STATS_RTOL = {"fp32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 2e-2)}
 # dQ/dK/dV (bf16) against the plain backward, dO ~ 0.1 N(0, 1). K2 rebuilds
 # P bit for bit, runs every product on fp32 operands (dS split into three
 # exact bf16 terms) and rounds each grad once, so it differs from the plain
@@ -462,9 +473,11 @@ def kernel_shape(dev, g, spec) -> dict:
     name, b, s, masked, colsum, sm32 = spec
     q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked)
     kw = dict(num_heads=HEADS, collect_colsum=colsum)
-    ctx, cs = ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, **kw)
+    stats = ca.new_stats(q, HEADS)
+    ctx, cs = ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, stats=stats, **kw)
     torch.cuda.synchronize()
     ref, ref_cs = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=sm32, **kw)
+    ref_stats = ca.softmax_stats_plain(q, k, mask, num_heads=HEADS, softmax_fp32=sm32)
     other, _ = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=not sm32, **kw)
     diff = (ctx.float() - ref.float()).abs()
     other_diff = (other.float() - ref.float()).abs()
@@ -478,7 +491,10 @@ def kernel_shape(dev, g, spec) -> dict:
            "differing_share": (diff > 0).float().mean().item(),
            "other_softmax_max_abs_diff": other_diff.max().item(),
            "other_softmax_mean_abs_diff": other_diff.mean().item(),
-           "other_softmax_differing_share": (other_diff > 0).float().mean().item()}
+           "other_softmax_differing_share": (other_diff > 0).float().mean().item(),
+           "stats_max_rel_err": ((stats[0] - ref_stats[0]).abs()
+                                 / ref_stats[0].abs().clamp_min(1.0)).max().item(),
+           "stats_sum_rel_err": ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()}
     if colsum:
         row["colsum_max_rel_err"] = (
             (cs - ref_cs).abs() / ref_cs.abs().clamp_min(1e-6)).max().item()
@@ -519,6 +535,10 @@ def check_kernel_row(row: dict) -> None:
     if row["masked"]:
         check(row["masked_row_uniform_err"] <= row["masked_row_uniform_bound"],
               f"{name}: fully masked rows not uniform ({row['masked_row_uniform_err']})")
+    tol = STATS_RTOL[row["softmax"]]
+    check(row["stats_max_rel_err"] <= tol[0] and row["stats_sum_rel_err"] <= tol[1],
+          f"{name}: saved stats off: max {row['stats_max_rel_err']}, "
+          f"sum {row['stats_sum_rel_err']} (bounds {tol})")
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -560,6 +580,11 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
     gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
     kw = dict(num_heads=HEADS, softmax_fp32=sm32)
     got = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    again = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    # the path's call: K1's saved row max and sum instead of K2's own pass
+    stats = ca.new_stats(q, HEADS)
+    ca.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=False, **kw)
+    saved = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
     torch.cuda.synchronize()
     ref = ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw)
     other = ca.attention_bwd_plain(q, k, v, mask, do, gcol, num_heads=HEADS,
@@ -567,6 +592,8 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
     row = {"shape": name, "batch": b, "seq": s, "masked": masked,
            "colsum_cotangent": colsum, "softmax": "fp32" if sm32 else "bf16",
            "grads": grad_errors(got, ref),
+           "bitwise_repeatable": all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+           "saved_stats_equal": all(torch.equal(a, b_) for a, b_ in zip(got, saved)),
            "other_softmax_mean_abs_diff": min(
                e["mean_abs_err"] for e in grad_errors(other, ref).values())}
     if colsum:
@@ -576,7 +603,10 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
         bi, qi = torch.nonzero(~valid, as_tuple=True)
         row["dq_masked_rows_max_abs"] = got[0][bi, qi].float().abs().max().item()
     row["max_abs_err"] = max(e["max_abs_err"] for e in row["grads"].values())
-    row["ms"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw))
+    row["ms"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
+                                                      stats=stats, **kw))
+    row["ms_without_stats"] = cuda_ms(
+        lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw))
     row["plain_ms"] = cuda_ms(lambda: ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw))
     row["bound_ms"], row["bound_by"] = bound(*attn_work(b, s, masked, colsum, True))
     # the yardstick: the backward of torch's attention (fp32 softmax, and no
@@ -595,6 +625,9 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
 
 def check_bwd_row(row: dict) -> None:
     name = row["shape"]
+    check(row["bitwise_repeatable"], f"{name}: two K2 runs differ")
+    check(row["saved_stats_equal"],
+          f"{name}: K2 fed K1's saved stats differs from K2 computing them")
     for g, e in row["grads"].items():
         check(e["max_abs_err"] <= e["max_abs_err_bound"],
               f"{name}: {g} max err {e['max_abs_err']} > {e['max_abs_err_bound']}")
@@ -625,6 +658,204 @@ def bwd_kernel_phase(dev) -> list[dict]:
         check_bwd_row(row)
         rows.append(row)
     return rows
+
+
+# K1's ablation probe, the counterpart of tools/bench_attn_variants.py at
+# the three pretrain shapes: the production kernel, the fp32 softmax, the
+# softmax removed (p = round(s): staging and the two products alone), the
+# softmax without its pass for the row max and sum (max = 0, sum = 1: one
+# pass over K/V instead of two), and SDPA as the library yardstick (the
+# tool's xla row). mm_only and no_max are wrong on purpose: only times kept.
+ABLATION = ("prod", "sm_f32", "mm_only", "no_max", "library")
+
+
+def ablation_phase(dev) -> list[dict]:
+    """K1's variants timed in turns at each pretrain shape."""
+    import torch
+    import torch.nn.functional as F
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for name, b, s, masked, colsum, sm32 in ATTN_SHAPES[2:]:
+        q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
+        kw = dict(num_heads=HEADS, collect_colsum=colsum)
+        heads, bias = sdpa_args(q, k, v, mask)
+        calls = {
+            "prod": lambda: ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, **kw),
+            "sm_f32": lambda: ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=True, **kw),
+            "mm_only": lambda: ca.attention_fwd_variant_cuda(
+                q, k, v, mask, softmax_fp32=sm32, variant="mm_only", **kw),
+            "no_max": lambda: ca.attention_fwd_variant_cuda(
+                q, k, v, mask, softmax_fp32=sm32, variant="no_max", **kw),
+            "library": lambda: F.scaled_dot_product_attention(*heads, attn_mask=bias)}
+        times = {v: [] for v in ABLATION}
+        for order in (ABLATION, ABLATION[::-1]):
+            for var in order:
+                times[var].append(cuda_ms(calls[var], iters=20))
+        row = {"shape": name, "batch": b, "seq": s,
+               **{f"{v}_ms": statistics.mean(t) for v, t in times.items()},
+               "library_note": "SDPA, fp32 softmax" + (", no colsum" if colsum else "")}
+        row["bound_ms"], row["bound_by"] = bound(*attn_work(b, s, masked, colsum, False))
+        print(f"[ablation] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+# The first designs of K1, K2 and K3's prefill (mma.sync on 16-row tiles,
+# full score rows in shared memory; commit 83510f1) against the current
+# ones. ``--parent DIR`` (a checkout of that commit) builds its sources and
+# times both in turns at every K1 and K2 shape and K3's prefill shapes;
+# without it the records' first_design_ms are null.
+
+
+def parent_libraries(parent_dir: Path) -> dict:
+    """The first design's K1, K2 and K3 libraries from parent_dir's csrc/,
+    with that commit's C signatures."""
+    import ctypes
+    from merlot_tpu_torch import _build
+
+    out = ROOT / "build" / "first_design"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.find_nvcc()
+    names = ("attention_fwd", "attention_bwd", "attention_stacked")
+    procs = {n: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
+         str(parent_dir / "merlot_tpu_torch" / "csrc" / f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names}
+    libs = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"first design {n}.cu failed to build:\n{log}")
+        libs[n] = ctypes.CDLL(str(out / f"lib{n}.so"))
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs["attention_fwd"].merlot_attention_fwd.argtypes = [ptr] * 7 + [i] * 7 + [f, ptr]
+    libs["attention_fwd"].merlot_attention_fwd_q_tile.argtypes = []
+    libs["attention_bwd"].merlot_attention_bwd.argtypes = [ptr] * 10 + [i] * 7 + [f, ptr]
+    libs["attention_stacked"].merlot_attention_stacked_fwd.argtypes = [ptr] * 4 + [i] * 8 + [f, ptr]
+    return libs
+
+
+def parent_calls(libs, dev):
+    """Callables of the first design: K1, K2 and K3 on the wrappers' inputs."""
+    import torch
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+
+    def fwd(q, k, v, mask, sm32, colsum, heads=HEADS):
+        b, sq, hd = q.shape
+        sk = k.shape[1]
+        out = torch.empty_like(q)
+        part = cs = None
+        if colsum:
+            tile = libs["attention_fwd"].merlot_attention_fwd_q_tile()
+            part = torch.empty((b, heads, -(-sq // tile), sk), device=dev)
+            cs = torch.empty((b, sk), device=dev)
+        err = libs["attention_fwd"].merlot_attention_fwd(
+            ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(part), ptr(cs), b, sq, sk,
+            heads, hd // heads, 1, int(sm32), (hd // heads) ** -0.5, stream())
+        check(err == 0, f"first-design K1 failed: {err}")
+        return out
+
+    def bwd(q, k, v, mask, do, gcol, sm32, heads=HEADS):
+        b, sq, hd = q.shape
+        sk = k.shape[1]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stats = torch.empty(3 * b * heads * sq, device=dev)
+        err = libs["attention_bwd"].merlot_attention_bwd(
+            ptr(q), ptr(k), ptr(v), ptr(mask), ptr(do), ptr(gcol), ptr(dq), ptr(dk),
+            ptr(dv), ptr(stats), b, sq, sk, heads, hd // heads, 1, int(sm32),
+            (hd // heads) ** -0.5, stream())
+        check(err == 0, f"first-design K2 failed: {err}")
+        return dq, dk, dv
+
+    def stacked(q, kv, mask, heads=GROVER_HEADS):
+        b, sq, hd = q.shape
+        sk = kv.shape[1]
+        out = torch.empty_like(q)
+        err = libs["attention_stacked"].merlot_attention_stacked_fwd(
+            ptr(q), ptr(kv), ptr(mask), ptr(out), b, sq, sk, heads, hd // heads,
+            int(mask is not None and mask.shape[0] == b), int(q.dtype == torch.bfloat16),
+            1, (hd // heads) ** -0.5, stream())
+        check(err == 0, f"first-design K3 failed: {err}")
+        return out
+    return fwd, bwd, stacked
+
+
+def in_turns(first, second, iters: int = 10) -> tuple:
+    """CUDA-event ms per call of two callables timed first, second,
+    second, first: the mean of each's two readings."""
+    a1 = cuda_ms(first, iters=iters)
+    b1 = cuda_ms(second, iters=iters)
+    b2 = cuda_ms(second, iters=iters)
+    a2 = cuda_ms(first, iters=iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def first_design_phase(dev, parent_dir: Path) -> dict:
+    """The first designs against the current kernels at every K1 and K2
+    shape and K3's prefill shapes, in turns on this card; each pair's
+    outputs must agree within the kernels' own bounds."""
+    import torch
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    fwd, bwd, stacked = parent_calls(parent_libraries(parent_dir), dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for name, b, s, masked, colsum, sm32 in ATTN_SHAPES:
+        q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
+        # the train step's K1 also saves the softmax stats for K2
+        stats = None if name.startswith("zeroshot") else ca.new_stats(q, HEADS)
+        new = lambda: ca.attention_fwd_cuda(q, k, v, mask, num_heads=HEADS, softmax_fp32=sm32,
+                                            collect_colsum=colsum, stats=stats)[0]
+        old = lambda: fwd(q, k, v, mask, sm32, colsum)
+        diff = (new().float() - old().float()).abs().max().item()
+        first_ms, ms = in_turns(old, new)
+        rows.append({"kernel": "K1", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff})
+    for name, b, s, masked, colsum, sm32 in BWD_SHAPES:
+        q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
+        do = (0.1 * torch.randn((b, s, HEADS * D_HEAD), generator=g, device=dev)
+              ).to(torch.bfloat16)
+        gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
+        kw = dict(num_heads=HEADS, softmax_fp32=sm32)
+        stats = ca.new_stats(q, HEADS)
+        ca.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=False, **kw)
+        # the path's call: K1's stats given (the first design computed its own)
+        new = lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
+        old = lambda: bwd(q, k, v, mask, do, gcol, sm32)
+        diff = max((x.float() - y.float()).abs().max().item() for x, y in zip(new(), old()))
+        first_ms, ms = in_turns(old, new)
+        rows.append({"kernel": "K2", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff})
+    for name, b, sq, sk, pos0, dt in STACKED_SHAPES:
+        if sq == 1:
+            continue                                 # decode is not changed
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype)
+        new = lambda: ca.attention_stacked_fwd_cuda(q, kv, mask, num_heads=GROVER_HEADS,
+                                                    softmax_fp32=True)
+        old = lambda: stacked(q, kv, mask)
+        diff = (new().float() - old().float()).abs().max().item()
+        first_ms, ms = in_turns(old, new)
+        rows.append({"kernel": "K3", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff})
+    for row in rows:
+        print(f"[first-design] {json.dumps(row)}", flush=True)
+    by = {(r["kernel"], r["shape"]): r for r in rows}
+    per = lambda kern, names, key, n=12: n * sum(by[(kern, x)][key] for x in names)
+    zs, tr = ("zeroshot_vit", "zeroshot_joint"), ("pretrain_vit", "pretrain_joint",
+                                                  "pretrain_lang")
+    totals = {
+        "k1_zero_shot_batch": (per("K1", zs, "first_design_ms"), per("K1", zs, "ms")),
+        "k1_train_step": (per("K1", tr, "first_design_ms"), per("K1", tr, "ms")),
+        "k2_train_step": (per("K2", tr, "first_design_ms"), per("K2", tr, "ms")),
+        "k3_prefill": (per("K3", ("prefill_b8_bf16",), "first_design_ms", 24),
+                       per("K3", ("prefill_b8_bf16",), "ms", 24))}
+    result = {"rows": rows, "per_path": {k: {"first_design_ms": a, "ms": b_, "speedup": a / b_}
+                                         for k, (a, b_) in totals.items()}}
+    print(f"[first-design] {json.dumps(result['per_path'])}", flush=True)
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1192,17 +1423,18 @@ def train_phase(dev) -> dict:
            "grads": kernel_grads}
     ca.launches = ca.bwd_launches = 0
     s1, s2 = [], []
+    # the plain versions in the kernels' places: they take no saved stats
+    # (the plain backward recomputes P)
+    plain_fwd = lambda *a, stats=None, **kw: ca.flash_attention_plain(*a, **kw)
+    plain_bwd = lambda *a, stats=None, **kw: ca.attention_bwd_plain(*a, **kw)
     with wrapped(merlot_mod, "attention_guided_span_mask", pin), \
-            wrapped(ca, "attention_fwd_cuda",
-                    lambda f: event_timed(s1)(ca.flash_attention_plain)), \
-            wrapped(ca, "attention_bwd_cuda",
-                    lambda f: event_timed(s2)(ca.attention_bwd_plain)):
+            wrapped(ca, "attention_fwd_cuda", lambda f: event_timed(s1)(plain_fwd)), \
+            wrapped(ca, "attention_bwd_cuda", lambda f: event_timed(s2)(plain_bwd)):
         plain_loss, plain_grads = loss_and_grads(model, batch, draws)
     check(ca.launches == ca.bwd_launches == 0, "the plain run launched a kernel")
-    no_mask_bwd = lambda q, k, v, mask, *a, **kw: ca.attention_bwd_plain(q, k, v, None,
-                                                                         *a, **kw)
+    no_mask_bwd = lambda q, k, v, mask, *a, **kw: plain_bwd(q, k, v, None, *a, **kw)
     with wrapped(merlot_mod, "attention_guided_span_mask", pin), \
-            wrapped(ca, "attention_fwd_cuda", lambda f: ca.flash_attention_plain), \
+            wrapped(ca, "attention_fwd_cuda", lambda f: plain_fwd), \
             wrapped(ca, "attention_bwd_cuda", lambda f: no_mask_bwd):
         broken = grad_gap(loss_and_grads(model, batch, draws)[1], plain_grads)
     gap = grad_gap(kernel_grads, plain_grads)
@@ -1773,6 +2005,7 @@ def grover_phase(dev) -> dict:
               "k3_prefill_ms": k3_prefill_ms,
               "k3_event_ms_per_decode_step": k3_decode_ms / (hi - 1),
               "k3_device_ms_per_decode_step": k3_dec["ms"] / (lo - 1),
+              "k3_prefill_device_ms": k3_pre["ms"],
               "plain_prefill_ms": plain_prefill_ms,
               "plain_event_ms_per_decode_step": plain_decode_ms / n_plain_dec * 24,
               "profile": {k: v for k, v in prof.items() if k != "top_kernels"},
@@ -1875,8 +2108,12 @@ def server_phase(dev, log_path: Path) -> dict:
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv) -> list[dict]:
-    """The kernels line: one record per kernel from the phases' results."""
+                   gv, sv, fd) -> list[dict]:
+    """The kernels line: one record per kernel from the phases' results;
+    fd: the first-design phase's per-path times, or None (then the
+    first_design_ms fields are null)."""
+    first = {k: fd["per_path"][k]["first_design_ms"] if fd else None
+             for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill")}
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
     zs = {r["shape"]: r for r in k1_rows}
@@ -1897,7 +2134,19 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "bound_by": zs["zeroshot_vit"]["bound_by"],
         "library_ms": 12 * (zs["zeroshot_vit"]["library_ms"]
                             + zs["zeroshot_joint"]["library_ms"]),
-        "train_ms_per_step": tr["k1_ms"]}
+        # the first design (per-call sums, 12 launches per shape), and the
+        # same sum of this run's per-call times beside it
+        "first_design_ms": first["k1_zero_shot_batch"],
+        "shape_sum_ms": 12 * (zs["zeroshot_vit"]["ms"] + zs["zeroshot_joint"]["ms"]),
+        # per train step: the path's CUDA events, the first design, the
+        # library (SDPA at the ViT and joint shapes; lang has no single
+        # call) and the bound over the three shapes
+        "train_ms_per_step": tr["k1_ms"],
+        "train_first_design_ms": first["k1_train_step"],
+        "train_library_ms": 12 * (zs["pretrain_vit"]["library_ms"]
+                                  + zs["pretrain_joint"]["library_ms"]),
+        "train_bound_ms": 12 * sum(zs[n]["bound_ms"] for n in
+                                   ("pretrain_vit", "pretrain_joint", "pretrain_lang"))}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
     train_shapes = ("pretrain_vit", "pretrain_joint", "pretrain_lang")
@@ -1911,6 +2160,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
         "bound_by": tb["pretrain_vit"]["bound_by"],
         "library_ms": 12 * sum(tb[n]["library_ms"] for n in train_shapes),
+        "first_design_ms": first["k2_train_step"],
+        "shape_sum_ms": 12 * sum(tb[n]["ms"] for n in train_shapes),
         "library_note": "backward of scaled_dot_product_attention: fp32 softmax, "
                         "no colsum cotangent; not the same rounding"}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
@@ -1919,6 +2170,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     # include the host's gaps between launches); K3's device time on the
     # path, from the profile, beside them
     k3 = {r["shape"]: r for r in k3_rows}["decode_b8_bf16_bench"]
+    pre = {r["shape"]: r for r in k3_rows}["prefill_b8_bf16"]
     k3_record = {
         "name": "attention_stacked", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/attention_stacked.cu",
@@ -1932,7 +2184,14 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
         "library_ms": 24 * k3["library_ms"],
         "path_device_ms": gv["k3_device_ms_per_decode_step"],
-        "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, bf16"}
+        "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, bf16",
+        # the prefill (K1's tiles, redesigned): per prefill of 24 launches at
+        # B=8, Sq=1024, Sk=1537, bf16, from the K3 phase's timing
+        "first_design_ms": first["k3_prefill"],
+        "prefill_ms": 24 * pre["ms"], "prefill_plain_ms": 24 * pre["plain_ms"],
+        "prefill_library_ms": 24 * pre["library_ms"],
+        "prefill_bound_ms": 24 * pre["bound_ms"], "prefill_bound_by": pre["bound_by"],
+        "prefill_path_device_ms": gv["k3_prefill_device_ms"]}
     # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
     # on the fused path (torch.profiler over two steps, halved), "event_ms"
@@ -1984,6 +2243,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="write the run's details to this JSON file")
+    ap.add_argument("--parent", type=Path,
+                    help="a checkout of the first designs' commit (83510f1): time them "
+                         "against the current K1, K2 and K3 prefill (first_design phase)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2014,6 +2276,8 @@ def main() -> int:
     k3_rows = stacked_phase(dev)
     k4_rows = gn_kernel_phase(dev)
     k5_rows = ln_kernel_phase(dev)
+    ab_rows = ablation_phase(dev)
+    fd = first_design_phase(dev, args.parent) if args.parent else None
     sl, *zero_shot = slice_phase(dev)
     fsl = fused_slice_phase(dev, *zero_shot)
     del zero_shot
@@ -2030,7 +2294,7 @@ def main() -> int:
         sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv)
+                             ftr, fprof, gv, sv, fd)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2040,7 +2304,7 @@ def main() -> int:
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
-             "grover": gv, "server": sv,
+             "grover": gv, "server": sv, "ablation": ab_rows, "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},
             indent=1))

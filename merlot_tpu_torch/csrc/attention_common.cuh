@@ -1,8 +1,8 @@
-// Helpers shared by the attention forward (attention_fwd.cu) and backward
-// (attention_bwd.cu) kernels. Both recompute the same rounded, masked
-// scores and the same softmax from them, so those steps live here once:
-// the backward rebuilds the forward's probabilities with the same fp32
-// operations.
+// Helpers shared by the attention kernels (K1 attention_fwd.cu, K2
+// attention_bwd.cu, K3 attention_stacked.cu). They recompute the same
+// rounded, masked scores and the same softmax from them, so those steps
+// live here once: the backward rebuilds the forward's probabilities with
+// the same fp32 operations. K5 (ln_matmul.cu) takes the mma.sync helpers.
 
 #pragma once
 
@@ -14,12 +14,12 @@
 
 namespace merlot {
 
-constexpr int kKeyChunk = 64;  // keys staged in shared memory per round trip
+constexpr int kKeyChunk = 64;  // keys staged per round trip by the FMA kernels
 constexpr float kMaskPenalty = 1e10f;
 constexpr int kMaxSeq = 2048;
 constexpr int kMaxHeadDim = 128;
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kQRows = 16;  // query rows per tile
+constexpr int kQRows = 16;  // query rows per tile of the FMA kernels
 
 typedef __nv_bfloat16 bf16;
 
@@ -100,16 +100,17 @@ __device__ void softmax_rows(float* s_p, int ld, int rows, int Sk, bool sm_bf16,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Tensor cores: mma.sync.m16n8k16 bf16 -> fp32 (row.col), lane = 4*g + t.
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync.m16n8k16 bf16 -> fp32 (row.col), lane = 4*g + t: K5's products
+// (ln_matmul.cu)
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -120,36 +121,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// B fragments for one 16-deep step and one 8-column tile, transposed on the
-// way out of row-major [k][n] shared memory: lanes 0-7 address rows 0-7 of
-// the step, lanes 8-15 rows 8-15
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const bf16* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-// rows x D bf16 from global (row stride hd) into shared memory (row stride
-// ld), 16 bytes a thread; rows at or past `valid` are zero-filled
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
-                                           size_t hd, int rows, int valid, int D) {
-  const int vecs = D / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += blockDim.x) {
-    const int r = i / vecs, c = 8 * (i % vecs);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * hd + c)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// keys covered by a product over keys: Sk rounded up to the 16-key mma step
-__host__ __device__ __forceinline__ int mma_key_pad(int Sk) { return (Sk + 15) & ~15; }
-// score row stride: >= the padded keys and 8 (mod 32) floats, so that the
-// lanes of a fragment (rows g, columns 2t) spread over the banks
-__host__ __device__ __forceinline__ int mma_score_ld(int Sk) { return ((Sk + 31) & ~31) + 8; }
 
 template <typename K, typename... Args>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,

@@ -36,9 +36,11 @@
 //     partials of a warp meet by shuffles and the 8 warps' sums are added in
 //     a fixed order from shared memory: deterministic, no atomics. At B=8 x
 //     16 heads it launches 128 blocks, about one wave on 132 SMs.
-//   - Sq > 8 (prefill): K1's tiled kernels (attention_fwd_tiles.cuh: 16-row
-//     tiles, full score rows in shared memory, mma.sync for bf16, FMA for
-//     fp32) with a K/V row stride of 2*H*D and the values at column H*D.
+//   - Sq > 8 (prefill): K1's tiled kernels (attention_fwd_tiles.cuh): for
+//     bf16 the wgmma kernel (64-row q tiles, two passes over TMA-staged
+//     64-key tiles, no score rows in shared memory), its K and V tensor
+//     maps both over the cache (row stride 2*H*D, values from column H*D)
+//     and one mask for the batch (mask_bs = 0); for fp32 the FMA kernel.
 // Not done yet: splitting the keys over more blocks at batch 1 (16 blocks
 // on 132 SMs), and skipping cache slots past the position, whose probs are
 // exactly 0.
@@ -271,10 +273,8 @@ int merlot_attention_stacked_fwd(const void* q, const void* kv, const void* mask
                   : launch_decode<float>(q, kv, m, out, B, Sq, Sk, H, D, mask_bs,
                                          scale, sm_bf16, st);
   } else {
-    const size_t elem = is_bf16 ? sizeof(bf16) : sizeof(float);
-    const void* v = static_cast<const char*>(kv) + (size_t)H * D * elem;
-    err = launch_fwd_tiles(q, kv, v, m, out, nullptr, B, Sq, Sk, H, D, 2 * H * D,
-                           mask_bs, is_bf16 != 0, sm_bf16, scale, st);
+    err = launch_fwd_tiles(q, kv, kv, H * D, m, out, nullptr, nullptr, B, Sq, Sk, H, D,
+                           2 * H * D, mask_bs, is_bf16 != 0, sm_bf16, scale, st);
   }
   return (int)err;
 }

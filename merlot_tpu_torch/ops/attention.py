@@ -77,10 +77,10 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             softmax_fp32=softmax_fp32)
 
 
-def attention_probs(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:
-    """Softmax probs [B, H, Sq, Sk] in the softmax dtype. Scores are exact
-    fp32 dot products (bf16 inputs widen losslessly), scaled, then rounded
-    to the softmax dtype before the mask and the softmax."""
+def attention_scores(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:
+    """The softmax's input [B, H, Sq, Sk] in the softmax dtype: exact fp32
+    dot products (bf16 inputs widen losslessly), scaled, rounded to the
+    softmax dtype, then masked."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     sm_dtype = torch.float32 if softmax_fp32 else q.dtype
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -88,7 +88,13 @@ def attention_probs(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:
     if mask is not None:
         m = mask.to(sm_dtype)[:, None]          # broadcast over heads
         scores = scores * m - MASK_PENALTY * (1 - m)
-    return torch.softmax(scores, dim=-1)
+    return scores
+
+
+def attention_probs(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:
+    """Softmax probs [B, H, Sq, Sk] in the softmax dtype, from
+    ``attention_scores``."""
+    return torch.softmax(attention_scores(q, k, mask, softmax_fp32=softmax_fp32), dim=-1)
 
 
 def _plain_attention(q, k, v, mask, *, collect, softmax_fp32=True):

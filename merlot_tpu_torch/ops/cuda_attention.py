@@ -30,7 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from merlot_tpu_torch._build import load_library
-from merlot_tpu_torch.ops.attention import _plain_attention, attention_probs
+from merlot_tpu_torch.ops.attention import (_plain_attention, attention_probs,
+                                            attention_scores)
 
 MAX_KERNEL_SEQ = 2048
 MAX_HEAD_DIM = 128
@@ -39,6 +40,12 @@ MAX_HEAD_DIM = 128
 launches = 0
 bwd_launches = 0
 stacked_launches = 0
+
+# K1's ablation variants (``attention_fwd_variant_cuda``; no model path
+# launches them): the softmax removed (p = round(s)), and the softmax
+# without its pass for the row max and sum (max = 0, sum = 1). Both are
+# wrong on purpose: only their times mean anything.
+VARIANTS = {"mm_only": 1, "no_max": 2}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,10 +67,13 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 7 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 8 + [i] * 7 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        var = lib.merlot_attention_fwd_variant
+        var.argtypes = fn.argtypes + [i]
+        var.restype = i
         tile = lib.merlot_attention_fwd_q_tile
-        tile.argtypes = []
+        tile.argtypes = [i]
         tile.restype = i
     return lib
 
@@ -74,7 +84,7 @@ def load_bwd_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_bwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 10 + [i] * 8 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -135,54 +145,103 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def attention_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], *, num_heads: int,
-                       softmax_fp32: bool, collect_colsum: bool
+                       softmax_fp32: bool, collect_colsum: bool,
+                       stats: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K1. q3 [B, Sq, H*D]; k3/v3 [B, Sk, H*D], contiguous CUDA
     tensors of one dtype (fp32, or bf16 with a head dim that is a multiple
-    of 16); mask [B, Sq, Sk] contiguous fp32 or None. Returns (ctx
-    [B, Sq, H*D] in q3.dtype, colsum [B, Sk] fp32 or None)."""
+    of 16); mask [B, Sq, Sk] contiguous fp32 or None. stats: None, or (bf16
+    only) a [3, B, H, Sq] fp32 buffer (``new_stats``) whose first two planes
+    receive each row's softmax max and sum, for ``attention_bwd_cuda``.
+    Returns (ctx [B, Sq, H*D] in q3.dtype, colsum [B, Sk] fp32 or None)."""
     global launches
-    b, sq, sk, d = _check_inputs("attention_fwd_cuda", q3, k3, v3, mask, num_heads)
+    out = _fwd_launch("attention_fwd_cuda", q3, k3, v3, mask, num_heads, softmax_fp32,
+                      collect_colsum, None, stats)
+    launches += 1
+    return out
+
+
+def new_stats(q3: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The [3, B, H, Sq] fp32 buffer of the softmax's row max and sum (K1
+    writes them) and D = rowsum(dP * P) (K2 writes it)."""
+    b, sq, _ = q3.shape
+    return torch.empty((3, b, num_heads, sq), dtype=torch.float32, device=q3.device)
+
+
+def _check_stats(name: str, stats, q3, num_heads: int) -> None:
+    b, sq, _ = q3.shape
+    if q3.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: saved stats are for bf16 inputs only")
+    if (stats.dtype != torch.float32 or tuple(stats.shape) != (3, b, num_heads, sq)
+            or not stats.is_contiguous() or stats.device != q3.device):
+        raise ValueError(f"{name}: stats must be contiguous fp32 {(3, b, num_heads, sq)} "
+                         f"on {q3.device}, got {stats.dtype} {tuple(stats.shape)}")
+
+
+def attention_fwd_variant_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                               mask: Optional[torch.Tensor], *, num_heads: int,
+                               softmax_fp32: bool, collect_colsum: bool, variant: str
+                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch one of K1's ablation variants (``VARIANTS``), bf16 with a
+    head dim of 64 only, for timing; arguments and results as for
+    ``attention_fwd_cuda``."""
+    if q3.dtype != torch.bfloat16:
+        raise ValueError("attention_fwd_variant_cuda: bf16 only")
+    return _fwd_launch("attention_fwd_variant_cuda", q3, k3, v3, mask, num_heads,
+                       softmax_fp32, collect_colsum, VARIANTS[variant])
+
+
+def _fwd_launch(name, q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
+                variant, stats=None):
+    b, sq, sk, d = _check_inputs(name, q3, k3, v3, mask, num_heads)
+    if stats is not None:
+        _check_stats(name, stats, q3, num_heads)
     lib = load_kernel()
     out = torch.empty_like(q3)
     part = colsum = None
     if collect_colsum:
-        n_tiles = -(-sq // lib.merlot_attention_fwd_q_tile())
+        n_tiles = -(-sq // lib.merlot_attention_fwd_q_tile(_DTYPE_CODE[q3.dtype]))
         part = torch.empty((b, num_heads, n_tiles, sk), dtype=torch.float32,
                            device=q3.device)
         colsum = torch.empty((b, sk), dtype=torch.float32, device=q3.device)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
-    err = lib.merlot_attention_fwd(
-        _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(out), _ptr(part),
-        _ptr(colsum), b, sq, sk, num_heads, d, _DTYPE_CODE[q3.dtype],
-        int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+    args = (_ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(out), _ptr(part),
+            _ptr(colsum), _ptr(stats), b, sq, sk, num_heads, d, _DTYPE_CODE[q3.dtype],
+            int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+    err = (lib.merlot_attention_fwd(*args) if variant is None
+           else lib.merlot_attention_fwd_variant(*args, variant))
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel failed: cudaError_t {err}")
-    launches += 1
     return out, colsum
 
 
 def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], g3: torch.Tensor,
                        gcol: Optional[torch.Tensor], *, num_heads: int,
-                       softmax_fp32: bool
+                       softmax_fp32: bool, stats: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2. q3/k3/v3/mask as for ``attention_fwd_cuda``; g3 the
     cotangent of ctx (like q3, contiguous); gcol the cotangent of the
-    colsum [B, Sk] fp32 or None. Returns (dq, dk, dv) in the input dtype."""
+    colsum [B, Sk] fp32 or None; stats the buffer K1 filled with the row max
+    and sum on the same inputs (bf16), or None: K2 then computes them first
+    with K1's stats-only pass. Returns (dq, dk, dv) in the input dtype."""
     global bwd_launches
     b, sq, sk, d = _check_inputs("attention_bwd_cuda", q3, k3, v3, mask, num_heads,
                                  like_q=(g3,), fp32=(gcol,))
     if gcol is not None and tuple(gcol.shape) != (b, sk):
         raise ValueError(f"attention_bwd_cuda: gcol must be {(b, sk)}, "
                          f"got {tuple(gcol.shape)}")
+    saved = stats is not None
+    if saved:
+        _check_stats("attention_bwd_cuda", stats, q3, num_heads)
+    else:
+        stats = new_stats(q3, num_heads)
     lib = load_bwd_kernel()
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
-    stats = torch.empty(3 * b * num_heads * sq, dtype=torch.float32, device=q3.device)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     err = lib.merlot_attention_bwd(
         _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(g3), _ptr(gcol),
-        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), b, sq, sk, num_heads, d,
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), int(saved), b, sq, sk, num_heads, d,
         _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel failed: cudaError_t {err}")
@@ -287,7 +346,8 @@ def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                           mask: Optional[torch.Tensor], *, num_heads: int,
                           softmax_fp32: bool, collect_colsum: bool
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K1's function in plain PyTorch, same arguments and results."""
+    """K1's function in plain PyTorch, same arguments and results (the
+    saved stats' plain version is ``softmax_stats_plain``)."""
     b, sq, hd = q3.shape
     sk = k3.shape[1]
     d = hd // num_heads
@@ -297,6 +357,20 @@ def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
         collect="colsum" if collect_colsum else "none",
         softmax_fp32=softmax_fp32)
     return ctx.reshape(b, sq, hd), colsum
+
+
+def softmax_stats_plain(q3: torch.Tensor, k3: torch.Tensor, mask: Optional[torch.Tensor],
+                        *, num_heads: int, softmax_fp32: bool) -> torch.Tensor:
+    """The statistics K1 saves, in plain PyTorch: [2, B, H, Sq] fp32, each
+    row's max of the rounded, masked scores and its fp32 sum of
+    exp(score - max)."""
+    b, sq, hd = q3.shape
+    sk = k3.shape[1]
+    d = hd // num_heads
+    s = attention_scores(q3.reshape(b, sq, num_heads, d), k3.reshape(b, sk, num_heads, d),
+                         mask, softmax_fp32=softmax_fp32).float()
+    mx = s.amax(dim=-1)
+    return torch.stack([mx, torch.exp(s - mx[..., None]).sum(dim=-1)])
 
 
 def attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -340,25 +414,31 @@ class FlashAttention(torch.autograd.Function):
                 collect_colsum: bool):
         kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32,
                   collect_colsum=collect_colsum)
+        stats = None
         if q3.device.type == "cuda":
-            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, **kw)
+            # K2 takes the softmax's row max and sum from K1 (bf16 kernels)
+            if q3.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]):
+                stats = new_stats(q3, num_heads)
+            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, stats=stats, **kw)
         elif q3.device.type == "cpu":
             out, colsum = flash_attention_plain(q3, k3, v3, mask, **kw)
         else:
             raise ValueError(f"flash_attention: no path for device {q3.device}")
-        ctx.save_for_backward(q3, k3, v3, mask)
+        ctx.save_for_backward(q3, k3, v3, mask, stats)
         ctx.num_heads, ctx.softmax_fp32 = num_heads, softmax_fp32
         ctx.set_materialize_grads(False)
         return out, colsum
 
     @staticmethod
     def backward(ctx, g_ctx, g_colsum):
-        q3, k3, v3, mask = ctx.saved_tensors
+        q3, k3, v3, mask, stats = ctx.saved_tensors
         g3 = torch.zeros_like(q3) if g_ctx is None else g_ctx.contiguous()
         gcol = None if g_colsum is None else g_colsum.float().contiguous()
-        fn = attention_bwd_cuda if q3.device.type == "cuda" else attention_bwd_plain
-        dq, dk, dv = fn(q3, k3, v3, mask, g3, gcol, num_heads=ctx.num_heads,
-                        softmax_fp32=ctx.softmax_fp32)
+        kw = dict(num_heads=ctx.num_heads, softmax_fp32=ctx.softmax_fp32)
+        if q3.device.type == "cuda":
+            dq, dk, dv = attention_bwd_cuda(q3, k3, v3, mask, g3, gcol, stats=stats, **kw)
+        else:
+            dq, dk, dv = attention_bwd_plain(q3, k3, v3, mask, g3, gcol, **kw)
         return dq, dk, dv, None, None, None, None
 
 

@@ -19,7 +19,16 @@ masked rows.
 
 K3: the bounds of K1 (fp32 1e-5; bf16 BF16_ULPS of the largest |ctx| and
 BF16_MEAN_TOL on average), on causal masks over cache positions with zero
-cache rows past the position.
+cache rows past the position; its prefill runs K1's tiles with the stacked
+cache's strides.
+
+K1's saved row max and sum against the plain version's: relative 1e-5 in
+the fp32 softmax (dot products and exps summed in another order, each exp
+a few ulps off on the special-function unit; the max also absolute 1e-5);
+in the bf16 softmax a score
+may round to the other bf16 neighbour, so the max within 2^-7 and the sum
+within 2e-2. K2 with the forward's saved stats and without them, and two
+K2 runs, must agree bit for bit.
 """
 
 import math
@@ -187,6 +196,66 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
         assert diff.max().item() <= 4 * _bf16_bound(r.float())
 
 
+# K1's tiles (64-row q tiles, 64-key K/V tiles, TMA zero-fill past Sq and Sk)
+# at lengths on either side of a tile edge and at the limit, every head dim
+# class of the wgmma descriptors; bf16, the softmax mode alternating
+EDGE_LENS = [1, 63, 64, 65, 266, 885, 2048]
+EDGE_CASES = [(sq, sk, d) for sq in EDGE_LENS for sk in EDGE_LENS for d in (16, 64, 128)]
+
+
+@pytest.mark.parametrize("sq,sk,d", EDGE_CASES)
+def test_kernel_tile_edges_match_plain(cuda, sq, sk, d):
+    softmax_fp32 = (sq + sk + d) % 2 == 0
+    q, k, v, mask = _inputs(cuda, 1, sq, sk, 2, d, torch.bfloat16, True)
+    kw = dict(num_heads=2, softmax_fp32=softmax_fp32, collect_colsum=True)
+    stats = cuda_attention.new_stats(q, 2)
+    ctx, cs = cuda_attention.attention_fwd_cuda(q, k, v, mask, stats=stats, **kw)
+    torch.cuda.synchronize()
+    ref, ref_cs = cuda_attention.flash_attention_plain(q, k, v, mask, **kw)
+    diff = (ctx.float() - ref.float()).abs()
+    assert diff.max().item() <= _bf16_bound(ref.float())
+    assert diff.mean().item() <= BF16_MEAN_TOL
+    torch.testing.assert_close(cs, ref_cs, atol=1e-4, rtol=1e-3)
+    ref_stats = cuda_attention.softmax_stats_plain(q, k, mask, num_heads=2,
+                                                   softmax_fp32=softmax_fp32)
+    # the saved row max and sum: the scores' fp32 sums in another order
+    # (absolute 1e-5 at scores of order 1), exps summed in another order; in
+    # the bf16 softmax a score may round to the other neighbour
+    max_tol, sum_tol = (1e-5, 1e-5) if softmax_fp32 else (2.0 ** -7, 2e-2)
+    torch.testing.assert_close(stats[0], ref_stats[0], atol=1e-5, rtol=max_tol)
+    torch.testing.assert_close(stats[1], ref_stats[1], atol=0, rtol=sum_tol)
+
+
+@pytest.mark.parametrize("softmax_fp32", [True, False])
+@pytest.mark.parametrize("b,sq,sk,h,d,colsum", [(2, 70, 130, 2, 64, True),
+                                                 (4, 266, 266, 12, 64, False),
+                                                 (1, 65, 885, 2, 128, True)])
+def test_bwd_saved_stats_and_repeatable(cuda, softmax_fp32, b, sq, sk, h, d, colsum):
+    """K2 fed K1's saved row max and sum gives the same bits as K2 that
+    computes them itself, and two runs give the same bits (no atomics)."""
+    q, k, v, mask = _inputs(cuda, b, sq, sk, h, d, torch.bfloat16, True)
+    do, gcol = _bwd_extra(cuda, b, sq, sk, h, d, torch.bfloat16, colsum)
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32)
+    stats = cuda_attention.new_stats(q, h)
+    cuda_attention.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=colsum,
+                                      **kw)
+    saved = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
+    own = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    again = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    torch.cuda.synchronize()
+    for a, o, r in zip(saved, own, again):
+        assert torch.equal(a, o) and torch.equal(o, r)
+
+
+def test_bwd_refuses_bad_stats(cuda):
+    q, k, v, mask = _inputs(cuda, 1, 8, 8, 2, 16, torch.bfloat16, False)
+    do, _ = _bwd_extra(cuda, 1, 8, 8, 2, 16, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="stats"):
+        cuda_attention.attention_bwd_cuda(q, k, v, None, do, None, num_heads=2,
+                                          softmax_fp32=True,
+                                          stats=torch.empty(2, 1, 2, 8, device=cuda))
+
+
 # K3: cached attention over the stacked KV cache, fp32 inputs 1e-5, bf16
 # inputs the bounds of K1 (the same rounding points, sums in another order)
 STACKED_SHAPES = [  # b, sq, sk, h, d, shared mask
@@ -196,6 +265,8 @@ STACKED_SHAPES = [  # b, sq, sk, h, d, shared mask
     (3, 8, 77, 3, 128, False),
     (2, 40, 129, 4, 64, True),       # prefill: K1's tiled kernels
     (1, 17, 2048, 2, 128, False),
+    (2, 1024, 1537, 16, 64, True),   # Grover's prefill at the server's max_len
+    (1, 65, 63, 2, 16, False),       # one row and one key past a tile
 ]
 STACKED_CASES = [(dt, sm, *shape) for dt, sm in [
     (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
