@@ -21,11 +21,12 @@
 3a. ablation phase: K1's probe at the three pretrain shapes (the kernel,
    its fp32 softmax, the softmax removed, the pass for the row max and sum
    skipped, and SDPA), timed in turns; with ``--parent DIR`` (a checkout of
-   the commit of K1's and K2's first designs) those designs are built from
-   DIR and timed in turns with the current K1, K2 and K3 prefill;
+   commit 83510f1, which holds the first designs of K1, K2, K4 and K5) those
+   designs are built from DIR and timed in turns with the current K1, K2,
+   K3 prefill, K4 and K5 at every shape, with per-path totals;
 3b. K4 phase: holds K4 against its plain version at the 13 distinct
    GroupNorm shapes of the train step's LiteResNet (128 frames of 192x352)
-   and the zero-shot stem (20 frames of 384x384), bf16, with fault probes
+   and the 13 of zero-shot's (20 frames of 384x384), bf16, with fault probes
    that must fail the bounds (channels grouped by c mod 32, the residual
    left out, the ReLU left out, where they apply), and times K4, the plain
    version and F.group_norm (+ add, ReLU) beside the bytes bound;
@@ -179,10 +180,10 @@ TRAIN_GRAD_TOL = 0.1
 TRAIN_LOSS_RTOL = 1e-4
 
 # K4 at every distinct GroupNorm site of the train step's LiteResNet (128
-# frames of 192x352) and at the zero-shot stem (20 frames of 384x384):
-# (name, frames, HW, C, kind, sites per ViT forward); kind "relu" is
-# GN + ReLU, "proj" GN alone (the projection shortcut), "res" GN + residual
-# + ReLU. The train step's 13 shapes cover its 54 sites.
+# frames of 192x352) and of zero-shot's (20 frames of 384x384): (name,
+# frames, HW, C, kind, sites per ViT forward); kind "relu" is GN + ReLU,
+# "proj" GN alone (the projection shortcut), "res" GN + residual + ReLU.
+# Each path's 13 shapes cover its 54 sites.
 GN_SHAPES = [
     ("stem_c32", 128, 16896, 32, "relu", 2),
     ("stem_c64", 128, 16896, 64, "relu", 1),
@@ -199,6 +200,17 @@ GN_SHAPES = [
     ("group3_res", 128, 264, 1024, "res", 9),
     ("zeroshot_stem_c32", 20, 36864, 32, "relu", 2),
     ("zeroshot_stem_c64", 20, 36864, 64, "relu", 1),
+    ("zeroshot_group1_proj", 20, 9216, 256, "proj", 1),
+    ("zeroshot_group1_c64", 20, 9216, 64, "relu", 6),
+    ("zeroshot_group1_res", 20, 9216, 256, "res", 3),
+    ("zeroshot_group2_c128_hw9216", 20, 9216, 128, "relu", 2),
+    ("zeroshot_group2_proj", 20, 2304, 512, "proj", 1),
+    ("zeroshot_group2_c128", 20, 2304, 128, "relu", 6),
+    ("zeroshot_group2_res", 20, 2304, 512, "res", 4),
+    ("zeroshot_group3_c256_hw2304", 20, 2304, 256, "relu", 2),
+    ("zeroshot_group3_proj", 20, 576, 1024, "proj", 1),
+    ("zeroshot_group3_c256", 20, 576, 256, "relu", 16),
+    ("zeroshot_group3_res", 20, 576, 1024, "res", 9),
 ]
 GN_GROUPS, GN_EPS = 32, 1e-4
 # out (bf16) against the plain version: both round at the same points and
@@ -703,22 +715,23 @@ def ablation_phase(dev) -> list[dict]:
 
 
 # The first designs of K1, K2 and K3's prefill (mma.sync on 16-row tiles,
-# full score rows in shared memory; commit 83510f1) against the current
-# ones. ``--parent DIR`` (a checkout of that commit) builds its sources and
-# times both in turns at every K1 and K2 shape and K3's prefill shapes;
+# full score rows in shared memory), K4 (three launches per call) and K5
+# (mma.sync, cp.async) of commit 83510f1 against the current ones.
+# ``--parent DIR`` (a checkout of that commit) builds its sources and times
+# both in turns at every K1, K2, K4 and K5 shape and K3's prefill shapes;
 # without it the records' first_design_ms are null.
 
 
 def parent_libraries(parent_dir: Path) -> dict:
-    """The first design's K1, K2 and K3 libraries from parent_dir's csrc/,
-    with that commit's C signatures."""
+    """The first design's K1, K2, K3, K4 and K5 libraries from parent_dir's
+    csrc/, with that commit's C signatures."""
     import ctypes
     from merlot_tpu_torch import _build
 
     out = ROOT / "build" / "first_design"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
-    names = ("attention_fwd", "attention_bwd", "attention_stacked")
+    names = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul")
     procs = {n: subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
          str(parent_dir / "merlot_tpu_torch" / "csrc" / f"{n}.cu")],
@@ -733,11 +746,16 @@ def parent_libraries(parent_dir: Path) -> dict:
     libs["attention_fwd"].merlot_attention_fwd_q_tile.argtypes = []
     libs["attention_bwd"].merlot_attention_bwd.argtypes = [ptr] * 10 + [i] * 7 + [f, ptr]
     libs["attention_stacked"].merlot_attention_stacked_fwd.argtypes = [ptr] * 4 + [i] * 8 + [f, ptr]
+    libs["groupnorm"].merlot_group_norm_act.argtypes = [ptr] * 8 + [i] * 6 + [f, ptr]
+    libs["groupnorm"].merlot_group_norm_workspace.argtypes = [i] * 4
+    libs["groupnorm"].merlot_group_norm_workspace.restype = ctypes.c_long
+    libs["ln_matmul"].merlot_ln_matmul.argtypes = [ptr] * 6 + [i] * 4 + [f, ptr]
     return libs
 
 
 def parent_calls(libs, dev):
-    """Callables of the first design: K1, K2 and K3 on the wrappers' inputs."""
+    """Callables of the first design: K1, K2, K3, K4 and K5 on the wrappers'
+    inputs."""
     import torch
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
@@ -779,7 +797,31 @@ def parent_calls(libs, dev):
             1, (hd // heads) ** -0.5, stream())
         check(err == 0, f"first-design K3 failed: {err}")
         return out
-    return fwd, bwd, stacked
+
+    def groupnorm(x, gamma, beta, r, num_groups, epsilon, relu):
+        b, c = x.shape[0], x.shape[-1]
+        hw = x.numel() // (b * c)
+        lib = libs["groupnorm"]
+        out = torch.empty_like(x)
+        mean = torch.empty((b, num_groups), device=dev)
+        rstd = torch.empty_like(mean)
+        part = torch.empty(lib.merlot_group_norm_workspace(b, hw, c, 1), device=dev)
+        err = lib.merlot_group_norm_act(
+            ptr(x), ptr(gamma), ptr(beta), ptr(r), ptr(out), ptr(mean), ptr(rstd),
+            ptr(part), b, hw, c, num_groups, 1, int(relu), epsilon, stream())
+        check(err == 0, f"first-design K4 failed: {err}")
+        return out, mean, rstd
+
+    def ln_matmul(x, gamma, beta, w, bias, num_out, epsilon):
+        m, k = x.shape
+        n = w.shape[0] // num_out
+        out = torch.empty((num_out, m, n), dtype=x.dtype, device=dev)
+        err = libs["ln_matmul"].merlot_ln_matmul(
+            ptr(x), ptr(gamma), ptr(beta), ptr(w), ptr(bias), ptr(out), m, k, n, num_out,
+            epsilon, stream())
+        check(err == 0, f"first-design K5 failed: {err}")
+        return out
+    return fwd, bwd, stacked, groupnorm, ln_matmul
 
 
 def in_turns(first, second, iters: int = 10) -> tuple:
@@ -793,13 +835,15 @@ def in_turns(first, second, iters: int = 10) -> tuple:
 
 
 def first_design_phase(dev, parent_dir: Path) -> dict:
-    """The first designs against the current kernels at every K1 and K2
-    shape and K3's prefill shapes, in turns on this card; each pair's
-    outputs must agree within the kernels' own bounds."""
+    """The first designs against the current kernels at every K1, K2, K4
+    and K5 shape and K3's prefill shapes, in turns on this card; each pair's
+    largest output difference is reported."""
     import torch
     from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
 
-    fwd, bwd, stacked = parent_calls(parent_libraries(parent_dir), dev)
+    fwd, bwd, stacked, old_gn, old_ln = parent_calls(parent_libraries(parent_dir), dev)
     g = torch.Generator(device=dev).manual_seed(6)
     rows = []
     for name, b, s, masked, colsum, sm32 in ATTN_SHAPES:
@@ -840,6 +884,26 @@ def first_design_phase(dev, parent_dir: Path) -> dict:
         first_ms, ms = in_turns(old, new)
         rows.append({"kernel": "K3", "shape": name, "first_design_ms": first_ms, "ms": ms,
                      "speedup": first_ms / ms, "max_abs_diff": diff})
+    for name, b, hw, c, kind, _ in GN_SHAPES:
+        x, gamma, beta, r = gn_inputs(dev, g, b, hw, c, kind == "res")
+        kw = dict(num_groups=GN_GROUPS, epsilon=GN_EPS, relu=kind != "proj")
+        new = lambda: cg.group_norm_act_cuda(x, gamma, beta, r, **kw)
+        old = lambda: old_gn(x, gamma, beta, r, **kw)
+        diff = (new()[0].float() - old()[0].float()).abs().max().item()
+        first_ms, ms = in_turns(old, new)
+        rows.append({"kernel": "K4", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff})
+        del x, r
+        torch.cuda.empty_cache()
+    for name, m, j, n in LN_SHAPES:
+        x, gamma, beta, ws, bs = ln_inputs(dev, g, m, j, n)
+        w, bias = torch.cat(ws).to(torch.bfloat16), torch.cat(bs).to(torch.bfloat16)
+        new = lambda: lm.ln_matmul_cuda(x, gamma, beta, w, bias, num_out=j, epsilon=LN_EPS)
+        old = lambda: old_ln(x, gamma, beta, w, bias, j, LN_EPS)
+        diff = (new().float() - old().float()).abs().max().item()
+        first_ms, ms = in_turns(old, new)
+        rows.append({"kernel": "K5", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff})
     for row in rows:
         print(f"[first-design] {json.dumps(row)}", flush=True)
     by = {(r["kernel"], r["shape"]): r for r in rows}
@@ -852,6 +916,15 @@ def first_design_phase(dev, parent_dir: Path) -> dict:
         "k2_train_step": (per("K2", tr, "first_design_ms"), per("K2", tr, "ms")),
         "k3_prefill": (per("K3", ("prefill_b8_bf16",), "first_design_ms", 24),
                        per("K3", ("prefill_b8_bf16",), "ms", 24))}
+    # K4: each shape times its sites per forward; K5: 12 layers per shape
+    for path, frames in (("train_step", TRAIN_BATCH * TRAIN_CHUNKS),
+                         ("zero_shot_batch", 2 * STORIES * CHUNKS)):
+        sites = [spec for spec in GN_SHAPES if spec[1] == frames]
+        totals[f"k4_{path}"] = tuple(sum(spec[5] * by[("K4", spec[0])][key] for spec in sites)
+                                     for key in ("first_design_ms", "ms"))
+        prefix = "pretrain" if path == "train_step" else "zeroshot"
+        names = [spec[0] for spec in LN_SHAPES if spec[0].startswith(prefix)]
+        totals[f"k5_{path}"] = (per("K5", names, "first_design_ms"), per("K5", names, "ms"))
     result = {"rows": rows, "per_path": {k: {"first_design_ms": a, "ms": b_, "speedup": a / b_}
                                          for k, (a, b_) in totals.items()}}
     print(f"[first-design] {json.dumps(result['per_path'])}", flush=True)
@@ -962,7 +1035,7 @@ def check_gn_row(row: dict) -> None:
 
 
 def gn_kernel_phase(dev) -> list[dict]:
-    """K4 against its plain version at the 15 GroupNorm shapes."""
+    """K4 against its plain version at the 26 GroupNorm shapes."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -980,6 +1053,22 @@ def ln_within(row: dict, max_err: float, mean_err: float) -> bool:
     return max_err <= row["max_abs_err_bound"] and mean_err <= LN_MEAN_TOL
 
 
+def ln_inputs(dev, g, m, j, n):
+    """x bf16 [m, 768] shaped like a residual stream (rows with offsets and
+    scales of their own), gamma ~ 1 + 0.1 N, beta ~ 0.1 N, and J fp32
+    weights [n, 768] ~ 0.02 N with biases ~ 0.01 N."""
+    import torch
+    k = HEADS * D_HEAD
+    x = ((torch.randn((m, k), generator=g, device=dev)
+          + 0.5 * torch.randn((m, 1), generator=g, device=dev))
+         * (1 + torch.rand((m, 1), generator=g, device=dev))).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(k, generator=g, device=dev)
+    beta = 0.1 * torch.randn(k, generator=g, device=dev)
+    ws = [0.02 * torch.randn((n, k), generator=g, device=dev) for _ in range(j)]
+    bs = [0.01 * torch.randn(n, generator=g, device=dev) for _ in range(j)]
+    return x, gamma, beta, ws, bs
+
+
 def ln_shape(dev, g, spec) -> dict:
     """K5 and its plain version at one shape: errors, fault probes, times."""
     import torch
@@ -990,14 +1079,7 @@ def ln_shape(dev, g, spec) -> dict:
     name, m, j, n = spec
     k = HEADS * D_HEAD
     bf16 = torch.bfloat16
-    # a residual stream: rows with offsets and scales of their own
-    x = ((torch.randn((m, k), generator=g, device=dev)
-          + 0.5 * torch.randn((m, 1), generator=g, device=dev))
-         * (1 + torch.rand((m, 1), generator=g, device=dev))).to(bf16)
-    gamma = 1 + 0.1 * torch.randn(k, generator=g, device=dev)
-    beta = 0.1 * torch.randn(k, generator=g, device=dev)
-    ws = [0.02 * torch.randn((n, k), generator=g, device=dev) for _ in range(j)]
-    bs = [0.01 * torch.randn(n, generator=g, device=dev) for _ in range(j)]
+    x, gamma, beta, ws, bs = ln_inputs(dev, g, m, j, n)
     w, bias = torch.cat(ws).to(bf16), torch.cat(bs).to(bf16)
     kw = dict(num_out=j, epsilon=LN_EPS)
     y = lm.ln_matmul_cuda(x, gamma, beta, w, bias, **kw)
@@ -1552,7 +1634,10 @@ def fused_train_phase(dev, ref) -> dict:
         gap = grad_gap(fused_grads, ref["grads"])
         loss_rel = abs(fused_loss - ref["loss"]) / abs(ref["loss"])
         del fused_grads
-        prof = profile_steps(dev, step, model, state, batch, label="fused-profile")
+        # K4 and K5 launch one kernel per call
+        prof = profile_steps(dev, step, model, state, batch, label="fused-profile",
+                             counted={("K4 groupnorm",): lambda: counts()[2],
+                                      ("K5 ln_matmul",): lambda: counts()[3]})
 
     med = statistics.median(seconds)
     result = {"segments_per_step": segments, "step_seconds": seconds,
@@ -1633,7 +1718,7 @@ def kernel_family(name: str) -> str:
     kernels, library matmuls and convolutions, or everything else
     (elementwise, reductions, norms, copies, RNG)."""
     low = name.lower()
-    if any(t in low for t in ("gn_stats", "gn_finalize", "gn_apply")):
+    if any(t in low for t in ("::gn_kernel<", "gn_kerneli")):  # demangled or mangled
         return "K4 groupnorm"
     if "ln_matmul" in low:
         return "K5 ln_matmul"
@@ -1650,27 +1735,49 @@ def kernel_family(name: str) -> str:
     return "elementwise, reduction and other"
 
 
-def profile_device(run, label: str, family=kernel_family, **info) -> dict:
+# a profile on the card now and then loses kernel records, with or without
+# a kernel launched before the measured work: one that holds fewer
+# launches than the wrappers counted over the same run is taken again
+PROFILE_TRIES = 3
+
+
+def profile_device(run, label: str, family=kernel_family, counted=None, **info) -> dict:
     """torch.profiler over run(): device time by kernel family and the
-    device's idle share (the profiler's own overhead counts as idle)."""
+    device's idle share (the profiler's own overhead counts as idle).
+    counted maps a tuple of families to a function that reads the wrappers'
+    count of their kernels; the profile must hold every launch counted over
+    its run(), within PROFILE_TRIES runs, and "tries" says how many it took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    counted = counted or {}
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = {fams: read() for fams, read in counted.items()}
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        families = {}
+        for e in events:
+            fam = family(e.key)
+            ms, n = families.get(fam, (0.0, 0))
+            families[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        missing = {"+".join(fams): (read() - before[fams],
+                                    sum(families.get(f, (0, 0))[1] for f in fams))
+                   for fams, read in counted.items()}
+        missing = {k: v for k, v in missing.items() if v[0] != v[1]}
+        if not missing:
+            break
+        print(f"[{label}] profile {tries} holds (counted, profiled) launches {missing}",
+              flush=True)
+    check(not missing, f"[{label}] no profile in {PROFILE_TRIES} held the launches the "
+                       f"wrappers counted: {missing}")
     total = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:40]
-    families = {}
-    for e in events:
-        fam = family(e.key)
-        ms, n = families.get(fam, (0.0, 0))
-        families[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    summary = {**info, "wall_ms": wall_ms, "device_ms": total,
+    summary = {**info, "tries": tries, "wall_ms": wall_ms, "device_ms": total,
                "device_idle_share": 1 - total / wall_ms if wall_ms else None,
                "families": {f: {"ms": ms, "launches": n}
                             for f, (ms, n) in sorted(families.items(),
@@ -1682,7 +1789,8 @@ def profile_device(run, label: str, family=kernel_family, **info) -> dict:
     return summary
 
 
-def profile_steps(dev, step, model, state, batch, label: str = "profile") -> dict:
+def profile_steps(dev, step, model, state, batch, label: str = "profile",
+                  counted=None) -> dict:
     """torch.profiler over two train steps."""
     import torch
 
@@ -1691,7 +1799,7 @@ def profile_steps(dev, step, model, state, batch, label: str = "profile") -> dic
     def run():
         for _ in range(2):
             step(model, state, batch, g)
-    return profile_device(run, label, steps=2)
+    return profile_device(run, label, counted=counted, steps=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1941,11 +2049,13 @@ def grover_phase(dev) -> dict:
     # device time by kernel over one generation of `lo` tokens: K3's own
     # time on the path (the events above also hold the host's gaps
     # between launches when the step is host-bound), and the idle share
+    k3_families = ("K3 attention_decode", "K3 prefill (K1's tiled kernels)")
     prof = profile_device(lambda: samplers[lo](ctx, gen.manual_seed(21)), "grover-profile",
-                          family=grover_family, batch=GROVER_BATCH,
-                          prefix=GROVER_PREFIX, tokens=lo)
-    k3_dec, k3_pre = (prof["families"].get(f, {"ms": 0.0, "launches": 0}) for f in
-                      ("K3 attention_decode", "K3 prefill (K1's tiled kernels)"))
+                          family=grover_family,
+                          counted={k3_families: lambda: ca.stacked_launches},
+                          batch=GROVER_BATCH, prefix=GROVER_PREFIX, tokens=lo)
+    k3_dec, k3_pre = (prof["families"].get(f, {"ms": 0.0, "launches": 0})
+                      for f in k3_families)
     # one short fp32 generation: the prefill and 32 steps through fp32 K3
     model32 = grover_model(dev, bf16=False)
     t0 = time.perf_counter()
@@ -1957,7 +2067,7 @@ def grover_phase(dev) -> dict:
     launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
                 "attention_stacked": ca.stacked_launches}
     del model32
-    want = 24 * (GROVER_REPEATS * sum(GROVER_GENS) + hi + lo + 33)
+    want = 24 * (GROVER_REPEATS * sum(GROVER_GENS) + hi + lo * prof["tries"] + 33)
     check(launches == {"attention_fwd": 0, "attention_bwd": 0, "attention_stacked": want},
           f"Grover path launches {launches}, want {want} of K3 only")
     check(n_dec == 24 * (hi - 1), f"K3 launches: {n_dec} over {hi - 1} decode steps")
@@ -2113,7 +2223,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
     first = {k: fd["per_path"][k]["first_design_ms"] if fd else None
-             for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill")}
+             for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill",
+                       "k4_train_step", "k4_zero_shot_batch", "k5_train_step",
+                       "k5_zero_shot_batch")}
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
     zs = {r["shape"]: r for r in k1_rows}
@@ -2196,13 +2308,17 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
     # on the fused path (torch.profiler over two steps, halved), "event_ms"
     # CUDA events around its launches on the path (median of the timed
-    # steps; they hold the host's gaps inside a K4 call's three launches),
-    # the others sums over the sites of the per-shape times
+    # steps), the others sums over the sites of the per-shape times; the
+    # zero_shot_* fields the same per fused zero-shot batch (54 K4 and 48
+    # K5 launches), the path's time from CUDA events
     gn = {r["shape"]: r for r in k4_rows}
-    train_gn = [spec for spec in GN_SHAPES if spec[1] == TRAIN_BATCH * TRAIN_CHUNKS]
-    check(sum(spec[5] for spec in train_gn) == FUSED_LAUNCHES_PER_STEP[2],
-          "the GroupNorm shapes do not cover the train step's sites")
-    gn_step = lambda key: sum(spec[5] * gn[spec[0]][key] for spec in train_gn)
+    gn_path = lambda frames, key: sum(spec[5] * gn[spec[0]][key] for spec in GN_SHAPES
+                                      if spec[1] == frames)
+    train_frames, zs_frames = TRAIN_BATCH * TRAIN_CHUNKS, 2 * STORIES * CHUNKS
+    for frames, n in ((train_frames, FUSED_LAUNCHES_PER_STEP[2]),
+                      (zs_frames, FUSED_LAUNCHES_PER_BATCH[1])):
+        check(sum(spec[5] for spec in GN_SHAPES if spec[1] == frames) == n,
+              f"the GroupNorm shapes of {frames} frames do not cover the path's sites")
     k4_record = {
         "name": "groupnorm", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/groupnorm.cu",
@@ -2212,15 +2328,22 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                              "train_fused": ftr["launches"]["groupnorm"]},
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
         "ms": fprof["families"]["K4 groupnorm"]["ms"] / 2, "event_ms": ftr["k4_ms"],
-        "plain_ms": gn_step("plain_ms"),
-        "bound_ms": gn_step("bound_ms"), "bound_by": gn["stem_c64"]["bound_by"],
-        "library_ms": gn_step("library_ms"), "shape_sum_ms": gn_step("ms"),
+        "plain_ms": gn_path(train_frames, "plain_ms"),
+        "bound_ms": gn_path(train_frames, "bound_ms"), "bound_by": gn["stem_c64"]["bound_by"],
+        "library_ms": gn_path(train_frames, "library_ms"),
+        "shape_sum_ms": gn_path(train_frames, "ms"),
+        "first_design_ms": first["k4_train_step"],
         "zero_shot_ms_per_batch": fsl["k4_ms"],
+        "zero_shot_shape_sum_ms": gn_path(zs_frames, "ms"),
+        "zero_shot_first_design_ms": first["k4_zero_shot_batch"],
+        "zero_shot_plain_ms": gn_path(zs_frames, "plain_ms"),
+        "zero_shot_bound_ms": gn_path(zs_frames, "bound_ms"),
+        "zero_shot_library_ms": gn_path(zs_frames, "library_ms"),
         "library_note": "F.group_norm on the NCHW view, + add, ReLU: not the same rounding",
         "unit": "per train step: 54 launches over 13 shapes, 128 frames, bf16"}
     ln = {r["shape"]: r for r in k5_rows}
-    train_ln = [spec[0] for spec in LN_SHAPES if spec[0].startswith("pretrain")]
-    ln_step = lambda key: 12 * sum(ln[n][key] for n in train_ln)
+    ln_path = lambda prefix, key: 12 * sum(ln[spec[0]][key] for spec in LN_SHAPES
+                                           if spec[0].startswith(prefix))
     k5_record = {
         "name": "ln_matmul", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/ln_matmul.cu",
@@ -2230,10 +2353,18 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                              "train_fused": ftr["launches"]["ln_matmul"]},
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         "ms": fprof["families"]["K5 ln_matmul"]["ms"] / 2, "event_ms": ftr["k5_ms"],
-        "plain_ms": ln_step("plain_ms"),
-        "bound_ms": ln_step("bound_ms"), "bound_by": ln["pretrain_vit_qkv"]["bound_by"],
-        "library_ms": ln_step("library_ms"), "shape_sum_ms": ln_step("ms"),
+        "plain_ms": ln_path("pretrain", "plain_ms"),
+        "bound_ms": ln_path("pretrain", "bound_ms"),
+        "bound_by": ln["pretrain_vit_qkv"]["bound_by"],
+        "library_ms": ln_path("pretrain", "library_ms"),
+        "shape_sum_ms": ln_path("pretrain", "ms"),
+        "first_design_ms": first["k5_train_step"],
         "zero_shot_ms_per_batch": fsl["k5_ms"],
+        "zero_shot_shape_sum_ms": ln_path("zeroshot", "ms"),
+        "zero_shot_first_design_ms": first["k5_zero_shot_batch"],
+        "zero_shot_plain_ms": ln_path("zeroshot", "plain_ms"),
+        "zero_shot_bound_ms": ln_path("zeroshot", "bound_ms"),
+        "zero_shot_library_ms": ln_path("zeroshot", "library_ms"),
         "library_note": "F.layer_norm then one F.linear over the J weights: two calls, "
                         "not the same rounding",
         "unit": "per train step: 72 launches, 12 layers x (q/k/v, MLP) x 3 towers, K=768, bf16"}
@@ -2245,7 +2376,8 @@ def main() -> int:
     ap.add_argument("--out", help="write the run's details to this JSON file")
     ap.add_argument("--parent", type=Path,
                     help="a checkout of the first designs' commit (83510f1): time them "
-                         "against the current K1, K2 and K3 prefill (first_design phase)")
+                         "against the current K1, K2, K3 prefill, K4 and K5 "
+                         "(first_design phase)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2304,7 +2436,8 @@ def main() -> int:
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
-             "grover": gv, "server": sv, "ablation": ab_rows, "first_design": fd,
+             "grover": gv, "server": sv, "ablation": ab_rows,
+             "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},
             indent=1))

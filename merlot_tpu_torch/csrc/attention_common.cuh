@@ -2,7 +2,8 @@
 // attention_bwd.cu, K3 attention_stacked.cu). They recompute the same
 // rounded, masked scores and the same softmax from them, so those steps
 // live here once: the backward rebuilds the forward's probabilities with
-// the same fp32 operations. K5 (ln_matmul.cu) takes the mma.sync helpers.
+// the same fp32 operations. K4 (groupnorm.cu) and K5 (ln_matmul.cu) take
+// the type, rounding, warp-sum and launch helpers.
 
 #pragma once
 
@@ -103,23 +104,6 @@ __device__ void softmax_rows(float* s_p, int ld, int rows, int Sk, bool sm_bf16,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------------------
-// mma.sync.m16n8k16 bf16 -> fp32 (row.col), lane = 4*g + t: K5's products
-// (ln_matmul.cu)
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <typename K, typename... Args>

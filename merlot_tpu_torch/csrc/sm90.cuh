@@ -1,7 +1,8 @@
-// Hopper building blocks of the attention kernels: TMA tile loads with
-// mbarriers, wgmma shared-memory descriptors and fences, and the tensor maps
-// (built on the host through the driver's cuTensorMapEncodeTiled, reached
-// with cudaGetDriverEntryPoint so that nothing links against libcuda).
+// Hopper building blocks of the attention kernels, K4 and K5: TMA tile
+// loads and bulk copies with mbarriers, wgmma shared-memory descriptors and
+// fences, and the tensor maps (built on the host through the driver's
+// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so that
+// nothing links against libcuda).
 //
 // Tiles. A tile is 64 rows x D columns of bf16 (D a multiple of 16), staged
 // by TMA as column blocks of [64 rows][W columns]: W = 64 (128-byte rows,
@@ -51,6 +52,22 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one plain arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into dst, both
+// 16-byte aligned, counted on bar (announce them with mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -89,6 +106,62 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// tma_load into the same offset of every block of the cluster in `mask`
+// (bit r: rank r), completion counted on the barrier at bar's offset in each
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(mask)
+      : "memory");
+}
+
+// the 3-D map's box at (column c0, row c1, batch c2) from src, as a bulk
+// group; rows and columns past the map's bounds are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N committed bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// waits until at most N committed bulk groups are still incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one arrival on the barrier at bar's offset in the cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// the cluster barrier, in two halves: every thread of every block of the
+// cluster arrives (release) and waits (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // The column blocks of a D-column tile: 64 columns (128-byte rows, 128-byte
@@ -179,6 +252,28 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// registers of this warpgroup's threads, raised or lowered to R (every
+// warp of the warpgroup runs it; a warp-specialized kernel's roles must not
+// reconverge afterwards)
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // keeps the compiler from moving accesses to an accumulator across a wait

@@ -18,23 +18,28 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from merlot_tpu_torch.core import threefry
 from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.ops.attention import inference_backend
 
 DUPLICATION_FACTOR = 2
 SHUFFLE_OFFSET = 64
 SHUFFLE_SEED = 123
+SHUFFLE_FOLD = 1234
 
 
 def default_shuffled_idx(batch_size: int, num_chunks: int,
                          duplication_factor: int = DUPLICATION_FACTOR
                          ) -> torch.Tensor:
-    """Fixed-seed per-duplicate frame permutations + 64, [batch*dup, n]
-    int64. The JAX package draws them from jax.random, which torch cannot
-    reproduce; pass its array to ``make_zero_shot_fn`` for exact parity."""
-    g = torch.Generator().manual_seed(SHUFFLE_SEED)
-    u = torch.rand((batch_size * duplication_factor, num_chunks), generator=g)
-    return torch.argsort(u, dim=1) + SHUFFLE_OFFSET
+    """The JAX package's fixed per-duplicate frame permutations + 64,
+    [batch*dup, n] int64: ``uniform(fold_in(PRNGKey(123), 1234),
+    (batch*dup*n,))`` reshaped to rows, each row's stable argsort. The
+    draw is reproduced bit for bit by ``core.threefry``."""
+    rows = batch_size * duplication_factor
+    u = threefry.uniform(threefry.fold_in(threefry.prng_key(SHUFFLE_SEED), SHUFFLE_FOLD),
+                         rows * num_chunks)
+    idx = np.argsort(u.reshape(rows, num_chunks), axis=1, kind="stable")
+    return torch.from_numpy(idx).long() + SHUFFLE_OFFSET
 
 
 def duplicate_inputs(images: torch.Tensor, sentences: torch.Tensor,

@@ -5,7 +5,9 @@ The kernel is ``csrc/groupnorm.cu``, built with nvcc at first use and called
 through ctypes. It computes ``relu(group_norm(x) + residual)`` over a
 channels-last [B, ..., C] tensor in the operation order of the TPU kernel
 ``_gn_kernel`` (``norms.group_norm_act_plain``) and emits the fp32 group
-statistics (mean, rstd) [B, G] for the saved-stats backward.
+statistics (mean, rstd) [B, G] for the saved-stats backward. One launch per
+call: one thread-block cluster per image, whose size and resident rows
+``launch_plan`` picks from the shape alone.
 
 ``GroupNormAct`` is the custom_vjp ``_gn_act_p``: its forward launches K4 for
 CUDA tensors and runs the plain version for CPU tensors, never one in place
@@ -20,6 +22,7 @@ both of its module switches to 'xla'. ``launches`` counts K4 launches.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -36,18 +39,80 @@ launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# the kernel's launch (csrc/groupnorm.cu): threads per block at most, bulk
+# copies per block, the largest cluster, and the shared memory a block may
+# use so that two blocks fit on an SM (228 KB, 1 KB of it per block kept by
+# the card)
+MAX_THREADS = 256
+PIECES = 4
+MAX_CLUSTER = 16
+SMEM_TARGET = 113 * 1024
+MAX_SMEM = 227 * 1024
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(res_rows: int, c: int, groups: int, elem: int) -> int:
+    """A block's shared memory: its resident rows, the threads' channel sums
+    of x and x^2, the per-channel and per-group partials, the group stats,
+    the mbarriers (``layout`` in groupnorm.cu)."""
+    v = c // (16 // elem)
+    r = MAX_THREADS // v
+    return (_round16(res_rows * c * elem) + _round16(2 * r * c * 4) + _round16(2 * c * 4)
+            + 2 * _round16(2 * groups * 4) + PIECES * 8)
+
+
+def launch_plan(hw: int, c: int, groups: int, elem: int) -> dict:
+    """K4's launch for images of hw rows of c channels, elem bytes each: the
+    smallest power-of-two cluster (up to 16 blocks) whose blocks each keep
+    their ceil(hw / cluster) rows resident within SMEM_TARGET; where even 16
+    cannot (a slab over ~1.6 MB), 16 blocks keep what fits and read the rest
+    of their rows from global memory."""
+    fixed = smem_bytes(0, c, groups, elem)
+    cap = max(0, (SMEM_TARGET - fixed) // (c * elem))
+    cluster = 1
+    while cluster < MAX_CLUSTER and -(-hw // cluster) > cap:
+        cluster *= 2
+    rows = -(-hw // cluster)
+    res_rows = min(rows, cap)
+    return {"cluster": cluster, "rows_per_block": rows, "res_rows": res_rows,
+            "smem_bytes": smem_bytes(res_rows, c, groups, elem)}
+
+
+_launch_plan = lru_cache(maxsize=None)(launch_plan)
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use) and load K4's library."""
     lib = load_library("groupnorm")
     fn = lib.merlot_group_norm_act
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [i] * 6 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 7 + [i] * 6 + [ctypes.c_float] + [i] * 3 + [ptr]
         fn.restype = ctypes.c_int
-        ws = lib.merlot_group_norm_workspace
-        ws.argtypes = [i] * 4
-        ws.restype = ctypes.c_long
+        lib.merlot_group_norm_smem.argtypes = [i] * 4
+        lib.merlot_group_norm_smem.restype = ctypes.c_long
+        lib.merlot_group_norm_max_clusters.argtypes = [i] * 5
+        lib.merlot_group_norm_max_clusters.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def _check_plan(device_index: int, c: int, groups: int, is_bf16: int, cluster: int,
+                res_rows: int, smem: int) -> None:
+    """Raise unless the kernel agrees with the plan's shared memory and the
+    card can hold at least one of its clusters (once per plan and card)."""
+    lib = load_kernel()
+    with torch.cuda.device(device_index):
+        got = lib.merlot_group_norm_smem(res_rows, c, groups, is_bf16)
+        if got != smem:
+            raise RuntimeError(f"groupnorm: plan shared memory {smem} != kernel's {got}")
+        n = lib.merlot_group_norm_max_clusters(c, groups, is_bf16, cluster, res_rows)
+    if n < 1:
+        raise RuntimeError(f"groupnorm: a cluster of {cluster} blocks with {smem} bytes "
+                           f"of shared memory cannot be scheduled on this card ({n})")
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -99,17 +164,18 @@ def group_norm_act_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
     b, hw, c = _check(x, gamma, beta, residual, num_groups)
     lib = load_kernel()
     is_bf16 = _DTYPE_CODE[x.dtype]
+    plan = _launch_plan(hw, c, num_groups, x.element_size())
+    _check_plan(x.device.index if x.device.index is not None else torch.cuda.current_device(),
+                c, num_groups, is_bf16, plan["cluster"], plan["res_rows"], plan["smem_bytes"])
     out = torch.empty_like(x)
     mean = torch.empty((b, num_groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
-    part = torch.empty(lib.merlot_group_norm_workspace(b, hw, c, is_bf16),
-                       dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.merlot_group_norm_act(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), b, hw, c, num_groups,
-        is_bf16, int(relu), epsilon, stream)
+        mean.data_ptr(), rstd.data_ptr(), b, hw, c, num_groups, is_bf16, int(relu),
+        epsilon, plan["cluster"], plan["rows_per_block"], plan["res_rows"], stream)
     if err != 0:
         raise RuntimeError(f"groupnorm kernel failed: cudaError_t {err}")
     launches += 1

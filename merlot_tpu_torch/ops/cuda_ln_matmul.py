@@ -4,9 +4,11 @@ PyTorch version (counterpart of merlot_tpu/ops/pallas_ln_matmul.py).
 The kernel is ``csrc/ln_matmul.cu``, built with nvcc at first use and called
 through ctypes: per row of x the LayerNorm in fp32 (the two-term
 ``x*s - mean*s + beta`` form), z rounded to the compute dtype and kept in
-shared memory, then the J consumer products with fp32 sums, each rounded to
-the compute dtype before its bias is added. z is never written to device
-memory.
+shared memory, then the J consumer products with fp32 sums on wgmma, each
+rounded to the compute dtype before its bias is added. z is never written
+to device memory. ``launch_plan`` is its tile walk: the units of clusters of
+two blocks and the W ring's depth, from the shape and the number of
+clusters the card holds at once.
 
 ``LnMatmul`` is the custom_vjp ``_ln_matmul_full``: its forward launches K5
 for CUDA tensors and runs ``norms.ln_matmul_plain`` for CPU tensors, never
@@ -24,6 +26,7 @@ counts K5 launches.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Sequence, Tuple
 
 import torch
@@ -39,10 +42,47 @@ launches = 0
 
 def kernel_supported(k: int, n: int, dtype: torch.dtype) -> bool:
     """Shapes and dtypes K5 takes: bf16, K a multiple of 64 up to MAX_K (z
-    for 64 rows is held in shared memory), N a multiple of 8. fp32 is
+    for a block's rows is held in shared memory), N a multiple of 8. fp32 is
     refused: no config on the port's paths runs the fused LayerNorm in
     fp32 (the CPU runs the plain version)."""
     return dtype == torch.bfloat16 and k % 64 == 0 and 0 < k <= MAX_K and n % 8 == 0
+
+
+# the kernel's tiles (csrc/ln_matmul.cu): blocks per cluster, rows of x per
+# block, output columns per tile, k per W stage, W stages at most, and the
+# shared memory a block may use
+CLUSTER = 2
+BLOCK_ROWS = 64
+TILE_N = 256
+K_BLOCK = 64
+MAX_STAGES = 4
+SMEM_ALIGN = 1024
+MAX_SMEM = 227 * 1024
+
+
+def smem_bytes(stages: int, k: int) -> int:
+    """Dynamic shared memory of a block: z for its rows (bf16), the W ring,
+    the output tile (bf16), the mbarriers (2 per stage, x landed, z free),
+    the alignment slack. The same sum as ``smem_bytes`` in ln_matmul.cu."""
+    return SMEM_ALIGN + BLOCK_ROWS * k * 2 + stages * TILE_N * K_BLOCK * 2 + \
+        BLOCK_ROWS * TILE_N * 2 + (2 * MAX_STAGES + 2) * 8
+
+
+def launch_plan(m: int, k: int, n: int, j: int, max_clusters: int) -> dict:
+    """K5's tile walk for x [m, k] and J = j consumers of n columns: clusters
+    of two blocks of 64 rows; the (128-row pair block, 256-column tile)
+    units in row-major order, cut into one contiguous range per persistent
+    cluster (at most as many clusters as the card holds at once); the
+    deepest W ring that fits beside z and the output tiles."""
+    stages = next(s for s in range(MAX_STAGES, 1, -1) if smem_bytes(s, k) <= MAX_SMEM)
+    pair_blocks = -(-m // (CLUSTER * BLOCK_ROWS))
+    col_tiles = -(-(j * n) // TILE_N)
+    units = pair_blocks * col_tiles
+    return {"stages": stages, "pair_blocks": pair_blocks, "col_tiles": col_tiles,
+            "clusters": min(units, max_clusters), "smem_bytes": smem_bytes(stages, k)}
+
+
+_launch_plan = lru_cache(maxsize=None)(launch_plan)
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -51,9 +91,31 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.merlot_ln_matmul
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 6 + [i] * 4 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 6 + [i] * 4 + [ctypes.c_float, i, ptr]
         fn.restype = ctypes.c_int
+        lib.merlot_ln_matmul_smem.argtypes = [i]
+        lib.merlot_ln_matmul_smem.restype = ctypes.c_long
+        lib.merlot_ln_matmul_max_clusters.argtypes = [i]
+        lib.merlot_ln_matmul_max_clusters.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def max_clusters(device_index: int, k: int) -> int:
+    """Clusters of K5 the card holds at once at depth k (once per card and
+    k); raises if the kernel's shared memory disagrees with the plan's or
+    no cluster fits."""
+    lib = load_kernel()
+    with torch.cuda.device(device_index):
+        got = lib.merlot_ln_matmul_smem(k)
+        want = launch_plan(1, k, 8, 1, 1)["smem_bytes"]
+        if got != want:
+            raise RuntimeError(f"ln_matmul: plan shared memory {want} != kernel's {got}")
+        n = lib.merlot_ln_matmul_max_clusters(k)
+    if n < 1:
+        raise RuntimeError(f"ln_matmul: no cluster of {CLUSTER} blocks with {got} bytes "
+                           f"of shared memory fits on this card ({n})")
+    return n
 
 
 def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -69,8 +131,12 @@ def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if x2.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: x and w must be 16-byte aligned")
+    # the kernel reads gamma and beta 16 bytes at a time and the bias 4
+    if x2.data_ptr() % 16 or w.data_ptr() % 16 or gamma.data_ptr() % 16 \
+            or beta.data_ptr() % 16:
+        raise ValueError(f"{name}: x, w, gamma and beta must be 16-byte aligned")
+    if bias.data_ptr() % 4:
+        raise ValueError(f"{name}: bias must be 4-byte aligned")
     if x2.dim() != 2 or w.dim() != 2 or num_out <= 0 or w.shape[0] % num_out:
         raise ValueError(f"{name}: bad shapes {tuple(x2.shape)}, {tuple(w.shape)} "
                          f"for {num_out} outputs")
@@ -87,11 +153,13 @@ def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if gamma.dtype != torch.float32 or beta.dtype != torch.float32:
         raise ValueError(f"{name}: gamma and beta must be fp32")
     lib = load_kernel()
+    index = x2.device.index if x2.device.index is not None else torch.cuda.current_device()
+    plan = _launch_plan(m, k, n, num_out, max_clusters(index, k))
     out = torch.empty((num_out, m, n), dtype=x2.dtype, device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = lib.merlot_ln_matmul(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                                w.data_ptr(), bias.data_ptr(), out.data_ptr(), m, k, n,
-                               num_out, epsilon, stream)
+                               num_out, epsilon, plan["clusters"], stream)
     if err != 0:
         raise RuntimeError(f"ln_matmul kernel failed: cudaError_t {err}")
     launches += 1

@@ -334,6 +334,13 @@ GN_SHAPES = [  # b, hw, c, groups, kind
     (2, 1000, 1024, 32, "res"),
     (4, 3000, 32, 32, "relu"),       # several row chunks per image
     (2, 77, 40, 4, "relu"),          # 10 channels per group
+    (2, 16896, 64, 32, "relu"),      # a cluster of 16 that streams rows
+    (1, 36864, 64, 32, "relu"),      # the zero-shot stem: most rows streamed
+    (3, 264, 1024, 32, "res"),
+    (2, 1056, 512, 32, "proj"),
+    (2, 9216, 128, 32, "relu"),
+    (5, 1, 32, 32, "relu"),          # one row per image
+    (2, 4099, 256, 32, "res"),       # ranks with a ragged last range
 ]
 GN_CASES = [(dt, *shape) for dt in (torch.float32, torch.bfloat16) for shape in GN_SHAPES]
 
@@ -408,6 +415,11 @@ LN_SHAPES = [  # m, k, n, j
     (130, 256, 40, 2),               # N not a multiple of 128: tiles span consumers
     (4096, 768, 3072, 1),
     (3540, 768, 768, 3),             # the zero-shot joint tower's rows
+    (11560, 768, 3072, 1),           # the zero-shot ViT's MLP rows
+    (1, 768, 8, 1),                  # one row, one 8-column consumer
+    (127, 1024, 768, 3),             # K = 1024: 64 rows per block
+    (300, 832, 200, 2),
+    (129, 64, 3072, 1),              # one k block
 ]
 
 
@@ -437,6 +449,21 @@ def test_ln_matmul_kernel_matches_plain(cuda, m, k, n, j):
     assert diff.mean().item() <= BF16_MEAN_TOL
 
 
+def test_fused_norm_kernels_are_deterministic(cuda):
+    """K4 (a cluster of 16, streamed rows) and K5 (a persistent walk with row
+    tails) give the same bits run to run."""
+    x, gamma, beta, r = _gn_inputs(cuda, 2, 16896, 64, torch.bfloat16, True)
+    kw = dict(num_groups=32, epsilon=1e-4, relu=True)
+    a = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, r, **kw)
+    b = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, r, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    x, gamma, beta, ws, bs = _ln_inputs(cuda, 3540, 768, 768, 3)
+    w, bias = torch.cat(ws).bfloat16(), torch.cat(bs).bfloat16()
+    y1, y2 = (cuda_ln_matmul.ln_matmul_cuda(x, gamma, beta, w, bias, num_out=3, epsilon=1e-5)
+              for _ in range(2))
+    assert torch.equal(y1, y2)
+
+
 def test_ln_matmul_kernel_refuses_bad_inputs(cuda):
     x, gamma, beta, ws, bs = _ln_inputs(cuda, 64, 128, 128, 1)
     w, b = ws[0].bfloat16(), bs[0].bfloat16()
@@ -445,6 +472,18 @@ def test_ln_matmul_kernel_refuses_bad_inputs(cuda):
         cuda_ln_matmul.ln_matmul_cuda(x.float(), gamma, beta, ws[0], bs[0], **kw)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_ln_matmul.ln_matmul_cuda(x.t().contiguous().t(), gamma, beta, w, b, **kw)
+    # contiguous but misaligned views, as slices of a flat parameter buffer
+    # give: gamma and beta are read 16 bytes at a time, the bias 4
+    flat = torch.empty(2 * 128 + 1, device=cuda)
+    g1 = flat[1:129].copy_(gamma)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_ln_matmul.ln_matmul_cuda(x, g1, beta, w, b, **kw)
+    b1 = flat[129:].copy_(beta)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_ln_matmul.ln_matmul_cuda(x, gamma, b1, w, b, **kw)
+    flat16 = torch.empty(129, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_ln_matmul.ln_matmul_cuda(x, gamma, beta, w, flat16[1:].copy_(b), **kw)
     x, gamma, beta, ws, bs = _ln_inputs(cuda, 64, 96, 128, 1)
     with pytest.raises(ValueError, match="unsupported"):
         cuda_ln_matmul.ln_matmul_cuda(x, gamma, beta, ws[0].bfloat16(), bs[0].bfloat16(),

@@ -169,3 +169,108 @@ def test_resnet_cuda_backend_matches_plain_on_cpu():
         a = net(img, gn_backend="cuda")
         b = net(img, gn_backend="plain")
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# K4's launch plan (cuda_groupnorm.launch_plan), checked on the CPU at every
+# GroupNorm site of the train step (128 frames of 192x352) and of zero-shot
+# (20 frames of 384x384), and at ragged edges: (hw, c, groups, bytes per
+# element)
+PLAN_SITES = [
+    (16896, 32, 32, 2), (16896, 64, 32, 2), (4224, 256, 32, 2), (4224, 64, 32, 2),
+    (4224, 128, 32, 2), (1056, 512, 32, 2), (1056, 128, 32, 2), (1056, 256, 32, 2),
+    (264, 1024, 32, 2), (264, 256, 32, 2),
+    (36864, 32, 32, 2), (36864, 64, 32, 2), (9216, 256, 32, 2), (9216, 64, 32, 2),
+    (9216, 128, 32, 2), (2304, 512, 32, 2), (2304, 128, 32, 2), (2304, 256, 32, 2),
+    (576, 1024, 32, 2), (576, 256, 32, 2),
+    (1, 32, 32, 2), (5, 32, 32, 4), (77, 40, 4, 2), (17, 2048, 32, 2), (1000, 1024, 32, 4),
+    (3000, 32, 32, 4), (100000, 64, 32, 2), (33, 1024, 32, 2),
+]
+
+
+def _block_rows(plan, hw, rank):
+    """The rows of every image that the block of cluster rank `rank` keeps
+    resident and the rows it reads from global memory: groupnorm.cu's
+    row0 / n_rows / n_res, emulated."""
+    row0 = rank * plan["rows_per_block"]
+    n_rows = max(0, min(hw, row0 + plan["rows_per_block"]) - row0)
+    n_res = min(n_rows, plan["res_rows"])
+    return range(row0, row0 + n_res), range(row0 + n_res, row0 + n_rows)
+
+
+@pytest.mark.parametrize("hw,c,groups,elem", PLAN_SITES)
+def test_launch_plan_covers_every_row_once(hw, c, groups, elem):
+    plan = cuda_groupnorm.launch_plan(hw, c, groups, elem)
+    cs = plan["cluster"]
+    assert cs in (1, 2, 4, 8, 16)
+    assert plan["smem_bytes"] <= cuda_groupnorm.SMEM_TARGET <= cuda_groupnorm.MAX_SMEM
+    assert plan["smem_bytes"] == cuda_groupnorm.smem_bytes(plan["res_rows"], c, groups, elem)
+    assert cs * plan["rows_per_block"] >= hw
+    rows = []
+    for rank in range(cs):
+        res, streamed = _block_rows(plan, hw, rank)
+        assert len(res) <= plan["res_rows"]
+        rows += list(res) + list(streamed)
+    assert rows == list(range(hw))          # every row once, ranks in order
+    # the smallest cluster whose blocks hold their rows, else 16 that stream
+    fits = plan["res_rows"] == plan["rows_per_block"]
+    assert fits or cs == cuda_groupnorm.MAX_CLUSTER
+    if cs > 1:
+        half = cuda_groupnorm.smem_bytes(-(-hw // (cs // 2)), c, groups, elem)
+        assert half > cuda_groupnorm.SMEM_TARGET
+
+
+def _kernel_order_stats(x, plan, groups, eps):
+    """mean, rstd of one image x [hw, c] fp32 summed in the kernel's order:
+    each thread's rows (piece by piece, then the streamed rows, R apart),
+    the block's R thread rows in order, the group's channels in order, then
+    the cluster's ranks in order."""
+    hw, c = x.shape
+    r = cuda_groupnorm.MAX_THREADS // (c // 4)
+    cpg = c // groups
+    a = torch.zeros(groups)
+    q = torch.zeros(groups)
+    parts = []
+    for rank in range(plan["cluster"]):
+        res, streamed = _block_rows(plan, hw, rank)
+        piece = -(-len(res) // cuda_groupnorm.PIECES)
+        segs = [res[i:i + piece] for i in range(0, len(res), piece)] if piece else []
+        s1, s2 = torch.zeros(r, c), torch.zeros(r, c)
+        for seg in segs + [streamed]:
+            for k in range(seg.start, seg.stop, r):
+                blk = x[k:min(k + r, seg.stop)]
+                s1[:len(blk)] += blk
+                s2[:len(blk)] += blk * blk
+        p1, p2 = torch.zeros(c), torch.zeros(c)
+        for i in range(r):
+            p1 += s1[i]
+            p2 += s2[i]
+        parts.append((p1, p2))
+    for p1, p2 in parts:
+        g1, g2 = torch.zeros(groups), torch.zeros(groups)
+        for j in range(cpg):
+            g1 += p1.view(groups, cpg)[:, j]
+            g2 += p2.view(groups, cpg)[:, j]
+        a += g1
+        q += g2
+    n = torch.tensor(float(hw * cpg))
+    mean = a / n
+    return mean, torch.rsqrt(q / n - mean * mean + eps)
+
+
+@pytest.mark.parametrize("hw,c,target_rows", [(600, 64, 20), (300, 128, 1000), (77, 32, 3)])
+def test_cluster_reduction_order_gives_the_stats(monkeypatch, hw, c, target_rows):
+    """The plan's ranks, pieces and streamed rows summed in the kernel's fixed
+    order give the plain version's statistics (fp32 sums in another order);
+    SMEM_TARGET is cut so that small images take clusters and stream rows."""
+    fixed = cuda_groupnorm.smem_bytes(0, c, GROUPS, 4)
+    monkeypatch.setattr(cuda_groupnorm, "SMEM_TARGET", fixed + target_rows * c * 4)
+    plan = cuda_groupnorm.launch_plan(hw, c, GROUPS, 4)
+    assert (plan["cluster"] > 1) == (target_rows < hw)
+    x = torch.from_numpy(np.random.default_rng(0).normal(0.3, 1.0, (2, hw, c))
+                         .astype(np.float32))
+    _, mean, rstd = norms.group_norm_act_plain(x, torch.ones(c), torch.zeros(c), None,
+                                               GROUPS, EPS, False)
+    for b in range(2):
+        m, r = _kernel_order_stats(x[b], plan, GROUPS, EPS)
+        torch.testing.assert_close(m, mean[b], atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(r, rstd[b], atol=1e-6, rtol=1e-5)

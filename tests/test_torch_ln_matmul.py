@@ -8,6 +8,8 @@ transposed. Tolerances are the JAX tests': fp32 1e-6 forward and 1e-4
 grads; bf16 2e-2 (z and every product rounded to bf16).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -153,3 +155,95 @@ def test_encoder_fused_matches_pallas(interpret):
         np.testing.assert_allclose(flax_layout(name, p.grad.numpy()),
                                    want_g[flax_path(name)], rtol=2e-4, atol=2e-4,
                                    err_msg=name)
+
+
+# K5's tile walk (cuda_ln_matmul.launch_plan), checked on the CPU at every
+# LayerNorm+matmul site of the train step and zero-shot (K = 768) and at
+# ragged edges: row tails, N not a multiple of 256, J = 1 and 3, K up to
+# 1024 (a shallower W ring beside the larger z)
+WALK_SHAPES = [  # m, k, n, j
+    (34048, 768, 768, 3), (34048, 768, 3072, 1), (12672, 768, 768, 3),
+    (12672, 768, 3072, 1), (4096, 768, 768, 3), (4096, 768, 3072, 1),
+    (11560, 768, 768, 3), (11560, 768, 3072, 1), (3540, 768, 768, 3),
+    (3540, 768, 3072, 1),
+    (1, 64, 8, 1), (100, 768, 768, 3), (130, 256, 40, 2), (129, 832, 3072, 1),
+    (5000, 1024, 96, 3), (63, 1024, 8, 1),
+]
+
+
+def _cluster_units(plan, cluster):
+    """The flat (pair block * col_tiles + column tile) units that cluster
+    `cluster` walks, in order: the [t0, t1) of ln_matmul.cu's kernel,
+    emulated."""
+    total = plan["pair_blocks"] * plan["col_tiles"]
+    return range(total * cluster // plan["clusters"],
+                 total * (cluster + 1) // plan["clusters"])
+
+
+@pytest.mark.parametrize("m,k,n,j", WALK_SHAPES)
+def test_launch_plan_covers_every_tile_once(m, k, n, j):
+    plan = cuda_ln_matmul.launch_plan(m, k, n, j, max_clusters=66)
+    assert plan["stages"] == (4 if k <= 512 else 3 if k <= 768 else 2)
+    assert plan["smem_bytes"] <= cuda_ln_matmul.MAX_SMEM
+    assert cuda_ln_matmul.smem_bytes(plan["stages"] + 1, k) > cuda_ln_matmul.MAX_SMEM \
+        or plan["stages"] == cuda_ln_matmul.MAX_STAGES
+    pair = cuda_ln_matmul.CLUSTER * cuda_ln_matmul.BLOCK_ROWS
+    assert plan["pair_blocks"] * pair >= m > (plan["pair_blocks"] - 1) * pair
+    assert plan["col_tiles"] * cuda_ln_matmul.TILE_N >= j * n
+    units = plan["pair_blocks"] * plan["col_tiles"]
+    assert 1 <= plan["clusters"] <= min(66, units)
+    walked = [t for c in range(plan["clusters"]) for t in _cluster_units(plan, c)]
+    # in cluster order the ranges tile [0, units) ascending: a fixed order,
+    # and every (pair block, column tile) unit exactly once
+    assert walked == list(range(units))
+    sizes = [len(_cluster_units(plan, c)) for c in range(plan["clusters"])]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    # z is computed once per pair block a cluster visits
+    for c in range(plan["clusters"]):
+        pbs = {t // plan["col_tiles"] for t in _cluster_units(plan, c)}
+        assert len(pbs) <= -(-max(sizes) // plan["col_tiles"]) + 1
+
+
+@pytest.mark.parametrize("m,k,n,j", [(100, 128, 96, 3), (300, 64, 200, 2)])
+def test_tile_walk_assembles_the_plain_output(m, k, n, j):
+    """The kernel's walk emulated on the CPU: per cluster and pair block,
+    each block's 64 rows normalized once (rows past m never written); per
+    256-column tile of the J*N outputs, each of the block's two warpgroups'
+    128 columns: the fp32 sums rounded, the bias added and rounded,
+    scattered to [J, m, N]."""
+    _, (x, gamma, beta, ws, bs) = _inputs(3, (m,), k, n, j, np.float32)
+    x = x.to(torch.bfloat16)
+    plan = cuda_ln_matmul.launch_plan(m, k, n, j, max_clusters=2)
+    rows, tn = cuda_ln_matmul.BLOCK_ROWS, cuda_ln_matmul.TILE_N
+    w = torch.cat(ws).to(torch.bfloat16).float()
+    bias = torch.cat(bs).to(torch.bfloat16).float()
+    out = torch.full((j, m, n), float("nan"))
+    for c in range(plan["clusters"]):
+        for rank in range(cuda_ln_matmul.CLUSTER):
+            z_pb = None
+            for t in _cluster_units(plan, c):
+                pb, ct = divmod(t, plan["col_tiles"])
+                m0 = (pb * cuda_ln_matmul.CLUSTER + rank) * rows
+                if z_pb != pb:
+                    xs = torch.zeros((rows, k), dtype=torch.bfloat16)
+                    real = max(0, min(rows, m - m0))
+                    xs[:real] = x[m0:m0 + real]
+                    z = norms.layer_norm(xs.float(), gamma, beta, 1e-5).to(torch.bfloat16)
+                    z_pb = pb
+                for wg in range(2):
+                    n0 = ct * tn + wg * tn // 2
+                    if n0 >= j * n:
+                        continue
+                    cols = torch.arange(n0, min(n0 + tn // 2, j * n))
+                    y = (z.float() @ w[cols].t()).to(torch.bfloat16).float() + bias[cols]
+                    y = y.to(torch.bfloat16).float()[:real]
+                    for i, col in enumerate(cols.tolist()):
+                        out[col // n, m0:m0 + real, col % n] = y[:, i]
+    want = torch.stack(norms.ln_matmul_plain(x, gamma, beta, ws, bs)).float()
+    assert not out.isnan().any()
+    # the same rounding points; the CPU's fp32 sums of a 128-column slice
+    # may round an element to its bf16 neighbour: at most one bf16 ulp of
+    # the largest |y|, rarely
+    diff = (out - want).abs()
+    assert diff.max().item() <= 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+    assert (diff > 0).float().mean().item() < 1e-3

@@ -189,3 +189,31 @@ def test_default_shuffled_idx_is_fixed_permutations():
     assert torch.equal(a, default_shuffled_idx(BATCH, N))
     assert torch.equal(a.sort(dim=1).values - 64,
                        torch.arange(N).expand(BATCH * DUP, N))
+
+
+def _jax_perms(batch, dup, n):
+    key = jax.random.fold_in(jax.random.PRNGKey(123), 1234)
+    u = jax.random.uniform(key, (batch * dup * n,)).reshape(batch * dup, n)
+    return np.asarray(u), np.asarray(jnp.argsort(u, axis=1)) + 64
+
+
+@pytest.mark.parametrize("batch,dup,n", [(1, 2, 5), (2, 2, 5), (4, 2, 16), (3, 3, 7),
+                                         (1, 2, 8192)])
+def test_default_shuffled_idx_is_jaxs_draw(batch, dup, n):
+    """Bit for bit JAX's permutations; at n = 8192 the 23-bit uniforms of a
+    row hold ties, so the argsort's stability is checked too."""
+    u, want = _jax_perms(batch, dup, n)
+    got = default_shuffled_idx(batch, n, dup)
+    assert got.dtype == torch.int64 and got.shape == (batch * dup, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if n == 8192:
+        assert any(len(np.unique(row)) < n for row in u)
+
+
+def test_default_permutations_forward_equals_jax_array(slice_run):
+    r = slice_run
+    args = (r["model"], torch.from_numpy(r["images"]), torch.from_numpy(r["sents"]))
+    a = make_zero_shot_fn(BATCH, N)(*args)
+    b = make_zero_shot_fn(BATCH, N, shuffled_idx=torch.from_numpy(r["sidx"]))(*args)
+    for k in a:
+        assert torch.equal(a[k], b[k])
