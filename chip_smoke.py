@@ -21,9 +21,10 @@
 3a. ablation phase: K1's probe at the three pretrain shapes (the kernel,
    its fp32 softmax, the softmax removed, the pass for the row max and sum
    skipped, and SDPA), timed in turns; with ``--parent DIR`` (a checkout of
-   commit 83510f1, which holds the first designs of K1, K2, K4 and K5) those
-   designs are built from DIR and timed in turns with the current K1, K2,
-   K3 prefill, K4 and K5 at every shape, with per-path totals;
+   commit 83510f1, which holds the first designs of K1, K2, K3, K4 and K5)
+   those designs are built from DIR and timed in turns with the current
+   kernels at every shape (K3's decode over rotating copies, its launches
+   queued), with per-path totals;
 3b. K4 phase: holds K4 against its plain version at the 13 distinct
    GroupNorm shapes of the train step's LiteResNet (128 frames of 192x352)
    and the 13 of zero-shot's (20 frames of 384x384), bf16, with fault probes
@@ -64,21 +65,28 @@
    bounds), and torch.profiler over two steps; then the A/B: unfused and
    fused steps in turns, fresh models, 3 warm-up and 8 timed steps each,
    with the host's enqueue time per step;
-6. K3 phase: holds K3 against its plain version at grover-medium's heads
+6. K3 phase: prints the decode kernels' registers and spills from ptxas,
+   then holds K3 against its plain version at grover-medium's heads
    (16 x 64) with causal masks over cache positions and zero cache rows
-   past the position: decode (B=8 bf16 and fp32, B=1 bf16; Sk=1537, the
-   server's max_len, and 1216, bench.py's grover mode) and prefill (B=8
-   bf16, B=2 fp32; Sq=1024), with two fault probes that must fail the
-   bounds (the mask dropped; the values read from the key half), and
-   times K3, the plain version and SDPA on the buffer's k/v views beside
-   the bound;
+   past the position, both given the live length kv_len = position + Sq:
+   decode (B=8 bf16 and fp32, B=1 bf16; Sk=1537, the server's max_len,
+   and 1216, bench.py's grover mode) and prefill (B=8 bf16, B=2 fp32;
+   Sq=1024), with fault probes that must fail the bounds (the mask
+   dropped; the values read from the key half; at decode, kv_len one
+   short) and, at decode, NaN in the slots past kv_len that must not move
+   the result and two launches that must agree bit for bit; times K3 (with
+   kv_len and over the whole cache), the plain version and SDPA on the
+   buffer's k/v views (whole cache and live slots) over rotating copies
+   with the launches queued, beside the bound over the live slots and over
+   the whole cache;
 7. Grover decode phase: grover-medium (configs/grover_medium.json, full
    width and depth, seeded random weights, bf16, fused qkv and the stacked
    cache) under bench.py's grover method (B=8, prefix 1024, 32 and 192
    new tokens, p=0.005, k_prefilter 1024): decode tokens/s from the
    slope, the prefill ms, 24 K3 launches per prefill and per decode step,
    K3 ms per decode step (CUDA events), and torch.profiler over one
-   32-token generation (K3's device time, the idle share); the logits of a prefill and 8
+   32-token generation (K3's device time, the idle share, beside the bound
+   of that generation's decode steps); the logits of a prefill and 8
    argmax decode steps through K3 against the plain attention fed the same
    tokens, with a mask-less plain run checked to exceed the bound; and a
    short fp32 generation (fp32 K3);
@@ -715,11 +723,12 @@ def ablation_phase(dev) -> list[dict]:
 
 
 # The first designs of K1, K2 and K3's prefill (mma.sync on 16-row tiles,
-# full score rows in shared memory), K4 (three launches per call) and K5
-# (mma.sync, cp.async) of commit 83510f1 against the current ones.
+# full score rows in shared memory), K3's decode (a block per head over the
+# whole cache, its C entry without kv_len), K4 (three launches per call) and
+# K5 (mma.sync, cp.async) of commit 83510f1 against the current ones.
 # ``--parent DIR`` (a checkout of that commit) builds its sources and times
-# both in turns at every K1, K2, K4 and K5 shape and K3's prefill shapes;
-# without it the records' first_design_ms are null.
+# both in turns at every K1-K5 shape; without it the records'
+# first_design_ms are null.
 
 
 def parent_libraries(parent_dir: Path) -> dict:
@@ -824,13 +833,13 @@ def parent_calls(libs, dev):
     return fwd, bwd, stacked, groupnorm, ln_matmul
 
 
-def in_turns(first, second, iters: int = 10) -> tuple:
+def in_turns(first, second, iters: int = 10, timer=cuda_ms) -> tuple:
     """CUDA-event ms per call of two callables timed first, second,
     second, first: the mean of each's two readings."""
-    a1 = cuda_ms(first, iters=iters)
-    b1 = cuda_ms(second, iters=iters)
-    b2 = cuda_ms(second, iters=iters)
-    a2 = cuda_ms(first, iters=iters)
+    a1 = timer(first, iters=iters)
+    b1 = timer(second, iters=iters)
+    b2 = timer(second, iters=iters)
+    a2 = timer(first, iters=iters)
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
@@ -873,15 +882,21 @@ def first_design_phase(dev, parent_dir: Path) -> dict:
         rows.append({"kernel": "K2", "shape": name, "first_design_ms": first_ms, "ms": ms,
                      "speedup": first_ms / ms, "max_abs_diff": diff})
     for name, b, sq, sk, pos0, dt in STACKED_SHAPES:
-        if sq == 1:
-            continue                                 # decode is not changed
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype)
-        new = lambda: ca.attention_stacked_fwd_cuda(q, kv, mask, num_heads=GROVER_HEADS,
-                                                    softmax_fp32=True)
-        old = lambda: stacked(q, kv, mask)
-        diff = (new().float() - old().float()).abs().max().item()
-        first_ms, ms = in_turns(old, new)
+        kw = dict(num_heads=GROVER_HEADS, softmax_fp32=True, kv_len=pos0 + sq)
+        new_fn = lambda q_, kv_, m_: ca.attention_stacked_fwd_cuda(q_, kv_, m_, **kw)
+        diff = (new_fn(q, kv, mask).float() - stacked(q, kv, mask).float()).abs().max().item()
+        if sq == 1:
+            # decode: over rotating copies (a B=8 cache is about L2-sized),
+            # the launches queued (the new kernel is shorter than the host's
+            # enqueue of it); the first design reads the whole cache
+            copies = stacked_copies(q, kv, mask)
+            first_ms, ms = in_turns(rotating(stacked, copies), rotating(new_fn, copies),
+                                    timer=queued_ms)
+            del copies
+        else:
+            first_ms, ms = in_turns(lambda: stacked(q, kv, mask), lambda: new_fn(q, kv, mask))
         rows.append({"kernel": "K3", "shape": name, "first_design_ms": first_ms, "ms": ms,
                      "speedup": first_ms / ms, "max_abs_diff": diff})
     for name, b, hw, c, kind, _ in GN_SHAPES:
@@ -915,7 +930,9 @@ def first_design_phase(dev, parent_dir: Path) -> dict:
         "k1_train_step": (per("K1", tr, "first_design_ms"), per("K1", tr, "ms")),
         "k2_train_step": (per("K2", tr, "first_design_ms"), per("K2", tr, "ms")),
         "k3_prefill": (per("K3", ("prefill_b8_bf16",), "first_design_ms", 24),
-                       per("K3", ("prefill_b8_bf16",), "ms", 24))}
+                       per("K3", ("prefill_b8_bf16",), "ms", 24)),
+        "k3_decode_step": (per("K3", ("decode_b8_bf16_bench",), "first_design_ms", 24),
+                           per("K3", ("decode_b8_bf16_bench",), "ms", 24))}
     # K4: each shape times its sites per forward; K5: 12 layers per shape
     for path, frames in (("train_step", TRAIN_BATCH * TRAIN_CHUNKS),
                          ("zero_shot_batch", 2 * STORIES * CHUNKS)):
@@ -1820,27 +1837,69 @@ def stacked_inputs(dev, g, b, sq, sk, pos0, dtype):
     return q, kv, mask
 
 
-def stacked_bound(b, sq, sk, dtype) -> tuple:
-    """K3's bound: 4*B*H*Sq*Sk*D operations at the peak of the input type;
-    kv, q and ctx once each in that type and the shared mask in fp32."""
+def stacked_bound(b, sq, sk, pos0, dtype, live: bool = True) -> tuple:
+    """K3's bound over what the inputs need: with ``live``, the slots below
+    kv_len = pos0 + sq (past them the mask is 0 and the probs exactly 0),
+    else all Sk slots. Query row r attends to pos0 + r + 1 keys (all Sk
+    without ``live``): 4*B*H*D operations per key at the peak of the input
+    type; the cache's rows, q and ctx once each in that type and the shared
+    mask's columns in fp32."""
     import torch
     hd = GROVER_HEADS * GROVER_D
     elem = 2 if dtype == torch.bfloat16 else 4
-    flops = 4 * b * GROVER_HEADS * sq * sk * GROVER_D
-    nbytes = elem * (b * sk * 2 * hd + 2 * b * sq * hd) + 4 * sq * sk
+    slots = pos0 + sq if live else sk
+    keys = sum(pos0 + r + 1 for r in range(sq)) if live else sq * sk
+    flops = 4 * b * GROVER_HEADS * keys * GROVER_D
+    nbytes = elem * (b * slots * 2 * hd + 2 * b * sq * hd) + 4 * sq * slots
     return bound(flops, nbytes, PEAK_BF16_FLOPS if elem == 2 else PEAK_FP32_FLOPS)
 
 
-def rotating_ms(fn, inputs: list, iters: int = 10) -> float:
-    """CUDA-event ms per call of fn over copies of its inputs taken in
-    turn, so that a small cache is not served from L2 as the 24 layers'
-    caches of a decode step would not be."""
+def queued_ms(call, iters: int = 10) -> float:
+    """CUDA-event ms per call of call(), the calls queued before the card
+    starts on them: a sleep kernel that outlasts the host's enqueue of the
+    calls goes first, so the events time the card's work and not the host's
+    gaps (K3's decode takes less time on the card than its wrapper on the
+    host)."""
+    import torch
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (1.5 * host_s + 1e-4)))   # cycles at up to 2 GHz
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rotating(fn, inputs: list):
+    """fn over copies of its inputs taken in turn, so that a small cache is
+    not served from L2 as the 24 layers' caches of a decode step would not
+    be."""
     k = [0]
 
     def call():
         fn(*inputs[k[0] % len(inputs)])
         k[0] += 1
-    return cuda_ms(call, iters=iters)
+    return call
+
+
+def rotating_ms(fn, inputs: list, iters: int = 10) -> float:
+    return queued_ms(rotating(fn, inputs), iters=iters)
+
+
+def stacked_copies(q, kv, mask) -> list:
+    """Copies of (q, kv, mask) that together outgrow the 50 MB L2."""
+    n = max(1, min(32, math.ceil(160e6 / (kv.numel() * kv.element_size()))))
+    return [(q.clone(), kv.clone(), mask) for _ in range(n)]
 
 
 def stacked_within(row: dict, max_err: float, mean_err: float) -> bool:
@@ -1850,7 +1909,8 @@ def stacked_within(row: dict, max_err: float, mean_err: float) -> bool:
 
 
 def stacked_shape(dev, g, spec) -> dict:
-    """K3 and its plain version at one shape: errors, fault probes, times."""
+    """K3 and its plain version at one shape, the kernel reading the live
+    slots (kv_len = pos0 + Sq): errors, fault probes, times."""
     import torch
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
@@ -1859,10 +1919,11 @@ def stacked_shape(dev, g, spec) -> dict:
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype)
     hd = GROVER_HEADS * GROVER_D
+    live = pos0 + sq
     kw = dict(num_heads=GROVER_HEADS, softmax_fp32=True)
-    ctx = ca.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+    ctx = ca.attention_stacked_fwd_cuda(q, kv, mask, kv_len=live, **kw)
     torch.cuda.synchronize()
-    ref = ca.flash_attention_stacked_plain(q, kv, mask, **kw)
+    ref = ca.flash_attention_stacked_plain(q, kv, mask, kv_len=live, **kw)
 
     def errs(x):
         d = (x.float() - ref.float()).abs()
@@ -1870,9 +1931,12 @@ def stacked_shape(dev, g, spec) -> dict:
 
     ref_max = ref.float().abs().max().item()
     row = {"shape": name, "batch": b, "sq": sq, "sk": sk, "first_query_pos": pos0,
-           "dtype": dt, "ref_max_abs": ref_max,
+           "kv_len": live, "dtype": dt, "ref_max_abs": ref_max,
            "max_abs_err_bound": (CTX_ULPS * bf16_ulp(ref_max) if dt == "bf16"
                                  else STACKED_FP32_RTOL * ref_max)}
+    if sq <= ca.DECODE_ROWS:
+        row["decode_plan"] = ca.decode_plan(b, GROVER_HEADS, sq, sk, GROVER_D,
+                                            q.element_size())
     row["max_abs_err"], row["mean_abs_err"] = errs(ctx)
     # fault probes: the zero slots join the softmax; the values come from
     # the key half of the buffer
@@ -1881,21 +1945,40 @@ def stacked_shape(dev, g, spec) -> dict:
     row["v_from_k_max_abs_diff"], row["v_from_k_mean_abs_diff"] = errs(
         ca.flash_attention_stacked_plain(q, torch.cat([kv[..., :hd], kv[..., :hd]], -1),
                                          mask, **kw))
-    n_copies = max(1, min(32, math.ceil(160e6 / (kv.numel() * kv.element_size()))))
-    copies = [(q.clone(), kv.clone(), mask) for _ in range(n_copies)]
-    row["timing_copies"] = n_copies
-    row["ms"] = rotating_ms(lambda *a: ca.attention_stacked_fwd_cuda(*a, **kw), copies)
-    row["plain_ms"] = rotating_ms(lambda *a: ca.flash_attention_stacked_plain(*a, **kw),
-                                  copies)
+    if sq <= ca.DECODE_ROWS:
+        # the decode kernel reads nothing past kv_len: NaN there changes
+        # nothing; one live slot short must show
+        dirty = kv.clone()
+        dirty[:, live:] = float("nan")
+        row["nan_past_kv_len_max_abs_err"], row["nan_past_kv_len_mean_abs_err"] = errs(
+            ca.attention_stacked_fwd_cuda(q, dirty, mask, kv_len=live, **kw))
+        del dirty
+        row["kv_len_short_max_abs_diff"], row["kv_len_short_mean_abs_diff"] = errs(
+            ca.attention_stacked_fwd_cuda(q, kv, mask, kv_len=live - 1, **kw))
+        again = ca.attention_stacked_fwd_cuda(q, kv, mask, kv_len=live, **kw)
+        row["repeat_bit_equal"] = bool(torch.equal(again, ctx))
+    copies = stacked_copies(q, kv, mask)
+    row["timing_copies"] = len(copies)
+    row["ms"] = rotating_ms(
+        lambda *a: ca.attention_stacked_fwd_cuda(*a, kv_len=live, **kw), copies)
+    row["whole_cache_ms"] = rotating_ms(
+        lambda *a: ca.attention_stacked_fwd_cuda(*a, **kw), copies)
+    row["plain_ms"] = rotating_ms(
+        lambda *a: ca.flash_attention_stacked_plain(*a, kv_len=live, **kw), copies)
+
     # the yardstick: SDPA on the k/v views of the buffer, the mask as an
-    # additive -1e10 bias in the input dtype
-    def sdpa(q3, kv3, m):
+    # additive -1e10 bias in the input dtype; over the whole cache (the
+    # same inputs) and over the live slots' views
+    def sdpa(q3, kv3, m, slots=sk):
         heads = lambda t, s: t.view(b, s, GROVER_HEADS, GROVER_D).transpose(1, 2)
-        bias = ((m - 1.0) * 1e10).to(dtype)[:, None]
-        return F.scaled_dot_product_attention(heads(q3, sq), heads(kv3[..., :hd], sk),
-                                              heads(kv3[..., hd:], sk), attn_mask=bias)
+        kv3 = kv3[:, :slots]
+        bias = ((m[..., :slots] - 1.0) * 1e10).to(dtype)[:, None]
+        return F.scaled_dot_product_attention(heads(q3, sq), heads(kv3[..., :hd], slots),
+                                              heads(kv3[..., hd:], slots), attn_mask=bias)
     row["library_ms"] = rotating_ms(sdpa, copies)
-    row["bound_ms"], row["bound_by"] = stacked_bound(b, sq, sk, dtype)
+    row["library_live_ms"] = rotating_ms(lambda *a: sdpa(*a, slots=live), copies)
+    row["bound_ms"], row["bound_by"] = stacked_bound(b, sq, sk, pos0, dtype)
+    row["bound_whole_cache_ms"], _ = stacked_bound(b, sq, sk, pos0, dtype, live=False)
     del copies
     return row
 
@@ -1905,16 +1988,47 @@ def check_stacked_row(row: dict) -> None:
     check(stacked_within(row, row["max_abs_err"], row["mean_abs_err"]),
           f"K3 {name}: max err {row['max_abs_err']} (bound {row['max_abs_err_bound']}), "
           f"mean {row['mean_abs_err']}")
-    for probe in ("no_mask", "v_from_k"):
+    for probe in ("no_mask", "v_from_k") + (("kv_len_short",) if "decode_plan" in row else ()):
         check(not stacked_within(row, row[f"{probe}_max_abs_diff"],
                                  row[f"{probe}_mean_abs_diff"]),
               f"K3 {name}: the {probe} fault passes the bounds, so they cannot see it")
+    if "decode_plan" in row:
+        check(stacked_within(row, row["nan_past_kv_len_max_abs_err"],
+                             row["nan_past_kv_len_mean_abs_err"]),
+              f"K3 {name}: NaN past kv_len moves ctx by {row['nan_past_kv_len_max_abs_err']}")
+        check(row["repeat_bit_equal"], f"K3 {name}: two launches differ")
+
+
+def decode_ptxas(log: str) -> list:
+    """(kernel, registers, spill bytes) of each decode kernel in a ptxas
+    report (``-Xptxas -v``)."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if "attention_decode" in m.group(1) else None
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            t = re.search(r"attention_decodeI(\w+?)Li(\d+)ELi(\d+)E", name)
+            short = (f"attention_decode<{'bf16' if 'bfloat16' in t.group(1) else 'fp32'}, "
+                     f"MAXQ={t.group(2)}, LANES={t.group(3)}>" if t else name)
+            out.append({"kernel": short, "registers": int(m.group(1)), "spill_bytes": spill})
+            name = None
+    return out
 
 
 def stacked_phase(dev) -> list[dict]:
     """K3 against its plain version at the six shapes."""
     import torch
+    from merlot_tpu_torch import _build
 
+    for k in decode_ptxas(_build.build_logs.get("attention_stacked", "")):
+        print(f"[kernel3] ptxas {json.dumps(k)}", flush=True)
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for spec in STACKED_SHAPES:
@@ -2087,7 +2201,8 @@ def grover_phase(dev) -> dict:
     with wrapped(ca, "attention_stacked_fwd_cuda",
                  lambda f: event_timed(plain_spans)(ca.flash_attention_stacked_plain)):
         plain = greedy_logits(model, ctx_t, max_len, feed=toks)
-    no_mask = lambda q3, kv3, mask, **kw: ca.flash_attention_stacked_plain(q3, kv3, None, **kw)
+    no_mask = lambda q3, kv3, mask, kv_len=None, **kw: ca.flash_attention_stacked_plain(
+        q3, kv3, None, **kw)
     with wrapped(ca, "attention_stacked_fwd_cuda", lambda f: no_mask):
         broken = greedy_logits(model, ctx_t, max_len, feed=toks)
     check(ca.stacked_launches == launches["attention_stacked"] + 24 * (GREEDY_STEPS + 1),
@@ -2115,6 +2230,11 @@ def grover_phase(dev) -> dict:
               "k3_prefill_ms": k3_prefill_ms,
               "k3_event_ms_per_decode_step": k3_decode_ms / (hi - 1),
               "k3_device_ms_per_decode_step": k3_dec["ms"] / (lo - 1),
+              # the bound of the profiled steps: 24 launches at the live
+              # length of each (the token at position p reads p + 1 slots)
+              "k3_bound_ms_per_decode_step": statistics.mean(
+                  24 * stacked_bound(GROVER_BATCH, 1, GROVER_PREFIX + lo, p, torch.bfloat16)[0]
+                  for p in range(GROVER_PREFIX, GROVER_PREFIX + lo - 1)),
               "k3_prefill_device_ms": k3_pre["ms"],
               "plain_prefill_ms": plain_prefill_ms,
               "plain_event_ms_per_decode_step": plain_decode_ms / n_plain_dec * 24,
@@ -2224,8 +2344,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     first_design_ms fields are null)."""
     first = {k: fd["per_path"][k]["first_design_ms"] if fd else None
              for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill",
-                       "k4_train_step", "k4_zero_shot_batch", "k5_train_step",
-                       "k5_zero_shot_batch")}
+                       "k3_decode_step", "k4_train_step", "k4_zero_shot_batch",
+                       "k5_train_step", "k5_zero_shot_batch")}
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
     zs = {r["shape"]: r for r in k1_rows}
@@ -2277,10 +2397,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "library_note": "backward of scaled_dot_product_attention: fp32 softmax, "
                         "no colsum cotangent; not the same rounding"}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
-    # Sk=1216), the kernel, the plain version, SDPA and the bound all from
-    # the K3 phase's timing of that shape (the path's own CUDA-event spans
-    # include the host's gaps between launches); K3's device time on the
-    # path, from the profile, beside them
+    # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
+    # bound (live slots) all from the K3 phase's timing of that shape (the
+    # path's own CUDA-event spans include the host's gaps between launches);
+    # K3's device time on the path, from the profile of the 32-token
+    # generation, beside the bound of that generation's own decode steps
     k3 = {r["shape"]: r for r in k3_rows}["decode_b8_bf16_bench"]
     pre = {r["shape"]: r for r in k3_rows}["prefill_b8_bf16"]
     k3_record = {
@@ -2294,12 +2415,16 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": 24 * k3["ms"], "plain_ms": 24 * k3["plain_ms"],
         "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": 24 * k3["library_ms"],
+        "bound_whole_cache_ms": 24 * k3["bound_whole_cache_ms"],
+        "library_ms": 24 * k3["library_ms"], "library_live_ms": 24 * k3["library_live_ms"],
+        "first_design_ms": first["k3_decode_step"],
         "path_device_ms": gv["k3_device_ms_per_decode_step"],
-        "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, bf16",
-        # the prefill (K1's tiles, redesigned): per prefill of 24 launches at
-        # B=8, Sq=1024, Sk=1537, bf16, from the K3 phase's timing
-        "first_design_ms": first["k3_prefill"],
+        "path_bound_ms": gv["k3_bound_ms_per_decode_step"],
+        "unit": "per decode step: 24 launches at B=8, Sq=1, Sk=1216, kv_len 1101, bf16; "
+                "path_*: the profiled 32-token generation (Sk=1056, kv_len 1025-1055)",
+        # the prefill (K1's tiles): per prefill of 24 launches at B=8,
+        # Sq=1024, Sk=1537, bf16, from the K3 phase's timing
+        "prefill_first_design_ms": first["k3_prefill"],
         "prefill_ms": 24 * pre["ms"], "prefill_plain_ms": 24 * pre["plain_ms"],
         "prefill_library_ms": 24 * pre["library_ms"],
         "prefill_bound_ms": 24 * pre["bound_ms"], "prefill_bound_by": pre["bound_by"],
@@ -2376,8 +2501,7 @@ def main() -> int:
     ap.add_argument("--out", help="write the run's details to this JSON file")
     ap.add_argument("--parent", type=Path,
                     help="a checkout of the first designs' commit (83510f1): time them "
-                         "against the current K1, K2, K3 prefill, K4 and K5 "
-                         "(first_design phase)")
+                         "against the current K1-K5 (first_design phase)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():

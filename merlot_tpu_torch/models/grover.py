@@ -127,8 +127,10 @@ class GroverLayer(nn.Module):
             if kv_flat is None:
                 kv_flat = torch.cat([k_flat, v_flat], dim=-1)
             cache_kv[:, kv_write_pos:end] = kv_flat
+            # the mask is 0 past `end` and every row sees its own slot, so
+            # the kernel reads only the live slots
             ctx = cuda_attention.flash_attention_stacked(q, cache_kv, mask,
-                                                         softmax_fp32=True)
+                                                         softmax_fp32=True, kv_len=end)
         elif cache_k is not None:
             cache_k[:, kv_write_pos:end] = k_flat.reshape(b, s, nh, d)
             cache_v[:, kv_write_pos:end] = v_flat.reshape(b, s, nh, d)

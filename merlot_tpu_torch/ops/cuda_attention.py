@@ -14,7 +14,10 @@ backward takes its cotangent.
 K3 (``flash_attention_stacked``, ``csrc/attention_stacked.cu``) is the
 counterpart of ``flash_attention_stacked``: Grover's serving attention over
 one [B, Sk, 2*H*D] cache buffer per layer, keys in columns [:H*D] and
-values in [H*D:], with a mask of [B or 1, Sq, Sk]. Forward only.
+values in [H*D:], with a mask of [B or 1, Sq, Sk]. Forward only. Its decode
+kernel (Sq <= 8) reads only the live slots below ``kv_len``, one
+thread-block cluster per (batch element, head) whose size ``decode_plan``
+picks from the shape alone.
 
 ``FlashAttention`` and ``flash_attention_stacked`` launch the kernels for
 CUDA tensors and use the plain versions for CPU tensors; they never fall
@@ -25,6 +28,7 @@ back from one to the other. ``launches``, ``bwd_launches`` and
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -95,9 +99,99 @@ def load_stacked_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_stacked_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i] * 8 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 4 + [i] * 10 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        lib.merlot_attention_decode_smem.argtypes = [i] * 5
+        lib.merlot_attention_decode_smem.restype = ctypes.c_long
+        lib.merlot_attention_decode_max_clusters.argtypes = [i] * 5
+        lib.merlot_attention_decode_max_clusters.restype = ctypes.c_int
     return lib
+
+
+# K3's decode launch (csrc/attention_stacked.cu): query rows it takes,
+# warps per block, rows of a TMA box (a block's key range is a multiple of
+# it), rows of a ring stage, the ring's bytes and most stages, the largest
+# cluster, the shared memory a block may use, and the H100's SMs: a plan
+# gives the grid at least one block per SM
+DECODE_ROWS = 8
+DECODE_WARPS = 4
+DECODE_BOX_ROWS = 8
+DECODE_STAGE_ROWS = 32
+DECODE_RING_BYTES = 32 * 1024
+DECODE_MAX_STAGES = 32
+DECODE_MAX_CLUSTER = 16
+MAX_SMEM = 227 * 1024
+SM_COUNT = 132
+_DEC_ALIGN = 128
+
+
+def _align(n: int) -> int:
+    return -(-n // _DEC_ALIGN) * _DEC_ALIGN
+
+
+def decode_chunk_rows(kv_len: int, cluster: int) -> int:
+    """Keys of each block's range: ceil(kv_len / cluster) rounded up to a
+    whole TMA box."""
+    n = -(-kv_len // cluster)
+    return -(-n // DECODE_BOX_ROWS) * DECODE_BOX_ROWS
+
+
+def decode_stages(sk: int, d: int, elem: int, cluster: int) -> int:
+    """Stages of a block's ring: enough for all its key and value rows at
+    kv_len = sk, at most DECODE_RING_BYTES, a multiple of the warps (each
+    stage is read by one warp), at most DECODE_MAX_STAGES."""
+    need = 2 * -(-decode_chunk_rows(sk, cluster) // DECODE_STAGE_ROWS)
+    n = min(need, DECODE_RING_BYTES // (DECODE_STAGE_ROWS * d * elem))
+    return min(DECODE_MAX_STAGES, -(-n // DECODE_WARPS) * DECODE_WARPS)
+
+
+def decode_smem_bytes(sq: int, sk: int, d: int, elem: int, cluster: int) -> int:
+    """A decode block's shared memory (``decode_layout`` in
+    attention_stacked.cu): the ring, the score rows (sized for kv_len = sk),
+    the warps' partial contexts, the ranks' partial contexts of its
+    elements, the ranks' and the warps' row max and sum, the stages'
+    mbarriers, and the base's alignment."""
+    gather_ld = -(-sq * d // cluster)
+    return (_align(decode_stages(sk, d, elem, cluster) * DECODE_STAGE_ROWS * d * elem)
+            + _align(sq * decode_chunk_rows(sk, cluster) * 4)
+            + _align(DECODE_WARPS * sq * d * 4) + _align(cluster * gather_ld * 4)
+            + _align(DECODE_MAX_CLUSTER * DECODE_ROWS * 8)
+            + _align((DECODE_WARPS + 1) * DECODE_ROWS * 8) + 8 * DECODE_MAX_STAGES
+            + _DEC_ALIGN)
+
+
+def decode_plan(b: int, h: int, sq: int, sk: int, d: int, elem: int) -> dict:
+    """K3's decode launch for [b, sq, h*d] queries over a cache of sk slots,
+    elem bytes each: the smallest power-of-two cluster (1 to 16 blocks) that
+    gives the grid a block for every SM. The shape alone decides it, so the
+    launch does not change with kv_len."""
+    cluster = 1
+    while cluster < DECODE_MAX_CLUSTER and b * h * cluster < SM_COUNT:
+        cluster *= 2
+    return {"cluster": cluster, "blocks": b * h * cluster,
+            "rows_per_block": decode_chunk_rows(sk, cluster),
+            "stages": decode_stages(sk, d, elem, cluster),
+            "smem_bytes": decode_smem_bytes(sq, sk, d, elem, cluster)}
+
+
+_decode_plan = lru_cache(maxsize=None)(decode_plan)
+
+
+@lru_cache(maxsize=None)
+def _check_decode_plan(device_index: int, sq: int, sk: int, d: int, is_bf16: int,
+                       cluster: int, smem: int) -> None:
+    """Raise unless the kernel agrees with the plan's shared memory and the
+    card can hold at least one of its clusters (once per plan and card)."""
+    lib = load_stacked_kernel()
+    with torch.cuda.device(device_index):
+        got = lib.merlot_attention_decode_smem(sq, sk, d, is_bf16, cluster)
+        if got != smem:
+            raise RuntimeError(f"attention_stacked: plan shared memory {smem} != "
+                               f"kernel's {got}")
+        n = lib.merlot_attention_decode_max_clusters(sq, sk, d, is_bf16, cluster)
+    if n < 1:
+        raise RuntimeError(f"attention_stacked: a cluster of {cluster} blocks with {smem} "
+                           f"bytes of shared memory cannot be scheduled on this card ({n})")
 
 
 def _check_inputs(name: str, q3, k3, v3, mask, num_heads: int,
@@ -281,23 +375,46 @@ def _check_stacked(q3, kv3, mask, num_heads: int) -> Tuple[int, int, int, int]:
     return b, sq, sk, d
 
 
+def _live_len(kv_len: Optional[int], sk: int) -> int:
+    """kv_len, or sk for None; raises unless 1 <= kv_len <= sk."""
+    if kv_len is None:
+        return sk
+    if not 1 <= kv_len <= sk:
+        raise ValueError(f"attention_stacked: kv_len {kv_len} not in [1, {sk}]")
+    return int(kv_len)
+
+
 def attention_stacked_fwd_cuda(q3: torch.Tensor, kv3: torch.Tensor,
                                mask: Optional[torch.Tensor], *, num_heads: int,
-                               softmax_fp32: bool) -> torch.Tensor:
+                               softmax_fp32: bool, kv_len: Optional[int] = None
+                               ) -> torch.Tensor:
     """Launch K3. q3 [B, Sq, H*D]; kv3 [B, Sk, 2*H*D] with keys in columns
     [:H*D] and values in [H*D:], contiguous CUDA tensors of one dtype (fp32,
     or bf16 with a head dim that is a multiple of 16); mask [B, Sq, Sk] or
-    [1, Sq, Sk] (one for the whole batch) contiguous fp32, or None. Returns
-    ctx [B, Sq, H*D] in q3.dtype."""
+    [1, Sq, Sk] (one for the whole batch) contiguous fp32, or None. kv_len:
+    the live slots (None: all Sk); the caller promises that the mask is 0 at
+    every slot >= kv_len for every query row and that every query row
+    attends to some slot below kv_len, so the result is the one over all Sk
+    slots. The decode kernel (Sq <= 8) then reads nothing past kv_len.
+    Returns ctx [B, Sq, H*D] in q3.dtype."""
     global stacked_launches
     b, sq, sk, d = _check_stacked(q3, kv3, mask, num_heads)
+    live = _live_len(kv_len, sk)
     lib = load_stacked_kernel()
+    is_bf16 = _DTYPE_CODE[q3.dtype]
+    cluster = 1
+    if sq <= DECODE_ROWS:
+        plan = _decode_plan(b, num_heads, sq, sk, d, q3.element_size())
+        cluster = plan["cluster"]
+        _check_decode_plan(q3.device.index if q3.device.index is not None
+                           else torch.cuda.current_device(),
+                           sq, sk, d, is_bf16, cluster, plan["smem_bytes"])
     out = torch.empty_like(q3)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     err = lib.merlot_attention_stacked_fwd(
-        _ptr(q3), _ptr(kv3), _ptr(mask), _ptr(out), b, sq, sk, num_heads, d,
-        int(mask is not None and mask.shape[0] == b), _DTYPE_CODE[q3.dtype],
-        int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+        _ptr(q3), _ptr(kv3), _ptr(mask), _ptr(out), b, sq, sk, live, num_heads, d,
+        int(mask is not None and mask.shape[0] == b), is_bf16, int(softmax_fp32), cluster,
+        1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"attention_stacked kernel failed: cudaError_t {err}")
     stacked_launches += 1
@@ -306,11 +423,16 @@ def attention_stacked_fwd_cuda(q3: torch.Tensor, kv3: torch.Tensor,
 
 def flash_attention_stacked_plain(q3: torch.Tensor, kv3: torch.Tensor,
                                   mask: Optional[torch.Tensor], *, num_heads: int,
-                                  softmax_fp32: bool) -> torch.Tensor:
+                                  softmax_fp32: bool, kv_len: Optional[int] = None
+                                  ) -> torch.Tensor:
     """K3's function in plain PyTorch, same arguments and result: the keys
-    and values are the two column halves of kv3."""
+    and values are the two column halves of kv3; with kv_len, the cache and
+    the mask are cut to their first kv_len slots."""
     b, sq, hd = q3.shape
-    sk = kv3.shape[1]
+    sk = _live_len(kv_len, kv3.shape[1])
+    kv3 = kv3[:, :sk]
+    if mask is not None:
+        mask = mask[..., :sk]
     d = hd // num_heads
     ctx, _ = _plain_attention(
         q3.reshape(b, sq, num_heads, d), kv3[..., :hd].reshape(b, sk, num_heads, d),
@@ -321,22 +443,23 @@ def flash_attention_stacked_plain(q3: torch.Tensor, kv3: torch.Tensor,
 
 def flash_attention_stacked(q: torch.Tensor, kv: torch.Tensor,
                             mask: Optional[torch.Tensor], *,
-                            softmax_fp32: bool = False) -> torch.Tensor:
+                            softmax_fp32: bool = False,
+                            kv_len: Optional[int] = None) -> torch.Tensor:
     """Forward-only attention over a stacked KV buffer (serving). q
     [B, Sq, H, D]; kv [B, Sk, 2*H*D], keys in columns [:H*D], values in
-    [H*D:]; mask [B or 1, Sq, Sk] (1 = attend) or None. Returns ctx
-    [B, Sq, H, D]: K3 on CUDA tensors (a shape it refuses raises), the
-    plain version on CPU tensors."""
+    [H*D:]; mask [B or 1, Sq, Sk] (1 = attend) or None; kv_len the live
+    slots (None: all Sk) under the contract of ``attention_stacked_fwd_cuda``.
+    Returns ctx [B, Sq, H, D]: K3 on CUDA tensors (a shape it refuses
+    raises), the plain version on CPU tensors."""
     b, sq, h, d = q.shape
     q3 = q.reshape(b, sq, h * d)
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32, kv_len=kv_len)
     if q.device.type == "cuda":
-        ctx = attention_stacked_fwd_cuda(q3.contiguous(), kv, mask, num_heads=h,
-                                         softmax_fp32=softmax_fp32)
+        ctx = attention_stacked_fwd_cuda(q3.contiguous(), kv, mask, **kw)
     elif q.device.type == "cpu":
-        ctx = flash_attention_stacked_plain(q3, kv, mask, num_heads=h,
-                                            softmax_fp32=softmax_fp32)
+        ctx = flash_attention_stacked_plain(q3, kv, mask, **kw)
     else:
         raise ValueError(f"flash_attention_stacked: no path for device {q.device}")
     return ctx.reshape(b, sq, h, d)

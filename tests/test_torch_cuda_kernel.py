@@ -20,7 +20,9 @@ masked rows.
 K3: the bounds of K1 (fp32 1e-5; bf16 BF16_ULPS of the largest |ctx| and
 BF16_MEAN_TOL on average), on causal masks over cache positions with zero
 cache rows past the position; its prefill runs K1's tiles with the stacked
-cache's strides.
+cache's strides. Its decode kernel with a live length kv_len is held to the
+same bounds against the plain version over the live slice, with the dead
+slots zero and then NaN; two of its launches must agree bit for bit.
 
 K1's saved row max and sum against the plain version's: relative 1e-5 in
 the fp32 softmax (dot products and exps summed in another order, each exp
@@ -273,13 +275,14 @@ STACKED_CASES = [(dt, sm, *shape) for dt, sm in [
     for shape in STACKED_SHAPES]
 
 
-def _stacked_inputs(cuda, b, sq, sk, h, d, dtype, shared, seed=0):
+def _stacked_inputs(cuda, b, sq, sk, h, d, dtype, shared, seed=0, kv_len=None):
     """q, a stacked cache whose rows past the last query's position are
-    zero, and the causal mask over cache positions ([1, Sq, Sk] if shared)."""
+    zero, and the causal mask over cache positions ([1, Sq, Sk] if shared).
+    The last query sits at kv_len - 1 if kv_len is given, else near Sk / 2."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((b, sq, h * d), generator=g, device=cuda).to(dtype)
     kv = torch.randn((b, sk, 2 * h * d), generator=g, device=cuda).to(dtype)
-    pos0 = max(sk // 2 - sq, 0)
+    pos0 = max(sk // 2 - sq, 0) if kv_len is None else kv_len - sq
     kv[:, pos0 + sq:] = 0
     mask = (torch.arange(sk, device=cuda)[None] <=
             pos0 + torch.arange(sq, device=cuda)[:, None]).float()[None]
@@ -320,6 +323,76 @@ def test_stacked_kernel_refuses_bad_inputs(cuda):
     q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 30, torch.float32, True)
     with pytest.raises(ValueError, match="unsupported"):
         cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+
+
+# K3's decode kernel with a live length: it reads only the slots below
+# kv_len (the causal mask is 0 past it), so it must meet the plain version
+# over the live slice within K3's bounds, whatever the dead slots hold
+KV_LEN_SHAPES = [  # b, sq, sk, h, d, shared mask, kv_len
+    (8, 1, 1537, 16, 64, True, 1101),    # the server's decode step
+    (8, 1, 1216, 16, 64, True, 1101),    # bench.py's grover mode
+    (1, 1, 1537, 16, 64, True, 1101),    # batch 1
+    (1, 1, 1537, 16, 64, True, 1),
+    (1, 1, 1537, 16, 64, True, 13),      # not a multiple of the 8-row box
+    (2, 5, 100, 2, 32, False, 61),       # several query rows, per-row mask
+    (3, 8, 2048, 3, 128, True, 2048),
+]
+KV_LEN_CASES = [(dt, sm, *shape) for dt, sm in [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
+    for shape in KV_LEN_SHAPES]
+
+
+def _check_stacked(ctx, ref):
+    assert ctx.dtype == ref.dtype and ctx.shape == ref.shape
+    assert bool(torch.isfinite(ctx).all())
+    if ctx.dtype == torch.float32:
+        torch.testing.assert_close(ctx, ref, atol=1e-5, rtol=1e-5)
+    else:
+        diff = (ctx.float() - ref.float()).abs()
+        assert diff.max().item() <= _bf16_bound(ref.float())
+        assert diff.mean().item() <= BF16_MEAN_TOL
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32,b,sq,sk,h,d,shared,kv_len", KV_LEN_CASES)
+def test_stacked_decode_kv_len_matches_plain(cuda, dtype, softmax_fp32, b, sq, sk, h, d,
+                                             shared, kv_len):
+    q, kv, mask = _stacked_inputs(cuda, b, sq, sk, h, d, dtype, shared, kv_len=kv_len)
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32)
+    ref = cuda_attention.flash_attention_stacked_plain(q, kv, mask, kv_len=kv_len, **kw)
+    ctx = cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, kv_len=kv_len, **kw)
+    torch.cuda.synchronize()
+    _check_stacked(ctx, ref)
+    # the dead slots hold NaN: nothing past kv_len is read
+    kv[:, kv_len:] = float("nan")
+    _check_stacked(cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, kv_len=kv_len,
+                                                             **kw), ref)
+
+
+def test_stacked_decode_is_deterministic(cuda):
+    q, kv, mask = _stacked_inputs(cuda, 8, 1, 1537, 16, 64, torch.bfloat16, True,
+                                  kv_len=1101)
+    kw = dict(num_heads=16, softmax_fp32=True, kv_len=1101)
+    first = cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw)
+    for _ in range(3):
+        assert torch.equal(cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, **kw),
+                           first)
+
+
+def test_stacked_kernel_refuses_bad_kv_len(cuda):
+    q, kv, mask = _stacked_inputs(cuda, 2, 1, 64, 2, 64, torch.bfloat16, True)
+    kw = dict(num_heads=2, softmax_fp32=True)
+    for bad in (0, 65, -1):
+        with pytest.raises(ValueError, match="kv_len"):
+            cuda_attention.attention_stacked_fwd_cuda(q, kv, mask, kv_len=bad, **kw)
+    # the C entry refuses them too
+    lib = cuda_attention.load_stacked_kernel()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for bad in (0, 65):
+        err = lib.merlot_attention_stacked_fwd(
+            q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(), 2, 1, 64, bad,
+            2, 64, 0, 1, 1, 8, 0.125, stream)
+        assert err != 0
 
 
 # K4: fused GroupNorm(+residual+ReLU) over channels-last [B, HW, C]. fp32
