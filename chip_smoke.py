@@ -93,7 +93,24 @@
 8. server phase: the port's DenoiseHTTPServer on 127.0.0.1 with the
    server's defaults (grover-medium, max_len 1537, top_p 0.94, --bf16,
    batching at max_batch 8) answers 4 concurrent POST /api/ask, coalesced
-   (/stats mean_batch > 1), with 4 JSONL records and the seconds per batch.
+   (/stats mean_batch > 1), with 4 JSONL records and the seconds per batch;
+9. CLI phase: the pretraining entry point from tfrecords at full
+   pretrain_4seg width. The machine's JPEG route (libjpeg, else nvJPEG) is
+   held against the committed fixture; the port's writer makes 16 training
+   and 16 validation examples of 16 chunks, 512x288 frames of smooth noise;
+   a copy of configs/pretrain_4seg.yaml changes only CLI_REDUCED's keys and
+   the paths. The loader alone is timed at the config's num_threads and at
+   the cores it gets, and device_iterator's batches on the card are held
+   against their host batches element for element. Run A is `python -m
+   merlot_tpu_torch.train.pretrain a.yaml` in a subprocess (8 steps,
+   checkpoints at 4 and 8, two evaluation batches), between two runs of
+   the synthetic-batch step; run B is pretrain.main in this process from
+   A's ckpt_4 with the kernels' counters (36 K1 and 36 K2 launches per
+   step) and torch.profiler over two steps (the device's idle share). B
+   must resume at step 4, its losses and step-8 parameters must match A's
+   and A's ckpt_8, loaded by convert.load_flax_params into a fresh model,
+   must reproduce A's evaluation loss, within the tolerances at the top;
+   segments/s through the CLI, checkpoint seconds and bytes are printed.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -110,6 +127,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -331,6 +349,48 @@ SERVER_TEXTS = [
     "first you wanna pre heat the oven two three fifty degrees okay",
     "and thats how you fix a flat tire on a bike real quick guys",
 ]
+
+# the pretraining CLI phase: synthetic shards in the reference schema with
+# frames of the size merlot_tpu/data/video.py stores for a 720p video
+# (shorter side 288 under the 512 cap), and a copy of
+# configs/pretrain_4seg.yaml with the keys of CLI_REDUCED changed (each
+# listed under "reduced" in the phase's record; the model and optimizer
+# blocks unchanged): bench.py's batch, 8 steps, checkpoints at 4 and 8,
+# every step logged, two evaluation batches
+CLI_EXAMPLES = 16           # training examples, and as many for validation
+CLI_SHARDS = 2              # per split
+CLI_FRAME_HW = (288, 512)
+CLI_STEPS = 8
+CLI_CKPT_EVERY = 4
+CLI_VAL_BATCH = 8
+CLI_EVAL_BATCHES = 2
+CLI_REDUCED = {"train_batch_size": TRAIN_BATCH, "num_train_steps": CLI_STEPS,
+               "iterations_per_loop": CLI_CKPT_EVERY, "log_every": 1,
+               "val_batch_size": CLI_VAL_BATCH}
+# run B's steps under torch.profiler, one profile per window: the idle
+# share is read from the first window whose profile holds every K1/K2
+# launch the wrappers counted in it (a profile now and then loses records)
+CLI_PROFILE_WINDOWS = ((6, 7), (8,))
+CLI_SYNTH_WARMUP, CLI_SYNTH_STEPS = 2, 6
+CLI_FEED_STEPS = 6          # timed steps of each feed run, after two
+CLI_LOADER_BATCHES = 4
+CLI_SKIP_BATCHES = 20000    # batches a resumed loader passes over, timed
+CLI_H2D_BATCHES = 3
+CLI_TIMEOUT_S = 900
+# nvJPEG against the fixture's libjpeg pixels, in levels of 255: its
+# chroma upsampling is not libjpeg's fancy upsampling. On the H100 the
+# 4:2:0 image read 20 max and 3.40 mean, the 4:2:2 one 9 and 2.39, the
+# 4:4:4 one (no upsampling, the IDCT alone) 3 and 0.51
+NVJPEG_MAX_ERR, NVJPEG_MEAN_ERR = 32, 5.0
+# run B (resumed at step 4) against run A at steps 5-8: the largest
+# relative loss gap, and the L2 gap of the step-8 parameters over the L2
+# of A's parameter change from step 4 to 8; A's ckpt_8 loaded into a fresh
+# model: its evaluation loss against A's. The step is deterministic on the
+# H100 (K1 and K2 are; the embedding backward accumulates in index order),
+# so all three are 0: every run so far read exactly 0
+RESUME_LOSS_RTOL = 0.0
+RESUME_PARAM_REL = 0.0
+RELOAD_EVAL_RTOL = 0.0
 
 # configs/pretrain_5seg.yaml, model block (init_checkpoint left out: the
 # weights are random, drawn from a seed)
@@ -1758,12 +1818,32 @@ def kernel_family(name: str) -> str:
 PROFILE_TRIES = 3
 
 
+def profile_summary(prof, wall_ms: float, family=kernel_family, **info) -> dict:
+    """A finished torch.profiler's device time by kernel family and the
+    device's idle share over ``wall_ms`` (the profiler's own overhead
+    counts as idle)."""
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    families = {}
+    for e in events:
+        fam = family(e.key)
+        ms, n = families.get(fam, (0.0, 0))
+        families[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:40]
+    return {**info, "wall_ms": wall_ms, "device_ms": total,
+            "device_idle_share": 1 - total / wall_ms if wall_ms else None,
+            "families": {f: {"ms": ms, "launches": n}
+                         for f, (ms, n) in sorted(families.items(), key=lambda x: -x[1][0])},
+            "top_kernels": [{"name": e.key, "ms": e.self_device_time_total / 1e3,
+                             "count": e.count} for e in top]}
+
+
 def profile_device(run, label: str, family=kernel_family, counted=None, **info) -> dict:
     """torch.profiler over run(): device time by kernel family and the
-    device's idle share (the profiler's own overhead counts as idle).
-    counted maps a tuple of families to a function that reads the wrappers'
-    count of their kernels; the profile must hold every launch counted over
-    its run(), within PROFILE_TRIES runs, and "tries" says how many it took."""
+    device's idle share (``profile_summary``). counted maps a tuple of
+    families to a function that reads the wrappers' count of their
+    kernels; the profile must hold every launch counted over its run(),
+    within PROFILE_TRIES runs, and "tries" says how many it took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1776,14 +1856,10 @@ def profile_device(run, label: str, family=kernel_family, counted=None, **info) 
             run()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        families = {}
-        for e in events:
-            fam = family(e.key)
-            ms, n = families.get(fam, (0.0, 0))
-            families[fam] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        summary = profile_summary(prof, wall_ms, family, **info)
         missing = {"+".join(fams): (read() - before[fams],
-                                    sum(families.get(f, (0, 0))[1] for f in fams))
+                                    sum(summary["families"].get(f, {"launches": 0})["launches"]
+                                        for f in fams))
                    for fams, read in counted.items()}
         missing = {k: v for k, v in missing.items() if v[0] != v[1]}
         if not missing:
@@ -1792,15 +1868,7 @@ def profile_device(run, label: str, family=kernel_family, counted=None, **info) 
               flush=True)
     check(not missing, f"[{label}] no profile in {PROFILE_TRIES} held the launches the "
                        f"wrappers counted: {missing}")
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:40]
-    summary = {**info, "tries": tries, "wall_ms": wall_ms, "device_ms": total,
-               "device_idle_share": 1 - total / wall_ms if wall_ms else None,
-               "families": {f: {"ms": ms, "launches": n}
-                            for f, (ms, n) in sorted(families.items(),
-                                                     key=lambda x: -x[1][0])},
-               "top_kernels": [{"name": e.key, "ms": e.self_device_time_total / 1e3,
-                                "count": e.count} for e in top]}
+    summary["tries"] = tries
     print(f"[{label}] {json.dumps({k: summary[k] for k in summary if k != 'top_kernels'})}",
           flush=True)
     return summary
@@ -2337,8 +2405,524 @@ def server_phase(dev, log_path: Path) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# the pretraining CLI from tfrecords
+
+
+def cli_yaml(out_dir: Path, train_glob: str, val_glob: str) -> tuple:
+    """A copy of configs/pretrain_4seg.yaml with CLI_REDUCED's keys changed
+    and a validate section added, and the list of what changed. The model
+    block and the optimizer block but for num_train_steps stay as they are
+    (checked with the port's reader)."""
+    import re
+    from merlot_tpu_torch.core.config import load_yaml
+
+    src = (ROOT / "configs" / "pretrain_4seg.yaml").read_text()
+    values = dict(CLI_REDUCED, train_file=f'"{train_glob}"', val_file=f'"{val_glob}"',
+                  output_dir=f'"{out_dir}"')
+    text, reduced = src, []
+    for key, value in values.items():
+        pattern = re.compile(rf"^(\s*{key}:)[ \t]*([^#\n]*?)[ \t]*(#[^\n]*)?$", re.M)
+        found = pattern.findall(text)
+        check(len(found) == 1, f"pretrain_4seg.yaml: {key} found {len(found)} times")
+        reduced.append({"key": key, "yaml": found[0][1], "copy": value})
+        text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
+    text += f"\nvalidate:\n  eval_samples: {CLI_EVAL_BATCHES * CLI_VAL_BATCH}\n"
+    reduced.append({"key": "validate.eval_samples", "yaml": None,
+                    "copy": CLI_EVAL_BATCHES * CLI_VAL_BATCH})
+    orig, copy = load_yaml(src), load_yaml(text)
+    check(copy["model"] == orig["model"]
+          and dict(copy["optimizer"], num_train_steps=None)
+          == dict(orig["optimizer"], num_train_steps=None),
+          "the copy of pretrain_4seg.yaml changed its model or optimizer block")
+    return text, reduced
+
+
+def jpeg_route_check() -> dict:
+    """The machine's JPEG route against the committed fixture (three JPEGs
+    and the pixels PIL decodes from them): bit for bit for libjpeg, within
+    NVJPEG_MAX_ERR / NVJPEG_MEAN_ERR levels for nvJPEG."""
+    import numpy as np
+    from merlot_tpu_torch.data import _native
+
+    route = _native.jpeg_route()
+    rows = []
+    with np.load(ROOT / "merlot_tpu_torch" / "assets" / "jpeg_fixture.npz") as z:
+        for i in range(3):
+            got = _native.decode_jpeg(z[f"jpeg{i}"].tobytes()).astype(np.int16)
+            want = z[f"pixels{i}"].astype(np.int16)
+            check(got.shape == want.shape, f"jpeg fixture {i}: {got.shape} vs {want.shape}")
+            err = np.abs(got - want)
+            rows.append({"shape": list(want.shape), "max_abs_err": int(err.max()),
+                         "mean_abs_err": float(err.mean()),
+                         "share_differing": float((err > 0).mean())})
+    result = {"route": route, "fixture": rows}
+    print(f"[jpeg] {json.dumps(result)}", flush=True)
+    for r in rows:
+        if route == "libjpeg":
+            check(r["max_abs_err"] == 0, f"libjpeg decode differs from the fixture: {rows}")
+        else:
+            check(r["max_abs_err"] <= NVJPEG_MAX_ERR and r["mean_abs_err"] <= NVJPEG_MEAN_ERR,
+                  f"nvJPEG decode vs the fixture beyond ({NVJPEG_MAX_ERR}, "
+                  f"{NVJPEG_MEAN_ERR}): {rows}")
+    return result
+
+
+def write_cli_shards(d: Path) -> dict:
+    """CLI_EXAMPLES training and validation examples of 16 chunks each, in
+    CLI_SHARDS shards per split, frames CLI_FRAME_HW, written by the port's
+    writer (the machine's JPEG route), one thread per shard."""
+    from concurrent.futures import ThreadPoolExecutor
+    from merlot_tpu_torch.data.make_synthetic_tfrecord import write_synthetic_shard
+
+    jobs = [(d / f"{split}-{i:02d}.tfrecord", 100 * s + i)
+            for s, split in enumerate(("train", "val")) for i in range(CLI_SHARDS)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda j: write_synthetic_shard(
+            str(j[0]), CLI_EXAMPLES // CLI_SHARDS, TRAIN_CHUNKS, seed=j[1],
+            img_hw=CLI_FRAME_HW), jobs))
+    return {"seconds": time.perf_counter() - t0,
+            "bytes": sum(p.stat().st_size for p, _ in jobs),
+            "frames": 2 * CLI_EXAMPLES * TRAIN_CHUNKS}
+
+
+def loader_rate(files, config: dict, threads: int) -> dict:
+    """The training loader alone (no device): segments/s over
+    CLI_LOADER_BATCHES batches after one."""
+    from merlot_tpu_torch.data.pretrain_loader import PretrainLoader
+
+    loader = PretrainLoader(files, config, batch_size=TRAIN_BATCH, is_training=True,
+                            num_threads=threads,
+                            shuffle_buffer=config.get("shuffle_buffer_size", 256))
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(CLI_LOADER_BATCHES):
+        next(it)
+    dt = time.perf_counter() - t0
+    it.close()
+    return {"requested_threads": threads, "threads": loader.num_threads,
+            "segments_per_s": CLI_LOADER_BATCHES * TRAIN_BATCH * TRAIN_CHUNKS / dt}
+
+
+def skip_rate(files, config: dict) -> dict:
+    """How fast a resumed loader passes over the batches before its start
+    (``PretrainLoader.batches(start)``: counted and shuffled, not parsed):
+    the time to the first batch from CLI_SKIP_BATCHES on, less the time to
+    the first batch from 0, in records passed over per second."""
+    from merlot_tpu_torch.data.pretrain_loader import PretrainLoader
+
+    first = {}
+    for start in (0, CLI_SKIP_BATCHES):
+        loader = PretrainLoader(files, config, batch_size=TRAIN_BATCH, is_training=True,
+                                num_threads=8,
+                                shuffle_buffer=config.get("shuffle_buffer_size", 256))
+        t0 = time.perf_counter()
+        it = loader.batches(start)
+        next(it)
+        first[start] = time.perf_counter() - t0
+        it.close()
+    skip_s = first[CLI_SKIP_BATCHES] - first[0]
+    records = CLI_SKIP_BATCHES * TRAIN_BATCH
+    return {"batches": CLI_SKIP_BATCHES, "records": records, "first_batch_s": first[0],
+            "skip_s": skip_s, "records_per_s": records / skip_s}
+
+
+def h2d_check(dev, files, config: dict) -> dict:
+    """device_iterator's batches on the card equal their host batches
+    element for element (bf16 images), with the consumer's stream kept
+    busy while the next copies are in flight (a pinned buffer reused too
+    early, or a copy from unpinned memory, would show here)."""
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
+
+    loader = PretrainLoader(files, config, batch_size=TRAIN_BATCH, is_training=True,
+                            num_threads=8, shuffle_buffer=config.get("shuffle_buffer_size", 256))
+    host = []
+
+    def tee():
+        for b in loader:
+            host.append({k: np.array(v, copy=True) for k, v in b.items()})
+            yield b
+
+    it = device_iterator(tee(), dev)
+    pinned = []
+    for i in range(CLI_H2D_BATCHES):
+        torch.cuda._sleep(50_000_000)  # ~30 ms of work on the consumer's stream
+        batch = next(it)
+        pinned.append(all(v.device.type == "cuda" for v in batch.values()))
+        for k, v in batch.items():
+            want = torch.from_numpy(host[i][k])
+            if k == "images":
+                want = want.to(torch.bfloat16)
+            check(v.dtype == want.dtype and torch.equal(v.cpu(), want),
+                  f"h2d: batch {i} key {k} differs from its host batch")
+    it.close()
+    return {"batches": CLI_H2D_BATCHES, "equal": True, "on_device": all(pinned)}
+
+
+def synthetic_step_rate(dev) -> dict:
+    """chip_smoke's synthetic-batch train step at the CLI's batch: a fresh
+    model from seed 0, CLI_SYNTH_WARMUP steps, then CLI_SYNTH_STEPS timed
+    alone on the host clock."""
+    import torch
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+    from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL)
+    model = MerlotPretrainModel(cfg, device=dev)
+    opt = MerlotAdamW(AdamWConfig.from_config(PRETRAIN_4SEG_OPTIMIZER))
+    state = init_train_state(model, opt, seed=0)
+    batch = pretrain_batch(cfg, dev)
+    step = make_train_step(model, opt)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(CLI_SYNTH_WARMUP):
+        step(model, state, batch, g)
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(CLI_SYNTH_STEPS):
+        t0 = time.perf_counter()
+        step(model, state, batch, g)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    del model, state, step, batch, opt
+    torch.cuda.empty_cache()
+    segments = TRAIN_BATCH * TRAIN_CHUNKS
+    return {"step_seconds": wall, "segments_per_s": segments / statistics.median(wall)}
+
+
+def jsonl(path: Path) -> list:
+    return [json.loads(x) for x in path.read_text().splitlines() if x.strip()]
+
+
+@contextlib.contextmanager
+def cli_tf32():
+    """torch's defaults for TF32 (matmuls off, cuDNN on), as the CLI's own
+    process runs with them."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def feed_rates(dev, config, files, out: Path) -> list:
+    """The Trainer over one pretrain_4seg model (fresh from seed 0) fed three
+    ways, one after another, each for CLI_FEED_STEPS steps after two, read
+    as the median of its logged perf/steps_per_sec: batches put on the card
+    before the run (no loader running during the steps), then the live
+    loader at the config's num_threads and at half the cores. No checkpoint
+    is written."""
+    import torch
+    from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.train import checkpoint as ckpt_mod
+    from merlot_tpu_torch.train.harness import Trainer
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+
+    merged = config.merged_data_model()
+    model = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=dev)
+    opt = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
+    threads = config.data["num_threads"]
+    cores = len(os.sched_getaffinity(0))
+    state, runs = None, []
+    with cli_tf32(), wrapped(ckpt_mod.CheckpointManager, "save", lambda save: lambda *a, **k: None):
+        for feed, n in (("preloaded", threads), ("live", threads), ("live", max(1, cores // 2))):
+            loader = PretrainLoader(files, merged, batch_size=TRAIN_BATCH, is_training=True,
+                                    num_threads=n,
+                                    shuffle_buffer=merged.get("shuffle_buffer_size", 256))
+            batches = device_iterator(iter(loader), dev)
+            if feed == "preloaded":
+                held = [next(batches) for _ in range(CLI_FEED_STEPS + 2)]
+                batches.close()
+                torch.cuda.synchronize()
+                batches = iter(held)
+            trainer = Trainer(model, opt, output_dir=str(out / f"feed{len(runs)}"), log_every=1,
+                              checkpoint_every=10 ** 9, device=dev)
+            state = trainer.init_state() if state is None else state
+            state = trainer.run(state, batches, num_steps=state["step"] + CLI_FEED_STEPS + 2)
+            if hasattr(batches, "close"):
+                batches.close()
+            rates = [x["perf/steps_per_sec"]
+                     for x in jsonl(out / f"feed{len(runs)}" / "train_metrics.jsonl")][2:]
+            check(len(rates) == CLI_FEED_STEPS, f"feed run {feed}: {len(rates)} timed steps")
+            runs.append({"feed": feed, "threads": loader.num_threads,
+                         "segments_per_s": TRAIN_BATCH * TRAIN_CHUNKS * statistics.median(rates),
+                         "steps_per_sec": rates})
+            print(f"[cli-feed] {json.dumps(runs[-1])}", flush=True)
+    return runs
+
+
+def cli_phase(dev, tmp: Path) -> dict:
+    """The pretraining entry point at full pretrain_4seg width from
+    tfrecords: run A (`python -m merlot_tpu_torch.train.pretrain a.yaml`
+    in a subprocess: 8 steps, checkpoints at 4 and 8, then the held-out
+    evaluation), the synthetic-batch step before A and after the feed runs
+    that follow it (``feed_rates``), the loader alone, its resume skip and
+    its copy to the card, then run B (pretrain.main in this
+    process from A's ckpt_4: steps 5-8 with the kernels' counters and a
+    profile of two steps) against A, and A's ckpt_8 loaded into a fresh
+    model against A's evaluation."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.convert import flax_layout, flax_path, load_flax_params
+    from merlot_tpu_torch.core.config import NeatConfig
+    from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.train import checkpoint as ckpt_mod
+    from merlot_tpu_torch.train import harness, pretrain
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_line()
+    jpeg = jpeg_route_check()
+    shards = tmp / "shards"
+    shards.mkdir()
+    data = write_cli_shards(shards)
+    yamls = {}
+    for name in ("a", "b"):
+        text, reduced = cli_yaml(tmp / name, f"{shards}/train-*.tfrecord",
+                                 f"{shards}/val-*.tfrecord")
+        yamls[name] = tmp / f"{name}.yaml"
+        yamls[name].write_text(text)
+    config = NeatConfig.from_yaml(str(yamls["a"]))
+    merged = config.merged_data_model()
+    train_files = config.data["train_file_expanded"]
+    check(len(train_files) == CLI_SHARDS and len(config.data["val_file_expanded"]) == CLI_SHARDS,
+          f"the copy's globs matched {config.data}")
+
+    # the loader alone (no device), at the config's num_threads and at the
+    # cores this process gets (the loader caps its threads there)
+    cores = len(os.sched_getaffinity(0))
+    loader = [loader_rate(train_files, merged, n)
+              for n in dict.fromkeys((config.data["num_threads"], cores, max(1, cores // 2)))]
+    skip = skip_rate(train_files, merged)
+    print(f"[cli-skip] {json.dumps(skip)}", flush=True)
+    h2d = h2d_check(dev, train_files, merged)
+
+    # run A through the normal entry point, between two synthetic-step runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    synthetic = [synthetic_step_rate(dev)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    log_a = tmp / "a.log"
+    t0 = time.perf_counter()
+    with open(log_a, "w") as f:
+        proc = subprocess.run([sys.executable, "-m", "merlot_tpu_torch.train.pretrain",
+                               str(yamls["a"])], cwd=ROOT, env=env, stdout=f,
+                              stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT_S)
+    a_seconds = time.perf_counter() - t0
+    a_log = log_a.read_text()
+    print(f"[cli] run A's output (last 3000 characters):\n{a_log[-3000:]}", flush=True)
+    check(proc.returncode == 0, f"run A exited {proc.returncode}")
+    feeds = feed_rates(dev, config, train_files, tmp / "feed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    synthetic.append(synthetic_step_rate(dev))
+
+    a_lines = jsonl(tmp / "a" / "train_metrics.jsonl")
+    a_train = {x["step"]: x for x in a_lines if "loss" in x}
+    a_eval = [x for x in a_lines if "eval/loss" in x]
+    check(sorted(a_train) == list(range(1, CLI_STEPS + 1)),
+          f"run A logged steps {sorted(a_train)}, want 1..{CLI_STEPS}")
+    check(len(a_eval) == 1, f"run A logged {len(a_eval)} evaluations")
+    for x in a_lines:
+        bad = {k: v for k, v in x.items() if not math.isfinite(v)}
+        check(not bad, f"run A step {x['step']}: non-finite metrics {bad}")
+    a_ckpt = ckpt_mod.CheckpointManager(str(tmp / "a" / "checkpoints"))
+    check(a_ckpt.all_steps() == list(range(CLI_CKPT_EVERY, CLI_STEPS + 1, CLI_CKPT_EVERY)),
+          f"run A's checkpoints at {a_ckpt.all_steps()}")
+    rate = [a_train[s]["perf/steps_per_sec"] for s in range(3, CLI_STEPS + 1)]
+    segments = TRAIN_BATCH * TRAIN_CHUNKS
+
+    # run B: A's ckpt_4 in a fresh output directory, in this process, with
+    # the kernels' counters per step and torch.profiler over two steps
+    resume_from = CLI_CKPT_EVERY
+    (tmp / "b" / "checkpoints").mkdir(parents=True)
+    shutil.copytree(a_ckpt.path(resume_from), tmp / "b" / "checkpoints" / f"ckpt_{resume_from}")
+    per_step, windows, ckpt_s = [], [], []
+
+    def window_counts(steps, prof) -> dict:
+        """(profiled, counted) K1/K2 launches over a window's steps; a K2
+        call launches two kernels (the rows and the column kernel)."""
+        mine = [s for s in per_step if s[0] in steps]
+        counted = {"K1 attention_fwd": sum(s[1] for s in mine),
+                   "K2 attention_bwd": 2 * sum(s[2] for s in mine)}
+        return {fam: (prof["families"].get(fam, {"launches": 0})["launches"], n)
+                for fam, n in counted.items()}
+
+    def counting(make):
+        def make_counted(*args, **kw):
+            step = make(*args, **kw)
+
+            def counted(model, opt_state, batch, generator, **kw2):
+                # the profiles are read after the run: reading one takes
+                # seconds that would stall the steps after it
+                n = opt_state["step"] + 1
+                for w in CLI_PROFILE_WINDOWS:
+                    if n == w[0]:
+                        torch.cuda.synchronize()
+                        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        prof.start()
+                        windows.append({"steps": w, "prof": prof, "t0": time.perf_counter()})
+                before = (ca.launches, ca.bwd_launches)
+                out = step(model, opt_state, batch, generator, **kw2)
+                per_step.append((n, ca.launches - before[0], ca.bwd_launches - before[1]))
+                if windows and n == windows[-1]["steps"][-1]:
+                    torch.cuda.synchronize()
+                    windows[-1]["wall_ms"] = 1e3 * (time.perf_counter() - windows[-1]["t0"])
+                    windows[-1]["prof"].stop()
+                return out
+            return counted
+        return make_counted
+
+    def timed_save(save):
+        def timed(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save(self, *args, **kw)
+            ckpt_s.append(time.perf_counter() - t)
+        return timed
+
+    # B runs with torch's defaults for TF32, as A's process does
+    with cli_tf32():
+        ca.launches = ca.bwd_launches = ca.stacked_launches = 0
+        with wrapped(harness, "make_train_step", counting), \
+                wrapped(ckpt_mod.CheckpointManager, "save", timed_save):
+            t0 = time.perf_counter()
+            b = pretrain.main([str(yamls["b"])])
+            b_seconds = time.perf_counter() - t0
+    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                "attention_stacked": ca.stacked_launches}
+    check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
+          f"run B profiled {[w['steps'] for w in windows]}")
+    profiles = []
+    for w in windows:
+        summary = profile_summary(w["prof"], w["wall_ms"], steps=len(w["steps"]))
+        summary["steps"] = list(w["steps"])
+        summary["profiled_vs_counted"] = window_counts(w["steps"], summary)
+        summary["held_all"] = all(got == want for got, want
+                                  in summary["profiled_vs_counted"].values())
+        profiles.append(summary)
+        print(f"[cli-profile] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
+              flush=True)
+    windows.clear()
+    held = [p for p in profiles if p["held_all"]]
+    check(held, f"no profile of run B held the K1/K2 launches counted in its window: "
+                f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
+    prof = held[0]
+
+    b_lines = jsonl(tmp / "b" / "train_metrics.jsonl")
+    b_train = {x["step"]: x for x in b_lines if "loss" in x}
+    b_eval = [x for x in b_lines if "eval/loss" in x]
+    for x in b_lines:
+        bad = {k: v for k, v in x.items() if not math.isfinite(v)}
+        check(not bad, f"run B step {x['step']}: non-finite metrics {bad}")
+    check(sorted(b_train) == list(range(resume_from + 1, CLI_STEPS + 1)),
+          f"run B logged steps {sorted(b_train)}: it did not resume at {resume_from}")
+    check([n for n, *_ in per_step] == list(range(resume_from + 1, CLI_STEPS + 1)),
+          f"run B stepped {[n for n, *_ in per_step]}")
+    check(all(k1 == k2 == LAUNCHES_PER_STEP for _, k1, k2 in per_step),
+          f"run B's K1/K2 launches per step {per_step}, want {LAUNCHES_PER_STEP} each")
+    b_ckpt = ckpt_mod.CheckpointManager(str(tmp / "b" / "checkpoints"))
+    check(b_ckpt.all_steps() == [resume_from, CLI_STEPS], f"run B's checkpoints {b_ckpt.all_steps()}")
+
+    # B against A: the losses of steps 5-8, the step-8 parameters (the gap
+    # over how far A's parameters moved from step 4 to 8) and the evaluation
+    loss_gap = max(abs(b_train[s]["loss"] - a_train[s]["loss"]) / abs(a_train[s]["loss"])
+                   for s in b_train)
+    a4 = ckpt_mod.load_params(a_ckpt.path(resume_from))
+    a8 = ckpt_mod.load_params(a_ckpt.path(CLI_STEPS))
+    model_b = b["trainer"].model
+    diff_sq = move_sq = 0.0
+    param_max = 0.0
+    for name, p in model_b.named_parameters():
+        got = flax_layout(name, p.detach().float().cpu().numpy()).astype(np.float64)
+        want, start = a8[flax_path(name)].astype(np.float64), a4[flax_path(name)]
+        diff_sq += float(((got - want) ** 2).sum())
+        move_sq += float(((want - start) ** 2).sum())
+        param_max = max(param_max, float(np.abs(got - want).max()))
+    param_rel = math.sqrt(diff_sq) / math.sqrt(move_sq)
+    eval_gap = abs(b_eval[0]["eval/loss"] - a_eval[0]["eval/loss"]) / abs(a_eval[0]["eval/loss"])
+    del b, model_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A's ckpt_8, loaded by convert.load_flax_params into a fresh model,
+    # evaluated as the CLI evaluates
+    fresh = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=dev)
+    load_flax_params(fresh, a8)
+    reload_dir = tmp / "reload"
+    trainer = harness.Trainer(fresh, MerlotAdamW(AdamWConfig.from_config(config.optimizer)),
+                              output_dir=str(reload_dir), device=dev)
+    val = PretrainLoader(config.data["val_file_expanded"], merged, batch_size=CLI_VAL_BATCH,
+                         is_training=False, num_threads=config.data["num_threads"],
+                         shuffle_buffer=0, repeat=False)
+    with cli_tf32():
+        reload_means = trainer.evaluate(device_iterator(iter(val), dev),
+                                        max_batches=CLI_EVAL_BATCHES)
+    reload_gap = abs(reload_means["loss"] - a_eval[0]["eval/loss"]) / abs(a_eval[0]["eval/loss"])
+    del trainer, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt_dir = Path(a_ckpt.path(CLI_STEPS))
+    result = {
+        "card": card, "jpeg_route": jpeg["route"], "jpeg_fixture": jpeg["fixture"],
+        "reduced": reduced, "data": data,
+        "cli_segments_per_s": segments * statistics.median(rate),
+        "cli_steps_per_sec_3_to_8": rate,
+        "synthetic_segments_per_s": [r["segments_per_s"] for r in synthetic],
+        "synthetic_step_seconds": [r["step_seconds"] for r in synthetic],
+        "loader_alone": loader, "resume_skip": skip, "feeds": feeds, "h2d": h2d,
+        "run_a_seconds": a_seconds, "run_b_seconds": b_seconds,
+        "a_losses": {s: a_train[s]["loss"] for s in sorted(a_train)},
+        "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
+        "a_eval": {k: v for k, v in a_eval[0].items() if k.startswith("eval/")},
+        "b_eval_loss": b_eval[0]["eval/loss"],
+        "resume_loss_rel_gap": loss_gap, "resume_param_rel_gap": param_rel,
+        "resume_param_max_abs_gap": param_max, "resume_eval_rel_gap": eval_gap,
+        "reload_eval_loss": reload_means["loss"], "reload_eval_rel_gap": reload_gap,
+        "launches": launches, "launches_per_step": per_step,
+        "device_idle_share": prof["device_idle_share"], "profile": prof,
+        "profiles_held_all": [p["held_all"] for p in profiles],
+        "checkpoint_seconds": ckpt_s,
+        "checkpoint_bytes": sum(f.stat().st_size for f in ckpt_dir.iterdir())}
+    print(f"[cli] {json.dumps({k: v for k, v in result.items() if k != 'profile'})}",
+          flush=True)
+    print(f"[cli] {card}: {result['cli_segments_per_s']:.2f} segments/s through the CLI; "
+          f"synthetic-batch step {result['synthetic_segments_per_s']} before and after; "
+          f"loader alone {[round(r['segments_per_s'], 2) for r in loader]} at "
+          f"{[r['threads'] for r in loader]} threads; Trainer fed "
+          f"{[(r['feed'], r['threads'], round(r['segments_per_s'], 2)) for r in feeds]}; "
+          f"resume skip {skip['records_per_s']:.0f} records/s; B's device idle "
+          f"{prof['device_idle_share']:.3f} (steps {prof['steps']}); JPEG route {jpeg['route']}; checkpoint "
+          f"{ckpt_s} s for {result['checkpoint_bytes']} bytes", flush=True)
+    check(all(math.isfinite(v) for v in result["a_eval"].values())
+          and all(math.isfinite(v) for v in reload_means.values()), "non-finite eval means")
+    check(loss_gap <= RESUME_LOSS_RTOL, f"run B's losses vs A's: {loss_gap} > {RESUME_LOSS_RTOL}")
+    check(param_rel <= RESUME_PARAM_REL,
+          f"run B's step-{CLI_STEPS} params vs A's: {param_rel} > {RESUME_PARAM_REL}")
+    check(reload_gap <= RELOAD_EVAL_RTOL,
+          f"A's ckpt_{CLI_STEPS} reloaded: eval loss gap {reload_gap} > {RELOAD_EVAL_RTOL}")
+    return result
+
+
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd) -> list[dict]:
+                   gv, sv, fd, cli) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -2354,9 +2938,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "name": "attention_fwd", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:273",
-        "launches": sl["launches"] + tr["launches"]["attention_fwd"],
+        "launches": sl["launches"] + tr["launches"]["attention_fwd"]
+        + cli["launches"]["attention_fwd"],
         "launches_by_path": {"zero_shot": sl["launches"],
-                             "train": tr["launches"]["attention_fwd"]},
+                             "train": tr["launches"]["attention_fwd"],
+                             "pretrain_cli": cli["launches"]["attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -2386,7 +2972,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "name": "attention_bwd", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:504",
-        "launches": tr["launches"]["attention_bwd"],
+        "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"],
+        "launches_by_path": {"train": tr["launches"]["attention_bwd"],
+                             "pretrain_cli": cli["launches"]["attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -2519,7 +3107,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    libs = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul")
+    libs = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul",
+            "jpeg")
     t0 = time.perf_counter()
     _build.build_libraries(libs)
     build_s = time.perf_counter() - t0
@@ -2548,9 +3137,11 @@ def main() -> int:
     gv = grover_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
+    with tempfile.TemporaryDirectory() as tmp:  # shards and ~1.7 GB checkpoints
+        cli = cli_phase(dev, Path(tmp))
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd)
+                             ftr, fprof, gv, sv, fd, cli)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -2560,7 +3151,7 @@ def main() -> int:
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
-             "grover": gv, "server": sv, "ablation": ab_rows,
+             "grover": gv, "server": sv, "cli": cli, "ablation": ab_rows,
              "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},

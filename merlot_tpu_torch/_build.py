@@ -25,6 +25,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "merlot_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# libraries a source links beyond the CUDA runtime
+LINK_FLAGS = {"jpeg": ["-lnvjpeg"]}
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -69,7 +71,8 @@ def build_libraries(names: Iterable[str]) -> None:
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
                 os.close(fd)
                 jobs.append((name, tmp, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu"),
+                     *LINK_FLAGS.get(name, [])],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
             failed = []
             for name, tmp, proc in jobs:

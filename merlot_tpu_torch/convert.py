@@ -7,7 +7,9 @@ stem_conv0/kernel" -> "vision_backbone.resnet.stem_conv0.weight";
 kernels:
   * DenseTN kernel [in, out]  -> weight [out, in];
   * WSConv kernel HWIO        -> weight OIHW.
-Every other leaf keeps its shape.
+Every other leaf keeps its shape. ``torch_layout`` and ``flax_layout`` move
+one array between the two layouts without changing its dtype (checkpoints
+store the optimizer's moments in the flax layout too).
 """
 
 from __future__ import annotations
@@ -19,22 +21,40 @@ import torch
 from torch import nn
 
 
+def torch_layout(path: str, arr: np.ndarray) -> np.ndarray:
+    """The leaf at flax path ``path`` in this package's layout (C order)."""
+    if path.split("/")[-1] == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"{path}: kernel of rank {arr.ndim}")
+    return np.array(arr, order="C")
+
+
+def flax_layout(torch_name: str, arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``torch_layout``, keyed by the torch name."""
+    if torch_name.split(".")[-1] == "weight":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        else:
+            raise ValueError(f"{torch_name}: weight of rank {arr.ndim}")
+    return np.array(arr, order="C")
+
+
 def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """flat: numpy leaves keyed by flax path, '/'-separated, without the
     leading 'params' collection. Returns fp32 tensors keyed by torch name."""
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in flat.items():
         parts = path.split("/")
-        arr = np.asarray(leaf, dtype=np.float32)
         if parts[-1] == "kernel":
             parts[-1] = "weight"
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
-                raise ValueError(f"{path}: kernel of rank {arr.ndim}")
-        out[".".join(parts)] = torch.from_numpy(np.array(arr, order="C"))
+        arr = torch_layout(path, np.asarray(leaf, dtype=np.float32))
+        out[".".join(parts)] = torch.from_numpy(arr)
     return out
 
 

@@ -1,0 +1,215 @@
+"""Checkpoint save/restore and warm start (counterpart of
+merlot_tpu/train/checkpoint.py).
+
+The JAX package checkpoints with orbax; this package has its own format,
+which numpy alone reads:
+
+    checkpoints/ckpt_{step}/
+        params.npz     every parameter by flax path ("merlot/encoder/
+                       layer00/attention/query/kernel"), in the flax layout
+                       (kernel [in, out], conv HWIO) and the reference-split
+                       q/k/v form, so ``convert.load_flax_params`` and the
+                       JAX package read it as it is;
+        opt_state.npz  the AdamW moments as "m/<flax path>" and
+                       "v/<flax path>", in the same layout;
+        meta.json      the optimizer step and the dtype of each group;
+                       numpy has no bfloat16, so bf16 arrays are stored as
+                       their uint16 bit patterns and meta.json says so.
+
+A checkpoint is written into a hidden temporary directory and renamed to
+``ckpt_{step}`` only when complete, so an interrupted write never leaves a
+directory that ``latest_step`` picks. Its files and the temporary directory
+are fsynced before the rename and the parent directory after it, so that a
+host crash or a power loss cannot leave a ``ckpt_{step}`` whose files are
+truncated or empty.
+
+``warm_start`` grafts every parameter whose flax path is in both the model
+and a source (a checkpoint directory or a flax-path ``.npz``), with a shape
+check, like the reference's name-intersection warm start
+(utils/model_utils.py:388-413). Nothing is ever deleted
+(``keep_checkpoint_max=None``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from merlot_tpu_torch.convert import (flax_layout, flax_path, load_flax_params,
+                                      params_from_flax, torch_layout)
+
+PARAMS_FILE = "params.npz"
+OPT_FILE = "opt_state.npz"
+META_FILE = "meta.json"
+_STORED = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 as its uint16 bit pattern."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    arr = t.cpu().numpy()
+    return arr.view(np.uint16) if arr.dtype == np.int16 else arr
+
+
+def _group_dtype(tensors: Mapping[str, torch.Tensor], group: str) -> str:
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in _STORED:
+        raise ValueError(f"checkpoint group {group} has dtypes {dtypes}: "
+                         f"one of float32 or bfloat16 is supported")
+    return _STORED[dtypes.pop()]
+
+
+def _fsync(path: str) -> None:
+    """Flush a file's or a directory's data and metadata to the disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
+                    opt_state: Dict[str, Any]) -> None:
+    """Write ``params`` (torch name -> tensor) and ``opt_state`` (the
+    AdamW state: step, m, v) to the directory ``path``, atomically."""
+    path = os.path.abspath(path)
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".tmp-{os.path.basename(path)}-", dir=parent)
+    try:
+        np.savez(os.path.join(tmp, PARAMS_FILE),
+                 **{flax_path(n): flax_layout(n, _to_numpy(p)) for n, p in params.items()})
+        moments = {f"{g}/{flax_path(n)}": flax_layout(n, _to_numpy(t))
+                   for g in ("m", "v") for n, t in opt_state[g].items()}
+        np.savez(os.path.join(tmp, OPT_FILE), **moments)
+        meta = {"step": int(opt_state["step"]),
+                "dtypes": {"params": _group_dtype(params, "params"),
+                           "m": _group_dtype(opt_state["m"], "m"),
+                           "v": _group_dtype(opt_state["v"], "v")}}
+        with open(os.path.join(tmp, META_FILE), "w") as f:
+            json.dump(meta, f)
+        for name in (PARAMS_FILE, OPT_FILE, META_FILE):
+            _fsync(os.path.join(tmp, name))
+        _fsync(tmp)
+        if os.path.exists(path):  # a re-save of the same step
+            old = tempfile.mkdtemp(prefix=f".old-{os.path.basename(path)}-", dir=parent)
+            os.rename(path, os.path.join(old, "ckpt"))
+            os.rename(tmp, path)
+            _fsync(parent)
+            shutil.rmtree(old)
+        else:
+            os.rename(tmp, path)
+            _fsync(parent)
+    finally:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+
+
+def load_params(path: str) -> Dict[str, np.ndarray]:
+    """The parameters of a checkpoint directory, by flax path, in the flax
+    layout (what ``convert.load_flax_params`` takes)."""
+    with np.load(os.path.join(path, PARAMS_FILE)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any]) -> None:
+    """Restore a checkpoint directory into ``model``'s parameters and the
+    AdamW state ``opt_state`` (whose tensors keep their dtype and device),
+    in place."""
+    with open(os.path.join(path, META_FILE)) as f:
+        meta = json.load(f)
+    load_flax_params(model, load_params(path))
+    with np.load(os.path.join(path, OPT_FILE)) as z:
+        for g in ("m", "v"):
+            stored = meta["dtypes"][g]
+            for n, t in opt_state[g].items():
+                key = f"{g}/{flax_path(n)}"
+                if key not in z.files:
+                    raise KeyError(f"{path}: no {key}")
+                arr = torch_layout(flax_path(n), z[key])
+                src = torch.from_numpy(arr)
+                if stored == "bfloat16":
+                    src = src.view(torch.int16).view(torch.bfloat16)
+                if src.shape != t.shape or src.dtype != t.dtype:
+                    raise ValueError(f"{key}: {tuple(src.shape)} {src.dtype} in the "
+                                     f"checkpoint, {tuple(t.shape)} {t.dtype} in the state")
+                with torch.no_grad():
+                    t.copy_(src)
+    opt_state["step"] = int(meta["step"])
+
+
+class CheckpointManager:
+    """Step-numbered checkpoints under ``directory/ckpt_{step}``."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}")
+
+    def save(self, step: int, params: Mapping[str, torch.Tensor],
+             opt_state: Dict[str, Any]) -> None:
+        save_checkpoint(self.path(step), params, opt_state)
+
+    def restore(self, step: int, model: nn.Module, opt_state: Dict[str, Any]) -> None:
+        load_checkpoint(self.path(step), model, opt_state)
+
+    def all_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            m = re.fullmatch(r"ckpt_(\d+)", name)
+            if m:
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+
+def warm_start(model: nn.Module, source: Union[str, Mapping[str, np.ndarray]],
+               name_transform: Optional[Callable[[str], str]] = None,
+               verbose: bool = True) -> List[str]:
+    """Graft every parameter whose flax path is in both ``model`` and
+    ``source`` (a checkpoint directory, a flax-path ``.npz`` file, or such
+    a mapping), in place. Shape mismatches are skipped with a warning, as
+    the TF1 warm start loads whatever intersects. Returns the flax paths
+    that were initialized."""
+    if isinstance(source, str):
+        if os.path.isdir(source):
+            source = load_params(source)
+        else:
+            with np.load(source) as z:
+                source = {k: z[k] for k in z.files}
+    target = {flax_path(n): p for n, p in model.named_parameters()}
+    initialized: List[str] = []
+    for src_path, leaf in source.items():
+        path = name_transform(src_path) if name_transform else src_path
+        if path not in target:
+            continue
+        if np.ndim(leaf) != target[path].dim():
+            tensor = None
+        else:
+            (tensor,) = params_from_flax({path: leaf}).values()
+        if tensor is None or tuple(tensor.shape) != tuple(target[path].shape):
+            if verbose:
+                print(f"warm_start: shape mismatch at {path}: {np.shape(leaf)} vs "
+                      f"{tuple(target[path].shape)} (torch layout), skipping")
+            continue
+        with torch.no_grad():
+            target[path].copy_(tensor.to(target[path].dtype))
+        initialized.append(path)
+    if verbose:
+        print(f"warm_start: initialized {len(initialized)}/{len(target)} leaves")
+    return initialized

@@ -1,0 +1,176 @@
+"""Training harness (counterpart of merlot_tpu/train/harness.py): the
+TPUEstimator.train replacement.
+
+Owns the loop around the train step: init-or-restore, warm start, the
+host data iteration, metrics copied to the host every ``log_every`` steps
+(the outfeed analogue), step-numbered checkpoints
+every ``checkpoint_every`` steps (``iterations_per_loop``, like the
+reference), an optional ``torch.profiler`` window, and a NaN guard on
+logging and on saving (a poisoned state is never checkpointed).
+
+The model's parameters are the training state and the step updates them in
+place, so ``init_state``, ``resume_or`` and ``run`` return only the
+optimizer state. Each step draws its masking and dropout from
+``step_generator(seed, step)``: a run resumed from a checkpoint draws what
+an uninterrupted run draws. Not here: ZeRO-1 and device meshes.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from merlot_tpu_torch.ops.attention import inference_backend
+from merlot_tpu_torch.train.checkpoint import CheckpointManager, warm_start
+from merlot_tpu_torch.train.metrics import MetricsLogger
+from merlot_tpu_torch.train.optimizer import MerlotAdamW
+from merlot_tpu_torch.train.train_step import (_device, init_train_state, make_train_step,
+                                               step_generator)
+
+
+class Trainer:
+    def __init__(self, model, optimizer: MerlotAdamW, output_dir: str,
+                 log_every: int = 50, checkpoint_every: int = 1000,
+                 profile_dir: Optional[str] = None,
+                 profile_steps: Optional[range] = None,
+                 seed: int = 0, device="cuda"):
+        self.device = _device(device)
+        self.model = model
+        self.optimizer = optimizer
+        self.log_every = log_every
+        self.checkpoint_every = checkpoint_every
+        self.ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"))
+        self.logger = MetricsLogger(output_dir)
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self.seed = seed
+        # step(model, opt_state, batch, generator) -> metrics; downstream
+        # finetuning replaces it with make_loss_train_step(...)
+        self.step_fn = make_train_step(model, optimizer, device=self.device)
+
+    # ------------------------------------------------------------------
+    def init_state(self, init_checkpoint: Optional[str] = None) -> Dict[str, Any]:
+        """Restore the latest checkpoint, else a fresh init from ``seed``
+        (+ a warm start from ``init_checkpoint``, a checkpoint directory or
+        a flax-path .npz). Returns the optimizer state."""
+        opt_state = init_train_state(self.model, self.optimizer, seed=self.seed)
+        if self.ckpt.latest_step() is not None:
+            opt_state = self.resume_or(opt_state)
+        elif init_checkpoint:
+            print(f"warm starting from {init_checkpoint}")
+            warm_start(self.model, init_checkpoint)
+        return opt_state
+
+    def resume_or(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
+        """Restore the latest checkpoint into the model and ``opt_state`` if
+        one exists, else leave both as they are: the crash/preemption
+        recovery hook for callers that build their own init state. Callers
+        applying a warm start must skip it when ``self.ckpt.latest_step()``
+        is not None (resume wins)."""
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return opt_state
+        print(f"restoring checkpoint at step {latest}")
+        self.ckpt.restore(latest, self.model, opt_state)
+        return opt_state
+
+    # ------------------------------------------------------------------
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
+    def _guard(self, step: int, metrics: Dict[str, Any], what: str) -> None:
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            self.logger.log(step, {k: float(v) for k, v in metrics.items()})
+            raise FloatingPointError(f"non-finite loss {loss} at step {step}{what}")
+
+    def run(self, opt_state: Dict[str, Any], batches: Iterator[Dict[str, Any]],
+            num_steps: int) -> Dict[str, Any]:
+        start_step = int(opt_state["step"])
+        step = start_step
+        t_start = time.time()
+        # the throughput window starts here: time spent between runs
+        # (train -> eval -> resume) never enters perf/steps_per_sec
+        tp_step, tp_time = start_step, t_start
+        prof = None
+        for batch in batches:
+            if step >= num_steps:
+                break
+            if (self.profile_dir and self.profile_steps
+                    and step == self.profile_steps.start):
+                prof = self._profiler()
+                prof.start()
+            metrics = self.step_fn(self.model, opt_state, batch,
+                                   step_generator(self.seed, step, self.device))
+            step += 1
+            if prof is not None and step == self.profile_steps.stop:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                os.makedirs(self.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    self.profile_dir, f"trace_steps_{self.profile_steps.start}"
+                                      f"_{self.profile_steps.stop}.json"))
+                prof = None
+
+            if step % self.log_every == 0 or step == num_steps:
+                host_metrics = {k: float(v) for k, v in metrics.items()}  # the sync
+                self._guard(step, host_metrics, "")
+                now = time.time()
+                if step > tp_step:
+                    host_metrics["perf/steps_per_sec"] = (step - tp_step) / (now - tp_time)
+                tp_step, tp_time = step, now
+                self.logger.log(step, host_metrics)
+
+            if step % self.checkpoint_every == 0 or step == num_steps:
+                # guard the write even when checkpoint_every < log_every
+                self._guard(step, metrics, "; refusing to checkpoint")
+                self.ckpt.save(step, dict(self.model.named_parameters()), opt_state)
+            if step >= num_steps:  # no batch is fetched past the last step
+                break
+        if prof is not None:
+            prof.stop()
+
+        dt = time.time() - t_start
+        if step > start_step:
+            print(f"trained {step - start_step} steps in {dt:.1f}s "
+                  f"({(step - start_step) / dt:.3f} steps/s)")
+        return opt_state
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, batches: Iterator[Dict[str, Any]],
+                 max_batches: Optional[int] = None,
+                 log_step: Optional[int] = None) -> Dict[str, float]:
+        """Held-out evaluation: the mean of every scalar metric over the
+        batches (the reference EVAL mode's tf.metrics.mean wrapping). A
+        deterministic forward; every batch masks from the same generator,
+        seeded 0 (JAX's fixed PRNGKey(0))."""
+        backend = inference_backend(self.device)
+        sums: Dict[str, float] = {}
+        n = 0
+        for i, batch in enumerate(batches):
+            if max_batches is not None and i >= max_batches:
+                break
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+            loss, metrics, _ = self.model(
+                batch, deterministic=True, attn_backend=backend,
+                generator=torch.Generator(device=self.device).manual_seed(0))
+            metrics = dict(metrics)
+            metrics["loss"] = loss
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        means = {k: v / max(n, 1) for k, v in sums.items()}
+        if log_step is not None and n:
+            self.logger.log(log_step, {f"eval/{k}": v for k, v in means.items()},
+                            echo=True)
+        return means

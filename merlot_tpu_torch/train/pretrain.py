@@ -1,0 +1,102 @@
+"""Pretraining entry point (counterpart of merlot_tpu/train/pretrain.py):
+
+    python -m merlot_tpu_torch.train.pretrain config.yaml [--device cpu]
+
+The model/train.py analogue (reference: model/train.py:9-26): load the YAML
+NeatConfig, build the pretrain model and AdamW from its sections, stream
+tfrecords through the async host loader onto the card, and run the train
+step for optimizer.num_train_steps steps, checkpointing every
+device.iterations_per_loop steps; then a held-out evaluation when
+data.val_file matches files. The run is on the CUDA device unless
+``--device cpu`` asks for the CPU.
+
+A run resumed from a checkpoint at step k starts the data stream at its
+k-th batch (``PretrainLoader.batches(k)``, which passes over the first k
+without parsing them). It is the same stream for the same files, config and
+seed, so the resumed run sees the batches an uninterrupted run would have
+seen (the JAX package restarts the stream).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Any, Dict, Optional, Sequence
+
+from merlot_tpu_torch.core.config import NeatConfig
+from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
+from merlot_tpu_torch.models.config import MerlotConfig
+from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+from merlot_tpu_torch.train.harness import Trainer
+from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+from merlot_tpu_torch.train.train_step import _device
+
+
+def build_pretrain_setup(config: NeatConfig, device="cuda"):
+    """(model, optimizer, loader) from a NeatConfig; the loader is None
+    when data.train_file matches no file."""
+    if config.device.get("model_parallelism", 1) != 1 or config.device.get("use_zero1"):
+        raise NotImplementedError("model_parallelism > 1 and use_zero1 need a device "
+                                  "mesh, which this package does not have yet")
+    model = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=_device(device))
+    optimizer = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
+
+    files = config.data.get("train_file_expanded") or []
+    loader = None
+    if files:
+        loader = PretrainLoader(
+            files, config.merged_data_model(),
+            batch_size=config.device["train_batch_size"], is_training=True,
+            num_threads=config.data.get("num_threads", 8),
+            shuffle_buffer=config.data.get("shuffle_buffer_size", 256))
+    return model, optimizer, loader
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """Run the CLI on ``argv`` (``sys.argv[1:]`` when None). Returns the
+    trainer (its model holds the trained parameters), the optimizer state
+    and the evaluation's means (empty without a validation set)."""
+    ap = argparse.ArgumentParser(description="MERLOT pretraining")
+    ap.add_argument("config_file", help="Path to the config.yaml")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the default) or 'cpu'")
+    args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
+    config = NeatConfig.from_yaml(args.config_file)
+    device = _device(args.device)
+    model, optimizer, loader = build_pretrain_setup(config, device)
+    if loader is None:
+        raise ValueError("data.train_file matched no files")
+
+    trainer = Trainer(
+        model, optimizer, output_dir=config.device["output_dir"],
+        log_every=config.device.get("log_every", 50),
+        checkpoint_every=config.device.get("iterations_per_loop", 1000),
+        device=device)
+    feed = dict(images_bf16=config.model.get("use_bfloat16", True),
+                # data.infeed_u8: 1 B/px copies, dequantized in the backbone
+                images_u8=config.data.get("infeed_u8", False))
+    opt_state = trainer.init_state(init_checkpoint=config.model.get("init_checkpoint"))
+    # a resumed run continues the data stream where the checkpoint left it
+    host = loader.batches(int(opt_state["step"]))
+    opt_state = trainer.run(opt_state, device_iterator(host, device, **feed),
+                            num_steps=config.optimizer["num_train_steps"])
+
+    means: Dict[str, float] = {}
+    val_files = config.data.get("val_file_expanded") or []
+    if val_files:
+        vbs = config.device.get("val_batch_size", 8)
+        val_loader = PretrainLoader(
+            val_files, config.merged_data_model(), batch_size=vbs,
+            is_training=False, num_threads=config.data.get("num_threads", 8),
+            shuffle_buffer=0, repeat=False)
+        eval_samples = config.validate.get("eval_samples")
+        means = trainer.evaluate(
+            device_iterator(iter(val_loader), device, **feed),
+            max_batches=(eval_samples // vbs) if eval_samples else None,
+            log_step=int(opt_state["step"]))
+        print("eval:", {k: round(v, 4) for k, v in sorted(means.items())})
+    return {"trainer": trainer, "opt_state": opt_state, "eval": means}
+
+
+if __name__ == "__main__":
+    main()

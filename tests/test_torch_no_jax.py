@@ -1,5 +1,7 @@
-"""merlot_tpu_torch imports neither jax nor flax: every module is imported
-in a fresh interpreter, which then must hold no jax or flax module."""
+"""merlot_tpu_torch imports neither jax nor flax, nor the libraries the
+card's machine may lack (pyyaml, PIL, orbax, h5py), nor merlot_tpu: every
+module is imported in a fresh interpreter, which then must hold none of
+them. Importing builds nothing: no native library appears."""
 
 import os
 import subprocess
@@ -15,18 +17,30 @@ names = [m.name for m in pkgutil.walk_packages(merlot_tpu_torch.__path__,
                                                 "merlot_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax"))
+bad = sorted(k for k in sys.modules if k.split(".")[0] in (
+    "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "merlot_tpu"))
 assert not bad, bad
-assert len(names) >= 31, names
+assert len(names) >= 43, names
 assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server",
         "merlot_tpu_torch.core.tokenizer", "merlot_tpu_torch.ops.cuda_groupnorm",
-        "merlot_tpu_torch.ops.cuda_ln_matmul"} <= set(names), names
+        "merlot_tpu_torch.ops.cuda_ln_matmul", "merlot_tpu_torch.core.config",
+        "merlot_tpu_torch.data.tfrecord", "merlot_tpu_torch.data._native",
+        "merlot_tpu_torch.data.image_ops", "merlot_tpu_torch.data.pretrain_loader",
+        "merlot_tpu_torch.data.make_synthetic_tfrecord", "merlot_tpu_torch.train.metrics",
+        "merlot_tpu_torch.train.checkpoint", "merlot_tpu_torch.train.harness",
+        "merlot_tpu_torch.train.pretrain"} <= set(names), names
 print(len(names))
 """
 
 
-def test_port_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+def test_port_imports_no_jax(tmp_path):
+    import shutil
+    # a copy of the package in an empty directory: what importing builds
+    # would appear under its build/
+    shutil.copytree(REPO / "merlot_tpu_torch", tmp_path / "merlot_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+    assert not (tmp_path / "build").exists()
