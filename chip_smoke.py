@@ -7,13 +7,16 @@
    parallel: K1 (attention forward), K2 (backward), K3 (the stacked KV
    cache), K4 (fused GroupNorm) and K5 (LayerNorm fused into matmuls);
 2. K1 phase: holds K1 against its plain PyTorch version at the two
-   zero-shot shapes (fp32 softmax) and the three pretrain shapes (bf16
-   softmax), all in bf16, and times K1, the plain version and, as a
-   yardstick, torch's scaled_dot_product_attention, beside the least time
-   the card could take (bound);
-3. K2 phase: the same for K2 at the three pretrain shapes in bf16 softmax
-   and the joint shape in fp32 softmax (the VCR mode), with padded rows in
-   the masks and a nonzero colsum cotangent at the lang shape; each shape
+   zero-shot shapes (fp32 softmax), the three pretrain shapes (bf16
+   softmax) and VCR's four (fp32 softmax: the ViT at 16 x 1058 and the
+   joint tower at 64 x 449 in a train step, 8 x 1058 and 32 x 449 in an
+   eval batch), all in bf16, and times K1, the plain version and,
+   as a yardstick, torch's scaled_dot_product_attention, beside the least
+   time the card could take (bound);
+3. K2 phase: the same for K2 at the three pretrain shapes in bf16 softmax,
+   the pretrain joint shape in fp32 softmax and VCR's train-step two, with
+   padded rows in the masks and a nonzero colsum cotangent at the lang
+   shape; each shape
    also shows that its check sees a fault (the other softmax mode; at the
    lang shape, the missing colsum cotangent) and that dQ is exactly 0 on
    fully masked rows; K2 fed K1's saved row max and sum must equal K2
@@ -110,7 +113,34 @@
    must resume at step 4, its losses and step-8 parameters must match A's
    and A's ckpt_8, loaded by convert.load_flax_params into a fresh model,
    must reproduce A's evaluation loss, within the tolerances at the top;
-   segments/s through the CLI, checkpoint seconds and bytes are printed.
+   segments/s through the CLI, checkpoint seconds and bytes are printed;
+10. zero-shot CLI phase: the port's writer makes 2 synthetic stories in
+   all 120 orderings (600x800 frames); a fresh pretrain_5seg-width model
+   is saved as a pretrain checkpoint (rooted at merlot/); `python -m
+   merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits zs.yaml`
+   (a copy of configs/pretrain_5seg.yaml with data.num_chunks 5 and
+   val_batch_size 2) runs in a subprocess and its .npz is scored; the same
+   loader batches through make_zero_shot_fn in this process must give the
+   CLI's probs bit for bit, with 24 K1 launches per batch; stories/s is
+   printed beside the zero-shot phase's;
+11. VCR phase: configs/vcr_finetune.yaml's model block at full size
+   (VCR_REDUCED lists the cuts) from synthetic shards built by the port's
+   build_vcr_example (draw_grounding overlays on 540x960 frames):
+   run A (`python -m merlot_tpu_torch.downstream.vcr.train a.yaml`,
+   warm-started from a fresh pretrain_4seg-width checkpoint, 8 steps,
+   checkpoints at 4 and 8), run B (in process from A's ckpt_4, with the
+   counters: 24 K1 and 24 K2 per step, and a profile of two steps) whose
+   losses at steps 5-8 must equal A's; one step's loss through the
+   kernels against the plain attention (the loss with the joint mask
+   dropped in the forward is reported: it barely moves), and the grads of
+   a random projection of the logits (the VCR loss's own grads cancel
+   over the 4 choices: reported; a backward without the mask must fail
+   the bound); A's ckpt_8
+   evaluated in both modes (24 K1 per
+   eval batch, kernel logits against plain, the joint mask dropped must
+   fail the bound), and the eval sidecar's poll until its timeout, having
+   logged both checkpoints. Prints train and eval examples/s, peak memory,
+   B's idle share and K1/K2 ms per step.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -142,16 +172,32 @@ HEADS, D_HEAD = 12, 64
 # per batch (ViT: 2 stories x 2 dups x 5 frames, 24*24 + 2 tokens; joint:
 # 4 rows of 5*(12*12+1) + 5*32 tokens), then the pretrain shapes (ViT: 128
 # frames of 12*22 + 2 tokens; joint: 32 rows of 4*(6*11+1) + 4*32 tokens;
-# lang: 8 rows of 16*32 tokens)
-ATTN_SHAPES = [
-    ("zeroshot_vit", 20, 578, False, False, True),
-    ("zeroshot_joint", 4, 885, True, False, True),
+# lang: 8 rows of 16*32 tokens), then VCR's train step at batch 8
+# (configs/vcr_finetune.yaml, fp32 softmax; ViT: 16 frames of 384x704,
+# 24*44 + 2 tokens, the last 64-key tile ragged at 34; joint: 64 rows of
+# 12*22 + 1 vision and 184 text tokens) and its eval batch of 8 (one mode:
+# 8 frames, 32 joint rows)
+PRETRAIN_SHAPES = [
     ("pretrain_vit", 128, 266, False, False, False),
     ("pretrain_joint", 32, 396, True, False, False),
     ("pretrain_lang", 8, 512, True, True, False),
 ]
-# K2's shapes: the three pretrain shapes, and the joint one in fp32 softmax
-BWD_SHAPES = ATTN_SHAPES[2:] + [("pretrain_joint_fp32sm", 32, 396, True, False, True)]
+VCR_SHAPES = [
+    ("vcr_vit", 16, 1058, False, False, True),
+    ("vcr_joint", 64, 449, True, False, True),
+]
+VCR_EVAL_SHAPES = [
+    ("vcr_eval_vit", 8, 1058, False, False, True),
+    ("vcr_eval_joint", 32, 449, True, False, True),
+]
+ATTN_SHAPES = [
+    ("zeroshot_vit", 20, 578, False, False, True),
+    ("zeroshot_joint", 4, 885, True, False, True),
+] + PRETRAIN_SHAPES + VCR_SHAPES + VCR_EVAL_SHAPES
+# K2's shapes: the three pretrain shapes, the joint one in fp32 softmax, and
+# VCR's two
+BWD_SHAPES = (PRETRAIN_SHAPES + [("pretrain_joint_fp32sm", 32, 396, True, False, True)]
+              + VCR_SHAPES)
 # ctx (bf16) against the plain version. Both round the probs and ctx at the
 # same points and differ only in the order of fp32 sums, so an element
 # differs by at most an ulp of itself, and rarely (about 0.1% of elements
@@ -391,6 +437,59 @@ NVJPEG_MAX_ERR, NVJPEG_MEAN_ERR = 32, 5.0
 RESUME_LOSS_RTOL = 0.0
 RESUME_PARAM_REL = 0.0
 RELOAD_EVAL_RTOL = 0.0
+
+# the zero-shot CLI phase: the port's writer makes ZS_CLI_STORIES synthetic
+# stories, each in all 120 orderings, frames of uniform noise at VIST's
+# thumbnail size (800 pixels on the long side); a copy of
+# configs/pretrain_5seg.yaml with ZS_CLI_REDUCED's keys changed (one group
+# of 5 is one story; the model block unchanged); a fresh model from seed 0
+# saved as a pretrain checkpoint
+ZS_CLI_STORIES = 2
+ZS_CLI_FRAME_HW = (600, 800)
+ZS_CLI_BATCH = 2
+ZS_CLI_REDUCED = {"num_chunks": CHUNKS, "val_batch_size": ZS_CLI_BATCH}
+# the VCR phase: a copy of configs/vcr_finetune.yaml with VCR_REDUCED's keys
+# changed (each listed under "reduced"; the model block but for the
+# warm-start path and the optimizer block but for num_train_steps
+# unchanged): the reference's per-core batch (64 over a v3-8's 8 cores),
+# 8 steps, checkpoints at 4 and 8, two evaluation batches, the sidecar's
+# poll cut to seconds; synthetic shards from the port's build_vcr_example
+VCR_BATCH = 8
+VCR_STEPS = 8
+VCR_CKPT_EVERY = 4
+VCR_EVAL_BATCHES = 2
+VCR_EVAL_TIMEOUT_S = 10
+VCR_REDUCED = {"train_batch_size": VCR_BATCH, "num_train_steps": VCR_STEPS,
+               "iterations_per_loop": VCR_CKPT_EVERY, "val_batch_size": VCR_BATCH,
+               "eval_samples": VCR_EVAL_BATCHES * VCR_BATCH,
+               "eval_timeout": VCR_EVAL_TIMEOUT_S}
+VCR_TRAIN_EXAMPLES = 24     # 2 shards; 8 steps of 8 read 2.7 epochs
+VCR_VAL_EXAMPLES = 16
+VCR_FRAME_HW = (540, 960)   # larger than the 384x704 the loader pads to
+# 12 layers in each of the ViT and the joint tower (VCR runs no lang-only
+# tower), per train step and per eval batch
+VCR_LAUNCHES_PER_STEP = 24
+# VCR's step, kernels vs plain attention. The loss is ~ln 4 where the
+# pretrain loss is ~11, so an absolute gap of the pretrain step's order
+# (1.4e-4 on the H100) is 9.8e-5 of it; VCR_LOSS_RTOL is 4x that. At these weights the loss cannot see
+# the attention: the forward with the joint mask dropped moved it by 2.2e-5
+# (reported, not bounded). The VCR loss's grads cancel: the 4 choices of an
+# image share its frame and context and sum(p - y) = 0 over them, so with
+# the untrained heads' near-equal logits the net grad is ~1e-3 of each
+# choice's and one-ulp bf16 differences move it by O(1) (grad_gap 1.51
+# for the kernels, 2.51 for a backward without the mask: no bound between
+# them means anything). Those grads are reported; the bound holds on the
+# grads of sum(logits * r), r ~ N(0, 1) fixed, through the same forward
+# and backward, which do not cancel: 0.050 for the kernels (a stem
+# GroupNorm gamma), 1.91 for a backward without the mask, so
+# TRAIN_GRAD_TOL sits 2.0x above the one and 19x below the other.
+VCR_LOSS_RTOL = 4e-4
+# eval logits, kernel vs plain attention at A's ckpt_8 (random pretrain
+# weights, 8 VCR steps: the heads barely read their input, which damps the
+# kernels' rounding and the fault alike): 2.27e-3 and 2.38e-3 on the H100,
+# the joint mask dropped 7.25e-3 and 2.99e-2; VCR_LOGIT_TOL sits between
+# (1.7x the kernels', 1.8x below the smaller fault)
+VCR_LOGIT_TOL = 4e-3
 
 # configs/pretrain_5seg.yaml, model block (init_checkpoint left out: the
 # weights are random, drawn from a seed)
@@ -757,7 +856,7 @@ def ablation_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
-    for name, b, s, masked, colsum, sm32 in ATTN_SHAPES[2:]:
+    for name, b, s, masked, colsum, sm32 in PRETRAIN_SHAPES:
         q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
         kw = dict(num_heads=HEADS, collect_colsum=colsum)
         heads, bias = sdpa_args(q, k, v, mask)
@@ -2409,28 +2508,44 @@ def server_phase(dev, log_path: Path) -> dict:
 # the pretraining CLI from tfrecords
 
 
+def config_copy(name: str, values: dict, added: tuple = (), extra: str = "") -> tuple:
+    """configs/<name> with the value of each key in ``values`` replaced
+    (each key must occur once; its comment goes), each (section, key,
+    value) of ``added`` put at the head of its section, and ``extra``
+    appended. Returns the copy's text, what changed, and both files as the
+    port's reader reads them."""
+    import re
+    from merlot_tpu_torch.core.config import load_yaml
+
+    src = (ROOT / "configs" / name).read_text()
+    text, reduced = src, []
+    for key, value in values.items():
+        pattern = re.compile(rf"^(\s*{key}:)[ \t]*([^#\n]*?)[ \t]*(#[^\n]*)?$", re.M)
+        found = pattern.findall(text)
+        check(len(found) == 1, f"{name}: {key} found {len(found)} times")
+        reduced.append({"key": key, "yaml": found[0][1], "copy": value})
+        text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
+    for section, key, value in added:
+        head = f"\n{section}:\n"
+        check(text.count(head) == 1, f"{name}: section {section} found {text.count(head)} times")
+        text = text.replace(head, f"{head}  {key}: {value}\n")
+        reduced.append({"key": f"{section}.{key}", "yaml": None, "copy": value})
+    text += extra
+    return text, reduced, load_yaml(src), load_yaml(text)
+
+
 def cli_yaml(out_dir: Path, train_glob: str, val_glob: str) -> tuple:
     """A copy of configs/pretrain_4seg.yaml with CLI_REDUCED's keys changed
     and a validate section added, and the list of what changed. The model
     block and the optimizer block but for num_train_steps stay as they are
     (checked with the port's reader)."""
-    import re
-    from merlot_tpu_torch.core.config import load_yaml
-
-    src = (ROOT / "configs" / "pretrain_4seg.yaml").read_text()
     values = dict(CLI_REDUCED, train_file=f'"{train_glob}"', val_file=f'"{val_glob}"',
                   output_dir=f'"{out_dir}"')
-    text, reduced = src, []
-    for key, value in values.items():
-        pattern = re.compile(rf"^(\s*{key}:)[ \t]*([^#\n]*?)[ \t]*(#[^\n]*)?$", re.M)
-        found = pattern.findall(text)
-        check(len(found) == 1, f"pretrain_4seg.yaml: {key} found {len(found)} times")
-        reduced.append({"key": key, "yaml": found[0][1], "copy": value})
-        text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
-    text += f"\nvalidate:\n  eval_samples: {CLI_EVAL_BATCHES * CLI_VAL_BATCH}\n"
+    text, reduced, orig, copy = config_copy(
+        "pretrain_4seg.yaml", values,
+        extra=f"\nvalidate:\n  eval_samples: {CLI_EVAL_BATCHES * CLI_VAL_BATCH}\n")
     reduced.append({"key": "validate.eval_samples", "yaml": None,
                     "copy": CLI_EVAL_BATCHES * CLI_VAL_BATCH})
-    orig, copy = load_yaml(src), load_yaml(text)
     check(copy["model"] == orig["model"]
           and dict(copy["optimizer"], num_train_steps=None)
           == dict(orig["optimizer"], num_train_steps=None),
@@ -2661,6 +2776,87 @@ def feed_rates(dev, config, files, out: Path) -> list:
     return runs
 
 
+def run_module(module: str, yaml_path: Path, cwd: Path, log: Path) -> tuple:
+    """``python -m module yaml_path`` in a subprocess from ``cwd`` with this
+    checkout on its path: (exit code, seconds, its output)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run([sys.executable, "-m", module, str(yaml_path)], cwd=cwd, env=env,
+                              stdout=f, stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    text = log.read_text()
+    print(f"[{module}] output (last 3000 characters):\n{text[-3000:]}", flush=True)
+    return proc.returncode, seconds, text
+
+
+def counting_steps(per_step: list, windows: list):
+    """A wrapper for a step factory (``harness.make_train_step``,
+    ``make_loss_train_step``): every step it builds appends (step, K1
+    launches, K2 launches) to ``per_step``, and the first step of each
+    window of CLI_PROFILE_WINDOWS starts a torch.profiler that the window's
+    last step stops (appended to ``windows``, its wall time taken from just
+    after the start). The profiles are read after the run
+    (``window_profiles``): reading one takes seconds that would stall the
+    steps after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    def counting(make):
+        def make_counted(*args, **kw):
+            step = make(*args, **kw)
+
+            def counted(model, opt_state, batch, generator, **kw2):
+                n = opt_state["step"] + 1
+                for w in CLI_PROFILE_WINDOWS:
+                    if n == w[0]:
+                        torch.cuda.synchronize()
+                        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        prof.start()
+                        windows.append({"steps": w, "prof": prof, "t0": time.perf_counter()})
+                before = (ca.launches, ca.bwd_launches)
+                out = step(model, opt_state, batch, generator, **kw2)
+                per_step.append((n, ca.launches - before[0], ca.bwd_launches - before[1]))
+                if windows and n == windows[-1]["steps"][-1]:
+                    torch.cuda.synchronize()
+                    windows[-1]["wall_ms"] = 1e3 * (time.perf_counter() - windows[-1]["t0"])
+                    windows[-1]["prof"].stop()
+                return out
+            return counted
+        return make_counted
+    return counting
+
+
+def window_profiles(per_step: list, windows: list, label: str) -> tuple:
+    """The profiles of ``counting_steps``' windows, each with its (profiled,
+    counted) K1/K2 launches (a K2 call launches two kernels, the rows and
+    the column kernel), and the first that held every counted launch."""
+    check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
+          f"[{label}] profiled {[w['steps'] for w in windows]}")
+    profiles = []
+    for w in windows:
+        summary = profile_summary(w["prof"], w["wall_ms"], steps=len(w["steps"]))
+        mine = [s for s in per_step if s[0] in w["steps"]]
+        counted = {"K1 attention_fwd": sum(s[1] for s in mine),
+                   "K2 attention_bwd": 2 * sum(s[2] for s in mine)}
+        summary["steps"] = list(w["steps"])
+        summary["profiled_vs_counted"] = {
+            fam: (summary["families"].get(fam, {"launches": 0})["launches"], n)
+            for fam, n in counted.items()}
+        summary["held_all"] = all(got == want for got, want
+                                  in summary["profiled_vs_counted"].values())
+        profiles.append(summary)
+        print(f"[{label}] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
+              flush=True)
+    windows.clear()
+    held = [p for p in profiles if p["held_all"]]
+    check(held, f"[{label}] no profile held the K1/K2 launches counted in its window: "
+                f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
+    return profiles, held[0]
+
+
 def cli_phase(dev, tmp: Path) -> dict:
     """The pretraining entry point at full pretrain_4seg width from
     tfrecords: run A (`python -m merlot_tpu_torch.train.pretrain a.yaml`
@@ -2684,7 +2880,6 @@ def cli_phase(dev, tmp: Path) -> dict:
     from merlot_tpu_torch.train import checkpoint as ckpt_mod
     from merlot_tpu_torch.train import harness, pretrain
     from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
-    from torch.profiler import ProfilerActivity, profile
 
     card = card_line()
     jpeg = jpeg_route_check()
@@ -2716,18 +2911,9 @@ def cli_phase(dev, tmp: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     synthetic = [synthetic_step_rate(dev)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    log_a = tmp / "a.log"
-    t0 = time.perf_counter()
-    with open(log_a, "w") as f:
-        proc = subprocess.run([sys.executable, "-m", "merlot_tpu_torch.train.pretrain",
-                               str(yamls["a"])], cwd=ROOT, env=env, stdout=f,
-                              stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT_S)
-    a_seconds = time.perf_counter() - t0
-    a_log = log_a.read_text()
-    print(f"[cli] run A's output (last 3000 characters):\n{a_log[-3000:]}", flush=True)
-    check(proc.returncode == 0, f"run A exited {proc.returncode}")
+    rc, a_seconds, _ = run_module("merlot_tpu_torch.train.pretrain", yamls["a"], ROOT,
+                                  tmp / "a.log")
+    check(rc == 0, f"run A exited {rc}")
     feeds = feed_rates(dev, config, train_files, tmp / "feed")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2754,40 +2940,7 @@ def cli_phase(dev, tmp: Path) -> dict:
     (tmp / "b" / "checkpoints").mkdir(parents=True)
     shutil.copytree(a_ckpt.path(resume_from), tmp / "b" / "checkpoints" / f"ckpt_{resume_from}")
     per_step, windows, ckpt_s = [], [], []
-
-    def window_counts(steps, prof) -> dict:
-        """(profiled, counted) K1/K2 launches over a window's steps; a K2
-        call launches two kernels (the rows and the column kernel)."""
-        mine = [s for s in per_step if s[0] in steps]
-        counted = {"K1 attention_fwd": sum(s[1] for s in mine),
-                   "K2 attention_bwd": 2 * sum(s[2] for s in mine)}
-        return {fam: (prof["families"].get(fam, {"launches": 0})["launches"], n)
-                for fam, n in counted.items()}
-
-    def counting(make):
-        def make_counted(*args, **kw):
-            step = make(*args, **kw)
-
-            def counted(model, opt_state, batch, generator, **kw2):
-                # the profiles are read after the run: reading one takes
-                # seconds that would stall the steps after it
-                n = opt_state["step"] + 1
-                for w in CLI_PROFILE_WINDOWS:
-                    if n == w[0]:
-                        torch.cuda.synchronize()
-                        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                        prof.start()
-                        windows.append({"steps": w, "prof": prof, "t0": time.perf_counter()})
-                before = (ca.launches, ca.bwd_launches)
-                out = step(model, opt_state, batch, generator, **kw2)
-                per_step.append((n, ca.launches - before[0], ca.bwd_launches - before[1]))
-                if windows and n == windows[-1]["steps"][-1]:
-                    torch.cuda.synchronize()
-                    windows[-1]["wall_ms"] = 1e3 * (time.perf_counter() - windows[-1]["t0"])
-                    windows[-1]["prof"].stop()
-                return out
-            return counted
-        return make_counted
+    counting = counting_steps(per_step, windows)
 
     def timed_save(save):
         def timed(self, *args, **kw):
@@ -2807,23 +2960,7 @@ def cli_phase(dev, tmp: Path) -> dict:
             b_seconds = time.perf_counter() - t0
     launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
                 "attention_stacked": ca.stacked_launches}
-    check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
-          f"run B profiled {[w['steps'] for w in windows]}")
-    profiles = []
-    for w in windows:
-        summary = profile_summary(w["prof"], w["wall_ms"], steps=len(w["steps"]))
-        summary["steps"] = list(w["steps"])
-        summary["profiled_vs_counted"] = window_counts(w["steps"], summary)
-        summary["held_all"] = all(got == want for got, want
-                                  in summary["profiled_vs_counted"].values())
-        profiles.append(summary)
-        print(f"[cli-profile] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
-              flush=True)
-    windows.clear()
-    held = [p for p in profiles if p["held_all"]]
-    check(held, f"no profile of run B held the K1/K2 launches counted in its window: "
-                f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
-    prof = held[0]
+    profiles, prof = window_profiles(per_step, windows, "cli-profile")
 
     b_lines = jsonl(tmp / "b" / "train_metrics.jsonl")
     b_train = {x["step"]: x for x in b_lines if "loss" in x}
@@ -2921,8 +3058,543 @@ def cli_phase(dev, tmp: Path) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# the downstream entry points: the zero-shot CLI and VCR
+
+
+def zero_shot_cli_yaml(out_dir: Path, val_glob: str) -> tuple:
+    """A copy of configs/pretrain_5seg.yaml with ZS_CLI_REDUCED's keys and
+    the paths changed; its model block stays as it is."""
+    values = dict(ZS_CLI_REDUCED, val_file=f'"{val_glob}"', output_dir=f'"{out_dir}"')
+    text, reduced, orig, copy = config_copy("pretrain_5seg.yaml", values)
+    check(copy["model"] == orig["model"], "the copy of pretrain_5seg.yaml changed its model block")
+    return text, reduced
+
+
+def save_fresh_pretrain(cfg, opt_block: dict, path: Path, dev) -> float:
+    """A MerlotPretrainModel at ``cfg``, initialised from seed 0, saved as
+    a port checkpoint at ``path`` (its tree roots at merlot/); returns the
+    seconds the save took."""
+    import gc
+    import torch
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.train.checkpoint import save_checkpoint
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+    from merlot_tpu_torch.train.train_step import init_train_state
+
+    model = MerlotPretrainModel(cfg, device=dev)
+    state = init_train_state(model, MerlotAdamW(AdamWConfig.from_config(opt_block)), seed=0)
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), dict(model.named_parameters()), state)
+    seconds = time.perf_counter() - t0
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
+    """The zero-shot CLI at pretrain_5seg width: the port's writer makes
+    ZS_CLI_STORIES synthetic stories in all 120 orderings; a fresh model is
+    saved as a pretrain checkpoint; `python -m
+    merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits zs.yaml`
+    runs in a subprocess and its .npz is scored; the same loader batches
+    then go through make_zero_shot_fn in this process, from the same
+    checkpoint, with K1's counter and CUDA events per batch: its probs must
+    equal the CLI's bit for bit (K1 is deterministic)."""
+    import gc
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.convert import load_flax_params
+    from merlot_tpu_torch.core.config import NeatConfig
+    from merlot_tpu_torch.downstream.sort_story.data import write_synthetic_story_shard
+    from merlot_tpu_torch.downstream.sort_story.dataloader import story_batches
+    from merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits import merlot_subtree
+    from merlot_tpu_torch.downstream.sort_story.score_permutations import score_file
+    from merlot_tpu_torch.downstream.sort_story.zero_shot import make_zero_shot_fn
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.merlot import MerlotModel
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
+
+    card = card_line()
+    d = tmp / "zero_shot_cli"
+    (d / "run").mkdir(parents=True)
+    shard = d / "val-00.tfrecord"
+    t0 = time.perf_counter()
+    records = write_synthetic_story_shard(str(shard), num_stories=ZS_CLI_STORIES,
+                                          just_one_perm=False, seed=0, img_hw=ZS_CLI_FRAME_HW,
+                                          pad_to_batch_size=ZS_CLI_BATCH)
+    write_s = time.perf_counter() - t0
+    text, reduced = zero_shot_cli_yaml(d / "out", str(shard))
+    (d / "zs.yaml").write_text(text)
+    config = NeatConfig.from_yaml(str(d / "zs.yaml"))
+    cfg = MerlotConfig.from_dict(config.model)
+    ckpt = CheckpointManager(str(d / "out" / "checkpoints"))
+    save_s = save_fresh_pretrain(cfg, config.optimizer, Path(ckpt.path(1)), dev)
+
+    rc, cli_s, log = run_module("merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits",
+                                d / "zs.yaml", d / "run", d / "cli.log")
+    check(rc == 0, f"the zero-shot CLI exited {rc}")
+    npz = d / "run" / "logits_val.npz"
+    metrics = score_file(str(npz))
+
+    # the same batches in this process, with torch's TF32 defaults as the
+    # CLI's process has them
+    model = MerlotModel(cfg.eval_mode(), device=dev).eval()
+    load_flax_params(model, merlot_subtree(load_params(ckpt.path(1))))
+    fn = make_zero_shot_fn(ZS_CLI_BATCH, CHUNKS)
+    merged = {"num_chunks": CHUNKS, "image_size": list(cfg.image_size)}
+    first, seconds, k1_ms, per_batch = {}, [], [], []
+    with cli_tf32():
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        batches = story_batches(config.data["val_file_expanded"], merged, ZS_CLI_BATCH)
+        t_all = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            spans: list = []
+            before = ca.launches
+            with wrapped(ca, "attention_fwd_cuda", event_timed(spans)):
+                out = fn(model, torch.from_numpy(batch["images"]).to(dev),
+                         torch.from_numpy(batch["sentences"]).to(dev))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            seconds.append(time.perf_counter() - t0)
+            k1_ms.append(spans_ms(spans))
+            per_batch.append(ca.launches - before)
+            for i, sid in enumerate(batch["story_id"]):
+                first.setdefault(str(int(sid)), {k: v[i] for k, v in out.items()})
+        loop_s = time.perf_counter() - t_all
+        launches = ca.launches
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with np.load(npz) as z:
+        stories = sorted({k.split("/")[0] for k in z.files}, key=int)
+        equal = all(np.array_equal(z[f"{sid}/{name}"], first[sid][name])
+                    for sid in stories for name in first[sid])
+        probs = np.stack([z[f"{sid}/{name}_probs"] for sid in stories
+                          for name in ("lang_viz", "viz_viz")])
+    examples = records - records % ZS_CLI_BATCH
+    result = {"card": card, "reduced": reduced, "records": records, "write_s": write_s,
+              "checkpoint_save_s": save_s, "stories": stories, "scores": metrics,
+              "cli_seconds": cli_s, "cli_wall_stories_per_s": examples / cli_s,
+              "batches": len(per_batch), "launches": launches,
+              "launches_per_batch": sorted(set(per_batch)),
+              "stories_per_s": ZS_CLI_BATCH / statistics.median(seconds),
+              "loop_stories_per_s": examples / loop_s,
+              "slice_stories_per_s": slice_stories_per_s,
+              "k1_ms_per_batch": statistics.median(k1_ms),
+              "cli_equals_in_process": equal,
+              "probs_min": float(probs.min()), "probs_max": float(probs.max())}
+    print(f"[zero-shot-cli] {json.dumps(result)}", flush=True)
+    print(f"[zero-shot-cli] {card}: {result['stories_per_s']:.2f} stories/s through the "
+          f"loader and make_zero_shot_fn (median batch of {ZS_CLI_BATCH}), "
+          f"{result['cli_wall_stories_per_s']:.2f} over the CLI's whole process "
+          f"({cli_s:.1f} s for {examples} story orderings); the slice phase's synthetic "
+          f"batches {slice_stories_per_s:.2f}", flush=True)
+    check(stories == [str(i) for i in range(ZS_CLI_STORIES)],
+          f"the CLI wrote stories {stories}, want {ZS_CLI_STORIES}")
+    check(f"wrote {ZS_CLI_STORIES} stories" in log, "the CLI did not report its stories")
+    check(bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1,
+          f"the CLI's probs outside [0, 1]: {probs.min()} .. {probs.max()}")
+    check(per_batch == [LAUNCHES_PER_BATCH] * (examples // ZS_CLI_BATCH),
+          f"in-process K1 launches per batch {sorted(set(per_batch))} over {len(per_batch)} "
+          f"batches, want {LAUNCHES_PER_BATCH} over {examples // ZS_CLI_BATCH}")
+    check(equal, "the CLI's probs differ from make_zero_shot_fn's on the same batches")
+    check(all(math.isfinite(v) for v in metrics.values()) and -1 <= metrics["spearman"] <= 1,
+          f"scores {metrics}")
+    return result
+
+
+VCR_WORDS = ("the man woman is are going to with in on at why what how because they he "
+             "she it this that holding looking walking sitting talking table door").split()
+VCR_OBJECTS = ("person", "person", "person", "car", "dog", "chair", "cup", "bottle")
+
+
+def vcr_item(rng, annot_id: str) -> tuple:
+    """A synthetic VCR annotation in the reference's schema (inline object
+    references, 4 answers and 4 rationales) and its objects' boxes and
+    polygons on a VCR_FRAME_HW frame."""
+    h, w = VCR_FRAME_HW
+    n = int(rng.integers(3, 8))
+    objects = [str(rng.choice(VCR_OBJECTS)) for _ in range(n)]
+    boxes, segms = [], []
+    for _ in range(n):
+        x1, y1 = float(rng.uniform(0, 0.7 * w)), float(rng.uniform(0, 0.7 * h))
+        x2, y2 = x1 + float(rng.uniform(0.05 * w, 0.3 * w)), y1 + float(rng.uniform(0.05 * h, 0.3 * h))
+        boxes.append([x1, y1, x2, y2, float(rng.uniform(0.5, 1.0))])
+        segms.append([[(float(rng.uniform(x1, x2)), float(rng.uniform(y1, y2)))
+                       for _ in range(int(rng.integers(3, 7)))]])
+
+    def stream(lo, hi):
+        return [sorted({int(x) for x in rng.integers(0, n, int(rng.integers(1, 3)))})
+                if rng.uniform() < 0.25 else str(rng.choice(VCR_WORDS))
+                for _ in range(int(rng.integers(lo, hi)))]
+
+    item = {"img_id": annot_id, "annot_id": annot_id, "objects": objects,
+            "question": stream(6, 16) + ["?"],
+            "answer_choices": [stream(4, 14) + ["."] for _ in range(4)],
+            "rationale_choices": [stream(8, 24) + ["."] for _ in range(4)],
+            "answer_label": int(rng.integers(0, 4)),
+            "rationale_label": int(rng.integers(0, 4))}
+    return item, {"bbox": boxes, "segm": segms}
+
+
+def direct_tokens(text, objects) -> tuple:
+    """(ids, tags) written directly, one id per word or object reference,
+    as tests/test_downstream.py writes its VCR token lists: the route where
+    sacremoses (VCRTokenizer's detokenizer) is missing."""
+    import zlib
+    ids, tags = [], []
+    for word in text:
+        for obj, tag in ([(objects[o], o + 1) for o in word] if isinstance(word, list)
+                         else [(word, 0)]):
+            ids.append(100 + zlib.crc32(obj.encode()) % 50000)
+            tags.append(tag)
+    return ids, tags
+
+
+def write_vcr_shards(d: Path) -> dict:
+    """VCR_TRAIN_EXAMPLES training examples in 2 shards and VCR_VAL_EXAMPLES
+    validation examples, built by the port's build_vcr_example: each frame
+    smooth noise of VCR_FRAME_HW, drawn with the mentions of each mode as
+    bbox and segm overlays (draw_grounding) and saved as JPEG at quality 95
+    (prepare_vcr_shard's route); tokens through VCRTokenizer where
+    sacremoses imports, else ``direct_tokens``. One thread per shard."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from PIL import Image
+    from merlot_tpu_torch.data.make_synthetic_tfrecord import smooth_frame
+    from merlot_tpu_torch.data.tfrecord import TFRecordWriter
+    from merlot_tpu_torch.downstream.vcr.data_prep import (VCRTokenizer, build_vcr_example,
+                                                           collect_mentions, draw_grounding)
+    try:
+        tok, route = VCRTokenizer(), "VCRTokenizer"
+    except ImportError:
+        tok, route = direct_tokens, "direct token lists (no sacremoses)"
+    half = VCR_TRAIN_EXAMPLES // 2
+    jobs = [("train-00", 0, half), ("train-01", 1, half), ("val-00", 2, VCR_VAL_EXAMPLES)]
+
+    def write(job):
+        name, seed, n = job
+        rng = np.random.default_rng(seed)
+        with TFRecordWriter(str(d / f"{name}.tfrecord")) as w:
+            for i in range(n):
+                item, shapes = vcr_item(rng, f"{name}-{i}")
+                frame = Image.fromarray(smooth_frame(rng, *VCR_FRAME_HW))
+                drawn = {}
+                for mode in ("answer", "rationale"):
+                    mentions, objects = collect_mentions(item, mode)
+                    for kind in ("bbox", "segm"):
+                        buf = io.BytesIO()
+                        draw_grounding(frame.copy(), shapes[kind], mentions, objects,
+                                       kind=kind).save(buf, format="JPEG", quality=95)
+                        drawn[f"{mode}/{kind}"] = buf.getvalue()
+                w.write(build_vcr_example(item, drawn, tok))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(write, jobs))
+    return {"token_route": route, "seconds": time.perf_counter() - t0,
+            "bytes": sum((d / f"{j[0]}.tfrecord").stat().st_size for j in jobs),
+            "train_examples": VCR_TRAIN_EXAMPLES, "val_examples": VCR_VAL_EXAMPLES}
+
+
+def vcr_yaml(out_dir: Path, train_glob: str, val_glob: str, init: Path) -> tuple:
+    """A copy of configs/vcr_finetune.yaml with VCR_REDUCED's keys, the
+    paths and the warm-start checkpoint changed and device.log_every 1
+    added; the model block but for init_checkpoint and the optimizer block
+    but for num_train_steps stay as they are."""
+    values = dict(VCR_REDUCED, train_file=f'"{train_glob}"', val_file=f'"{val_glob}"',
+                  output_dir=f'"{out_dir}"', init_checkpoint=f'"{init}"')
+    text, reduced, orig, copy = config_copy("vcr_finetune.yaml", values,
+                                            added=(("device", "log_every", 1),))
+    check(dict(copy["model"], init_checkpoint=None) == dict(orig["model"], init_checkpoint=None)
+          and dict(copy["optimizer"], num_train_steps=None)
+          == dict(orig["optimizer"], num_train_steps=None),
+          "the copy of vcr_finetune.yaml changed its model or optimizer block")
+    return text, reduced
+
+
+def vcr_loss_and_grads(model, batch, weights=None) -> tuple:
+    """One training forward and backward with dropout off, through the
+    kernels' backend: (the VCR loss, fp32 grads by parameter name) of the
+    VCR loss, or with ``weights`` of sum(logits * weights)."""
+    import torch
+    from merlot_tpu_torch.downstream.vcr.modeling import vcr_loss_and_metrics
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    logits = model(batch["images"], batch["lm_input"], deterministic=True, attn_backend="cuda")
+    loss, _ = vcr_loss_and_metrics(logits, batch["lm_targets"])
+    (loss if weights is None else (logits.float() * weights).sum()).backward()
+    return loss.item(), {n: torch.zeros_like(p) if p.grad is None else
+                         p.grad.detach().float().clone() for n, p in params.items()}
+
+
+def vcr_phase(dev, tmp: Path) -> dict:
+    """VCR finetuning and its eval sidecar at configs/vcr_finetune.yaml's
+    model block from tfrecords: run A (`python -m
+    merlot_tpu_torch.downstream.vcr.train a.yaml` in a subprocess, warm
+    started from a fresh pretrain_4seg-width checkpoint: 8 steps,
+    checkpoints at 4 and 8), run B (vcr.train.main in this process from
+    A's ckpt_4, with the kernels' counters and a profile of two steps)
+    against A, one step's loss and grads through the kernels against the
+    plain attention, A's ckpt_8 evaluated in both modes (kernel logits
+    against plain ones), and the sidecar's poll over A's checkpoints until
+    its timeout."""
+    import gc
+    import shutil
+    import torch
+    from merlot_tpu_torch.convert import load_flax_params
+    from merlot_tpu_torch.core.config import NeatConfig
+    from merlot_tpu_torch.data.pretrain_loader import device_iterator
+    from merlot_tpu_torch.downstream.vcr import train as vcr_train
+    from merlot_tpu_torch.downstream.vcr import validate
+    from merlot_tpu_torch.downstream.vcr.dataloader import vcr_eval_batches, vcr_joint_batches
+    from merlot_tpu_torch.downstream.vcr.modeling import VCRModel
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.ops import attention as attn_mod
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
+
+    card = card_line()
+    d = tmp / "vcr"
+    (d / "shards").mkdir(parents=True)
+    data = write_vcr_shards(d / "shards")
+    print(f"[vcr] shards: {json.dumps(data)}", flush=True)
+    init = d / "pretrain4" / "ckpt_1"
+    init_save_s = save_fresh_pretrain(MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL),
+                                      PRETRAIN_4SEG_OPTIMIZER, init, dev)
+    yamls = {}
+    for name in ("a", "b"):
+        text, reduced = vcr_yaml(d / name, f"{d}/shards/train-*.tfrecord",
+                                 f"{d}/shards/val-*.tfrecord", init)
+        yamls[name] = d / f"{name}.yaml"
+        yamls[name].write_text(text)
+    config = NeatConfig.from_yaml(str(yamls["a"]))
+    merged = dict(config.merged_data_model(), **config.downstream)
+    train_files, val_files = config.data["train_file_expanded"], config.data["val_file_expanded"]
+    check(len(train_files) == 2 and len(val_files) == 1, f"the copy's globs matched {config.data}")
+
+    # run A through the entry point
+    rc, a_seconds, a_log = run_module("merlot_tpu_torch.downstream.vcr.train", yamls["a"],
+                                      ROOT, d / "a.log")
+    check(rc == 0, f"VCR run A exited {rc}")
+    warm = [x for x in a_log.splitlines() if x.startswith("warm_start: initialized")]
+    check(len(warm) == 1, f"run A's warm start printed {warm}")
+    initialized, total = (int(x) for x in warm[0].split()[2].split("/"))
+    skipped = sum(x.startswith("warm_start: shape mismatch") for x in a_log.splitlines())
+    a_train = {x["step"]: x for x in jsonl(d / "a" / "train_metrics.jsonl")}
+    check(sorted(a_train) == list(range(1, VCR_STEPS + 1)),
+          f"run A logged steps {sorted(a_train)}, want 1..{VCR_STEPS}")
+    for x in a_train.values():
+        bad = {k: v for k, v in x.items() if not math.isfinite(v)}
+        check(not bad, f"run A step {x['step']}: non-finite metrics {bad}")
+    a_ckpt = CheckpointManager(str(d / "a" / "checkpoints"))
+    check(a_ckpt.all_steps() == list(range(VCR_CKPT_EVERY, VCR_STEPS + 1, VCR_CKPT_EVERY)),
+          f"run A's checkpoints at {a_ckpt.all_steps()}")
+    rate = [a_train[s]["perf/steps_per_sec"] for s in range(3, VCR_STEPS + 1)]
+
+    # run B: A's ckpt_4 in a fresh output directory, in this process
+    (d / "b" / "checkpoints").mkdir(parents=True)
+    shutil.copytree(a_ckpt.path(VCR_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{VCR_CKPT_EVERY}")
+    per_step, windows = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cli_tf32():
+        # the main path: counts set to 0 just before, read just after
+        reset_counts()
+        with wrapped(vcr_train, "make_loss_train_step", counting_steps(per_step, windows)):
+            t0 = time.perf_counter()
+            b = vcr_train.main([str(yamls["b"])])
+            b_seconds = time.perf_counter() - t0
+        launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    profiles, prof = window_profiles(per_step, windows, "vcr-profile")
+    b_train = {x["step"]: x for x in jsonl(d / "b" / "train_metrics.jsonl")}
+    check(sorted(b_train) == list(range(VCR_CKPT_EVERY + 1, VCR_STEPS + 1)),
+          f"VCR run B logged steps {sorted(b_train)}: it did not resume at {VCR_CKPT_EVERY}")
+    check([n for n, *_ in per_step] == list(range(VCR_CKPT_EVERY + 1, VCR_STEPS + 1)),
+          f"VCR run B stepped {[n for n, *_ in per_step]}")
+    loss_gap = max(abs(b_train[s]["loss"] - a_train[s]["loss"]) / abs(a_train[s]["loss"])
+                   for s in b_train)
+
+    # one step's loss and grads at B's weights on the loader's first batch:
+    # the kernels, the plain versions in their places, and faults: the
+    # plain forward without the mask (the loss, reported), the plain
+    # backward without it (the grads); the VCR loss's grads (reported) and
+    # the grads of sum(logits * r)
+    model = b["trainer"].model
+    del b
+    it = device_iterator(vcr_joint_batches(train_files, merged, VCR_BATCH), dev)
+    batch = next(it)
+    it.close()
+    r = torch.randn((2 * VCR_BATCH, 4), generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    plain_fwd = lambda *a, stats=None, **kw: ca.flash_attention_plain(*a, **kw)
+    plain_bwd = lambda *a, stats=None, **kw: ca.attention_bwd_plain(*a, **kw)
+    no_mask_fwd = lambda q, k, v, mask, *a, **kw: plain_fwd(q, k, v, None, *a, **kw)
+    no_mask_bwd = lambda q, k, v, mask, *a, **kw: plain_bwd(q, k, v, None, *a, **kw)
+
+    def through(fwd, bwd, weights=None):
+        if fwd is None:
+            return vcr_loss_and_grads(model, batch, weights)
+        with wrapped(ca, "attention_fwd_cuda", lambda f: fwd), \
+                wrapped(ca, "attention_bwd_cuda", lambda f: bwd):
+            return vcr_loss_and_grads(model, batch, weights)
+
+    kernel_loss, kernel_grads = through(None, None)
+    plain_loss, plain_grads = through(plain_fwd, plain_bwd)
+    vcr_loss_grads = grad_gap(kernel_grads, plain_grads)
+    vcr_loss_broken = grad_gap(through(plain_fwd, no_mask_bwd)[1], plain_grads)
+    no_mask_loss = through(no_mask_fwd, plain_bwd)[0]
+    kernel_grads = through(None, None, r)[1]
+    plain_grads = through(plain_fwd, plain_bwd, r)[1]
+    broken = grad_gap(through(plain_fwd, no_mask_bwd, r)[1], plain_grads)
+    gap = grad_gap(kernel_grads, plain_grads)
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    no_mask_loss_rel = abs(no_mask_loss - plain_loss) / abs(plain_loss)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, batch, kernel_grads, plain_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # A's ckpt_8 evaluated in both modes as the sidecar evaluates it
+    emodel = VCRModel(MerlotConfig.from_dict(config.model).eval_mode(), device=dev).eval()
+    load_flax_params(emodel, load_params(a_ckpt.path(VCR_STEPS)))
+    no_mask = lambda f: lambda q, k, v, mask, **kw: f(q, k, v, None, **kw)
+    evals = {}
+    for mode in ("answer", "rationale"):
+        spans: list = []
+        pred_path = d / f"predictions_{mode}.jsonl"
+        reset_counts()
+        t0 = time.perf_counter()
+        with wrapped(ca, "attention_fwd_cuda", event_timed(spans)):
+            acc = validate.evaluate_checkpoint(emodel, val_files, merged, VCR_BATCH, mode,
+                                               VCR_EVAL_BATCHES * VCR_BATCH, str(pred_path))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = ca.launches
+        preds = jsonl(pred_path)
+        with torch.no_grad():
+            host = [b for _, b in zip(range(VCR_EVAL_BATCHES),
+                                      vcr_eval_batches(val_files, merged, VCR_BATCH, mode))]
+            on_dev = [(torch.from_numpy(b["images"]).to(dev),
+                       torch.from_numpy(b["lm_input"]).to(dev)) for b in host]
+            kernel = [emodel(i, t, mode=mode) for i, t in on_dev]
+            plain = [emodel(i, t, mode=mode, attn_backend="plain") for i, t in on_dev]
+            with wrapped(attn_mod, "_plain_attention", no_mask):
+                unmasked = [emodel(i, t, mode=mode, attn_backend="plain") for i, t in on_dev]
+            wall = []
+            for r in range(7):                       # 2 warm-up, 5 timed
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                emodel(*on_dev[0], mode=mode)
+                torch.cuda.synchronize()
+                if r >= 2:
+                    wall.append(time.perf_counter() - t1)
+        diff = max((a - p).abs().max().item() for a, p in zip(kernel, plain))
+        evals[mode] = {
+            "accuracy": acc, "examples": len(preds), "seconds": eval_s,
+            "launches": eval_launches,
+            "examples_per_s": len(preds) / eval_s,
+            "preloaded_examples_per_s": VCR_BATCH / statistics.median(wall),
+            "k1_ms_per_batch": spans_ms(spans) / VCR_EVAL_BATCHES,
+            "vs_plain_max_abs_diff": diff,
+            "no_joint_mask_max_abs_diff": max((u - p).abs().max().item()
+                                              for u, p in zip(unmasked, plain)),
+            "logits_max_abs": max(p.abs().max().item() for p in plain),
+            "log_probs_finite": all(math.isfinite(x) for p in preds for x in p["log_probs"])}
+        print(f"[vcr-eval] {mode}: {json.dumps(evals[mode])}", flush=True)
+    del emodel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the sidecar over A's checkpoints until its timeout
+    t0 = time.perf_counter()
+    seen = validate.watch_and_validate(config, poll_seconds=1.0, device=dev)
+    sidecar_s = time.perf_counter() - t0
+    logged = jsonl(d / "a" / "eval" / "eval_metrics.jsonl")
+    mode = config.downstream["mode"]
+
+    steps_in = lambda fam: prof["families"].get(fam, {"ms": 0.0})["ms"] / len(prof["steps"])
+    result = {
+        "card": card, "reduced": reduced, "data": data, "params": n_params,
+        "init_checkpoint_save_s": init_save_s,
+        "warm_start": {"initialized": initialized, "leaves": total, "skipped": skipped},
+        "run_a_seconds": a_seconds, "run_b_seconds": b_seconds,
+        "train_examples_per_s": VCR_BATCH * statistics.median(rate),
+        "steps_per_sec_3_to_8": rate,
+        "a_losses": {s: a_train[s]["loss"] for s in sorted(a_train)},
+        "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
+        "resume_loss_rel_gap": loss_gap,
+        "launches": launches, "launches_per_step": per_step, "peak_mem_gib": peak_gib,
+        "device_idle_share": prof["device_idle_share"], "profile": prof,
+        "profiles_held_all": [p["held_all"] for p in profiles],
+        "k1_ms_per_step": steps_in("K1 attention_fwd"),
+        "k2_ms_per_step": steps_in("K2 attention_bwd"),
+        "kernel_loss": kernel_loss, "plain_loss": plain_loss, "loss_rel_diff": loss_rel,
+        "no_joint_mask_loss_rel_diff": no_mask_loss_rel, "vcr_loss_grads_vs_plain": vcr_loss_grads,
+        "vcr_loss_mask_dropped_backward_vs_plain": vcr_loss_broken,
+        "grads_vs_plain": gap, "mask_dropped_backward_vs_plain": broken,
+        "eval": evals,
+        "sidecar": {"seconds": sidecar_s, "accuracy_by_step": seen,
+                    "logged_steps": [x["step"] for x in logged]}}
+    print(f"[vcr] {json.dumps({k: v for k, v in result.items() if k != 'profile'})}", flush=True)
+    print(f"[vcr] {card}: {result['train_examples_per_s']:.2f} train examples/s through the "
+          f"CLI (batch {VCR_BATCH}), eval {evals['answer']['examples_per_s']:.2f} examples/s "
+          f"through the loader and {evals['answer']['preloaded_examples_per_s']:.2f} on a "
+          f"preloaded batch; peak {peak_gib:.2f} GiB; B's device idle "
+          f"{prof['device_idle_share']:.3f}; K1 {result['k1_ms_per_step']:.2f} and K2 "
+          f"{result['k2_ms_per_step']:.2f} ms per step (profiler); tokens: "
+          f"{data['token_route']}; warm start {initialized}/{total} leaves, {skipped} skipped",
+          flush=True)
+    check(all(k1 == k2 == VCR_LAUNCHES_PER_STEP for _, k1, k2 in per_step),
+          f"VCR run B's K1/K2 launches per step {per_step}, want {VCR_LAUNCHES_PER_STEP} each")
+    check(loss_gap <= RESUME_LOSS_RTOL, f"VCR run B's losses vs A's: {loss_gap}")
+    check(initialized > 0, "the warm start initialized no leaf")
+    check(loss_rel <= VCR_LOSS_RTOL, f"VCR kernel vs plain loss: {loss_rel} > {VCR_LOSS_RTOL}")
+    check(gap["max_rel"] <= TRAIN_GRAD_TOL,
+          f"VCR kernel vs plain grads of sum(logits * r): {gap} > {TRAIN_GRAD_TOL}")
+    check(broken["max_rel"] > TRAIN_GRAD_TOL,
+          f"a VCR backward without the mask moves the grads by only {broken}: the "
+          "comparison cannot see it")
+    for m, e in evals.items():
+        check(e["launches"] == VCR_LAUNCHES_PER_STEP * VCR_EVAL_BATCHES,
+              f"VCR eval ({m}) launched K1 {e['launches']} times over {VCR_EVAL_BATCHES} batches")
+        check(e["examples"] == VCR_EVAL_BATCHES * VCR_BATCH and e["log_probs_finite"],
+              f"VCR eval ({m}) predictions: {e['examples']}, finite {e['log_probs_finite']}")
+        check(e["vs_plain_max_abs_diff"] <= VCR_LOGIT_TOL,
+              f"VCR eval ({m}) kernel vs plain logits: {e['vs_plain_max_abs_diff']}")
+        check(e["no_joint_mask_max_abs_diff"] > VCR_LOGIT_TOL,
+              f"VCR eval ({m}): dropping the joint mask moves the logits by only "
+              f"{e['no_joint_mask_max_abs_diff']}: the comparison cannot see it")
+    check(sorted(seen) == a_ckpt.all_steps() and [x["step"] for x in logged] == sorted(seen),
+          f"the sidecar evaluated {seen}, logged {logged}")
+    check(sidecar_s >= VCR_EVAL_TIMEOUT_S, f"the sidecar returned after {sidecar_s} s")
+    check(seen[VCR_STEPS] == evals[mode]["accuracy"],
+          f"the sidecar's step-{VCR_STEPS} accuracy {seen[VCR_STEPS]} is not "
+          f"evaluate_checkpoint's {evals[mode]['accuracy']}")
+    return result
+
+
+def per_path(prefix: str, rows: dict, shapes: tuple) -> dict:
+    """The plain version's, SDPA's and the bound's ms over a path's 12
+    launches at each of ``shapes`` (per-call times of the kernel phases)."""
+    return {f"{prefix}_{k}": 12 * sum(rows[n][k] for n in shapes)
+            for k in ("plain_ms", "library_ms", "bound_ms")}
+
+
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -2939,10 +3611,15 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "source": "merlot_tpu_torch/csrc/attention_fwd.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:273",
         "launches": sl["launches"] + tr["launches"]["attention_fwd"]
-        + cli["launches"]["attention_fwd"],
+        + cli["launches"]["attention_fwd"] + zs_cli["launches"]
+        + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values()),
         "launches_by_path": {"zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
-                             "pretrain_cli": cli["launches"]["attention_fwd"]},
+                             "pretrain_cli": cli["launches"]["attention_fwd"],
+                             "zero_shot_cli": zs_cli["launches"],
+                             "vcr_train": vcr["launches"]["attention_fwd"],
+                             **{f"vcr_eval_{m}": e["launches"]
+                                for m, e in vcr["eval"].items()}},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -2964,7 +3641,19 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "train_library_ms": 12 * (zs["pretrain_vit"]["library_ms"]
                                   + zs["pretrain_joint"]["library_ms"]),
         "train_bound_ms": 12 * sum(zs[n]["bound_ms"] for n in
-                                   ("pretrain_vit", "pretrain_joint", "pretrain_lang"))}
+                                   ("pretrain_vit", "pretrain_joint", "pretrain_lang")),
+        # per zero-shot CLI batch (the slice's shapes): CUDA events on the
+        # in-process run over the CLI's loader batches
+        "zero_shot_cli_ms_per_batch": zs_cli["k1_ms_per_batch"],
+        # per VCR train step (12 launches at each VCR shape): the profile of
+        # run B, and the per-call times at those shapes; per VCR eval batch
+        # (12 at each eval shape): CUDA events on the path (median of the
+        # modes) and the eval shapes' per-call times
+        "vcr_train_ms_per_step": vcr["k1_ms_per_step"],
+        **per_path("vcr_train", zs, ("vcr_vit", "vcr_joint")),
+        "vcr_eval_ms_per_batch": statistics.median(
+            e["k1_ms_per_batch"] for e in vcr["eval"].values()),
+        **per_path("vcr_eval", zs, ("vcr_eval_vit", "vcr_eval_joint"))}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
     train_shapes = ("pretrain_vit", "pretrain_joint", "pretrain_lang")
@@ -2972,9 +3661,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "name": "attention_bwd", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:504",
-        "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"],
+        "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
+        + vcr["launches"]["attention_bwd"],
         "launches_by_path": {"train": tr["launches"]["attention_bwd"],
-                             "pretrain_cli": cli["launches"]["attention_bwd"]},
+                             "pretrain_cli": cli["launches"]["attention_bwd"],
+                             "vcr_train": vcr["launches"]["attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -2983,7 +3674,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "first_design_ms": first["k2_train_step"],
         "shape_sum_ms": 12 * sum(tb[n]["ms"] for n in train_shapes),
         "library_note": "backward of scaled_dot_product_attention: fp32 softmax, "
-                        "no colsum cotangent; not the same rounding"}
+                        "no colsum cotangent; not the same rounding",
+        # per VCR train step (12 launches at each VCR shape, fp32 softmax):
+        # the profile of run B, and the per-call times at those shapes
+        "vcr_train_ms_per_step": vcr["k2_ms_per_step"],
+        **per_path("vcr_train", tb, ("vcr_vit", "vcr_joint"))}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
     # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
     # bound (live slots) all from the K3 phase's timing of that shape (the
@@ -3139,9 +3834,13 @@ def main() -> int:
         sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
     with tempfile.TemporaryDirectory() as tmp:  # shards and ~1.7 GB checkpoints
         cli = cli_phase(dev, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        zs_cli = zero_shot_cli_phase(dev, Path(tmp), sl["stories_per_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        vcr = vcr_phase(dev, Path(tmp))
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -3151,7 +3850,8 @@ def main() -> int:
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
-             "grover": gv, "server": sv, "cli": cli, "ablation": ab_rows,
+             "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
+             "vcr": vcr, "ablation": ab_rows,
              "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},

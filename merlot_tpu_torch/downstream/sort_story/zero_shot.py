@@ -8,7 +8,13 @@ Per batch:
   * run MerlotModel without masking, take the CLS state of each segment,
     and apply the ``lang_viz`` / ``viz_viz`` temporal heads;
   * softmax over classes 1..3 (same / earlier / later), mean over the
-    duplicates, and dump per-story probs to h5.
+    duplicates, and write per-story probs to an ``.npz``.
+
+The ``.npz`` holds one array per dataset of the JAX package's h5 groups,
+keyed ``"{story_id}/{dataset}"``: ``permutation_identity_encode`` (int64,
+0-d), ``sentences`` ([n, 32] int32), ``lang_viz_probs`` and
+``viz_viz_probs`` ([n, n, 3] fp32). numpy alone reads it
+(``score_permutations.score_file`` scores it, and JAX's ``.h5`` too).
 """
 
 from __future__ import annotations
@@ -113,31 +119,32 @@ def make_zero_shot_fn(batch_size: int, num_chunks: int,
 
 
 def run_zero_shot(model: MerlotModel, batches: Iterable[Dict[str, Any]],
-                  h5_path: str, batch_size: int, num_chunks: int = 5, *,
+                  out_path: str, batch_size: int, num_chunks: int = 5, *,
                   shuffled_idx: Optional[torch.Tensor] = None) -> int:
-    """Drive batches through the zero-shot fn on the model's device and dump
-    per-story h5 groups; returns the number of stories written.
-    story_batches yields only full batches; stories already written
-    (replica padding repeats the last one) are skipped."""
-    import h5py
-
+    """Drive batches through the zero-shot fn on the model's device and
+    write the per-story arrays to the ``.npz`` at ``out_path`` (the
+    module's docstring has its layout); returns the number of stories
+    written. story_batches yields only full batches; a story already
+    written (replica padding repeats the last one, and each permutation of
+    a story repeats its id) is skipped."""
     fn = make_zero_shot_fn(batch_size, num_chunks, shuffled_idx=shuffled_idx)
     device = next(model.parameters()).device
-    n = 0
-    with h5py.File(h5_path, "w") as h5:
-        for batch in batches:
-            out = fn(model, torch.as_tensor(np.asarray(batch["images"])).to(device),
-                     torch.as_tensor(np.asarray(batch["sentences"])).to(device))
-            out = {k: v.cpu().numpy() for k, v in out.items()}
-            for i in range(batch_size):
-                sid = str(int(batch["story_id"][i]))
-                if sid in h5:
-                    continue
-                grp = h5.create_group(sid)
-                grp.create_dataset("permutation_identity_encode",
-                                   data=int(batch["permutation_identity_encode"][i]))
-                grp.create_dataset("sentences", data=batch["sentences"][i])
-                for name in ("lang_viz", "viz_viz"):
-                    grp.create_dataset(f"{name}_probs", data=out[f"{name}_probs"][i])
-                n += 1
-    return n
+    arrays: Dict[str, np.ndarray] = {}
+    seen = set()
+    for batch in batches:
+        out = fn(model, torch.as_tensor(np.asarray(batch["images"])).to(device),
+                 torch.as_tensor(np.asarray(batch["sentences"])).to(device))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        for i in range(batch_size):
+            sid = str(int(batch["story_id"][i]))
+            if sid in seen:
+                continue
+            seen.add(sid)
+            arrays[f"{sid}/permutation_identity_encode"] = np.int64(
+                batch["permutation_identity_encode"][i])
+            arrays[f"{sid}/sentences"] = np.asarray(batch["sentences"][i])
+            for name in ("lang_viz", "viz_viz"):
+                arrays[f"{sid}/{name}_probs"] = out[f"{name}_probs"][i]
+    with open(out_path, "wb") as f:
+        np.savez(f, **arrays)
+    return len(seen)

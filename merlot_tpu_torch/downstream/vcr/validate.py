@@ -1,0 +1,132 @@
+"""VCR evaluation sidecar (counterpart of
+merlot_tpu/downstream/vcr/validate.py):
+
+    python -m merlot_tpu_torch.downstream.vcr.validate config.yaml [--device cpu]
+
+Polls ``device.output_dir/checkpoints`` for new checkpoints until
+``validate.eval_timeout`` seconds (default 72000) have passed; each new one
+is evaluated on ``data.val_file`` in ``downstream.mode`` ('answer' or
+'rationale'), at most ``validate.eval_samples`` examples, and its accuracy
+logged under ``output_dir/eval``. A checkpoint deleted or unreadable when
+its turn comes is skipped. One card (the JAX package spreads the batch
+over a data-parallel mesh; on one device the results are the same).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import zipfile
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from merlot_tpu_torch.convert import load_flax_params
+from merlot_tpu_torch.core.config import NeatConfig
+from merlot_tpu_torch.downstream.vcr.dataloader import vcr_eval_batches
+from merlot_tpu_torch.downstream.vcr.modeling import VCRModel
+from merlot_tpu_torch.models.config import MerlotConfig
+from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
+from merlot_tpu_torch.train.metrics import MetricsLogger
+from merlot_tpu_torch.train.train_step import _device
+
+# what reading a checkpoint that is deleted or half-written can raise
+UNREADABLE = (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile)
+
+
+def log_probs(logits: np.ndarray) -> np.ndarray:
+    """The log-softmax the predictions file holds, computed as the JAX
+    sidecar computes it."""
+    m = logits.max(-1, keepdims=True)
+    return logits - np.log(np.exp(logits - m).sum(-1, keepdims=True)) - m
+
+
+@torch.no_grad()
+def evaluate_checkpoint(model: VCRModel, files, config: Dict[str, Any], batch_size: int,
+                        mode: str, max_examples: Optional[int] = None,
+                        predictions_path: Optional[str] = None) -> float:
+    """The accuracy of ``model`` (its parameters as they are, on its
+    device) over the eval set; with ``predictions_path``, one JSON line per
+    example with its annot_id, prediction, label and log-probs (the
+    reference's PREDICT-mode export for leaderboard submissions)."""
+    device = next(model.parameters()).device
+    n_correct = n_total = 0
+    pred_f = open(predictions_path, "w") if predictions_path else None
+    try:
+        for batch in vcr_eval_batches(files, config, batch_size, mode=mode):
+            logits = model(torch.from_numpy(batch["images"]).to(device),
+                           torch.from_numpy(batch["lm_input"]).to(device),
+                           mode=mode).cpu().numpy()
+            pred = np.argmax(logits, -1)
+            if pred_f is not None:
+                logp = log_probs(logits)
+                for i in range(len(pred)):
+                    pred_f.write(json.dumps({
+                        "annot_id": batch["annot_id"][i].decode(),
+                        "prediction": int(pred[i]),
+                        "label": int(batch["lm_targets"][i]),
+                        "log_probs": [float(x) for x in logp[i]]}) + "\n")
+            n_correct += int((pred == batch["lm_targets"]).sum())
+            n_total += len(pred)
+            if max_examples and n_total >= max_examples:
+                break
+    finally:
+        if pred_f is not None:
+            pred_f.close()
+    return n_correct / max(n_total, 1)
+
+
+def watch_and_validate(config: NeatConfig, poll_seconds: float = 60.0,
+                       device="cuda") -> Dict[int, float]:
+    """Evaluate every checkpoint that appears until the timeout; returns
+    the accuracy of each step evaluated."""
+    model = VCRModel(MerlotConfig.from_dict(config.model).eval_mode(),
+                     device=_device(device)).eval()
+    mode = config.downstream.get("mode", "answer")
+    merged = config.merged_data_model()
+    merged.update(config.downstream)
+    files = config.data.get("val_file_expanded") or []
+    timeout = config.validate.get("eval_timeout", 72000)
+    max_examples = config.validate.get("eval_samples")
+    batch_size = config.device.get("val_batch_size", 8)
+
+    ckpt = CheckpointManager(os.path.join(config.device["output_dir"], "checkpoints"))
+    logger = MetricsLogger(os.path.join(config.device["output_dir"], "eval"), name="eval")
+    seen: Dict[int, float] = {}
+    skipped = set()
+    t0 = time.time()
+    try:
+        while time.time() - t0 < timeout:
+            new_steps = [s for s in ckpt.all_steps() if s not in seen and s not in skipped]
+            for step in new_steps:
+                try:
+                    params = load_params(ckpt.path(step))
+                except UNREADABLE as e:      # gone or half-written: skip it
+                    print(f"skipping step {step}: {e}")
+                    skipped.add(step)
+                    continue
+                load_flax_params(model, params)
+                seen[step] = evaluate_checkpoint(model, files, merged, batch_size, mode,
+                                                 max_examples)
+                logger.log(step, {f"{mode}_accuracy": seen[step]})
+            if not new_steps:
+                time.sleep(poll_seconds)
+    finally:
+        logger.close()
+    return seen
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[int, float]:
+    ap = argparse.ArgumentParser(description="VCR validation sidecar")
+    ap.add_argument("config_file", help="Path to the config.yaml")
+    ap.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
+    args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
+    return watch_and_validate(NeatConfig.from_yaml(args.config_file), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

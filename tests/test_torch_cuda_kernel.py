@@ -76,6 +76,12 @@ SHAPES = [  # b, sq, sk, h, d, masked, colsum
 CASES = [(dt, sm, *shape) for dt, sm in [
     (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
     for shape in SHAPES if dt == torch.float32 or shape[4] % 16 == 0]
+# VCR finetuning's shapes (configs/vcr_finetune.yaml): the ViT over 384x704
+# frames (24*44 patches + 2 tokens, a ragged last 34-key tile) and the joint
+# tower (12*22 pooled + 1 vision tokens, then 184 text tokens), bf16 with
+# the config's fp32 softmax
+VCR_SHAPES = [(16, 1058, 1058, 12, 64, False, False), (64, 449, 449, 12, 64, True, False)]
+CASES += [(torch.bfloat16, True, *shape) for shape in VCR_SHAPES]
 
 
 def _bf16_bound(ref):

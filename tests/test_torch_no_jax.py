@@ -1,7 +1,8 @@
 """merlot_tpu_torch imports neither jax nor flax, nor the libraries the
-card's machine may lack (pyyaml, PIL, orbax, h5py), nor merlot_tpu: every
-module is imported in a fresh interpreter, which then must hold none of
-them. Importing builds nothing: no native library appears."""
+card's machine may lack (pyyaml, PIL, orbax, h5py, sacremoses), nor
+merlot_tpu: every module is imported in a fresh interpreter, which then
+must hold none of them. Importing builds nothing: no native library
+appears."""
 
 import os
 import subprocess
@@ -18,9 +19,10 @@ names = [m.name for m in pkgutil.walk_packages(merlot_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in (
-    "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "merlot_tpu"))
+    "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "sacremoses",
+    "merlot_tpu"))
 assert not bad, bad
-assert len(names) >= 43, names
+assert len(names) >= 54, names
 assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server",
         "merlot_tpu_torch.core.tokenizer", "merlot_tpu_torch.ops.cuda_groupnorm",
         "merlot_tpu_torch.ops.cuda_ln_matmul", "merlot_tpu_torch.core.config",
@@ -28,7 +30,18 @@ assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server
         "merlot_tpu_torch.data.image_ops", "merlot_tpu_torch.data.pretrain_loader",
         "merlot_tpu_torch.data.make_synthetic_tfrecord", "merlot_tpu_torch.train.metrics",
         "merlot_tpu_torch.train.checkpoint", "merlot_tpu_torch.train.harness",
-        "merlot_tpu_torch.train.pretrain"} <= set(names), names
+        "merlot_tpu_torch.train.pretrain",
+        "merlot_tpu_torch.downstream.sort_story.data",
+        "merlot_tpu_torch.downstream.sort_story.dataloader",
+        "merlot_tpu_torch.downstream.sort_story.download",
+        "merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits",
+        "merlot_tpu_torch.downstream.sort_story.score_permutations",
+        "merlot_tpu_torch.downstream.sort_story.zero_shot",
+        "merlot_tpu_torch.downstream.vcr.data_prep",
+        "merlot_tpu_torch.downstream.vcr.dataloader",
+        "merlot_tpu_torch.downstream.vcr.modeling",
+        "merlot_tpu_torch.downstream.vcr.train",
+        "merlot_tpu_torch.downstream.vcr.validate"} <= set(names), names
 print(len(names))
 """
 

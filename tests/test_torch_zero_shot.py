@@ -4,7 +4,8 @@ JAX ``make_zero_shot_fn`` and the port's run the same weights (moved by
 ``convert.load_flax_params``) on the same numpy-made stories, with JAX's
 fixed frame permutation passed to the port. Compared: the per-row
 (pre-average) temporal logits and the duplicate-averaged probs; then
-``run_zero_shot`` writes h5 that the JAX package's scorer reads.
+``run_zero_shot`` writes an .npz that the port's scorer reads as JAX's
+scorer reads an .h5 of the same arrays.
 
 Tolerances: fp32 atol/rtol 1e-4 on logits (two 2-layer towers of sums in
 another order) and 1e-5 on probs (a softmax of those logits, values in
@@ -26,6 +27,7 @@ from merlot_tpu.downstream.sort_story.zero_shot import \
     make_zero_shot_fn as jax_make_zero_shot_fn
 from merlot_tpu.models.config import MerlotConfig as JaxConfig
 from merlot_tpu_torch.convert import load_flax_params
+from merlot_tpu_torch.downstream.sort_story.score_permutations import score_file
 from merlot_tpu_torch.downstream.sort_story.zero_shot import (
     default_shuffled_idx, duplicate_inputs, make_zero_shot_fn, run_zero_shot,
     zero_shot_logits)
@@ -164,23 +166,31 @@ def test_kernel_backend_matches_plain_on_cpu(slice_run):
         torch.testing.assert_close(a[k], b[k], atol=1e-5, rtol=1e-5)
 
 
-def test_run_zero_shot_writes_h5_the_jax_scorer_reads(slice_run, tmp_path):
+def test_run_zero_shot_writes_npz_the_scorer_reads(slice_run, tmp_path):
+    """run_zero_shot's .npz holds JAX's probs; the port's scorer on it equals
+    JAX's score_h5 on an .h5 of the same arrays."""
     r = slice_run
     batch = {"images": r["images"], "sentences": r["sents"],
              "story_id": np.array([7, 8]),
              "permutation_identity_encode": np.array([0, 3])}
-    path = str(tmp_path / "logits.h5")
+    path = str(tmp_path / "logits.npz")
     n = run_zero_shot(r["model"], [batch], path, BATCH, N,
                       shuffled_idx=torch.from_numpy(r["sidx"]))
     assert n == 2
-    with h5py.File(path, "r") as h5:
-        assert sorted(h5) == ["7", "8"]
-        np.testing.assert_allclose(h5["8/lang_viz_probs"][()],
-                                   np.asarray(r["want_probs"]["lang_viz_probs"][1]),
-                                   **_tol(r["name"], dict(atol=1e-5, rtol=1e-5)))
-        assert int(h5["8/permutation_identity_encode"][()]) == 3
-    metrics = score_h5(path)
+    with np.load(path) as z, h5py.File(tmp_path / "logits.h5", "w") as h5:
+        assert sorted({k.split("/")[0] for k in z.files}) == ["7", "8"]
+        for sid in ("7", "8"):
+            for name in ("lang_viz", "viz_viz"):
+                want = np.asarray(r["want_probs"][f"{name}_probs"][int(sid) - 7])
+                np.testing.assert_allclose(z[f"{sid}/{name}_probs"], want,
+                                           **_tol(r["name"], dict(atol=1e-5, rtol=1e-5)))
+        assert int(z["8/permutation_identity_encode"]) == 3
+        np.testing.assert_array_equal(z["8/sentences"], r["sents"][1])
+        for key in z.files:
+            h5.create_dataset(key, data=z[key])
+    metrics = score_file(path)
     assert set(metrics) == {"spearman", "absolute_distance", "pairwise"}
+    assert metrics == score_h5(str(tmp_path / "logits.h5"))
 
 
 def test_default_shuffled_idx_is_fixed_permutations():
