@@ -10,11 +10,14 @@
    zero-shot shapes (fp32 softmax), the three pretrain shapes (bf16
    softmax) and VCR's four (fp32 softmax: the ViT at 16 x 1058 and the
    joint tower at 64 x 449 in a train step, 8 x 1058 and 32 x 449 in an
-   eval batch), all in bf16, and times K1, the plain version and,
-   as a yardstick, torch's scaled_dot_product_attention, beside the least
-   time the card could take (bound);
+   eval batch), all in bf16, and Grover training's (8 x 1536, 16 heads,
+   fp32 inputs and softmax, a causal mask: the FMA route, whose fault probe
+   is the mask dropped), and times K1, the plain version and, as a
+   yardstick, torch's scaled_dot_product_attention, beside the least time
+   the card could take (bound);
 3. K2 phase: the same for K2 at the three pretrain shapes in bf16 softmax,
-   the pretrain joint shape in fp32 softmax and VCR's train-step two, with
+   the pretrain joint shape in fp32 softmax, VCR's train-step two and
+   Grover training's fp32 causal shape (the mask dropped as its probe), with
    padded rows in the masks and a nonzero colsum cotangent at the lang
    shape; each shape
    also shows that its check sees a fault (the other softmax mode; at the
@@ -141,6 +144,25 @@
    fail the bound), and the eval sidecar's poll until its timeout, having
    logged both checkpoints. Prints train and eval examples/s, peak memory,
    B's idle share and K1/K2 ms per step.
+12. Grover training phase: configs/grover_medium.json as it is (24 x 1024
+   x 16 heads, fp32) from a seeded synthetic LM shard (the port's
+   write_lm_shard; padded rows, is_target on each row's tail): run A
+   (`python -m merlot_tpu_torch.tools.grover_train` at its defaults of
+   batch 8 x 1536; GT_REDUCED lists the cuts: 8 steps, checkpoints at 4
+   and 8), run B (in process from A's ckpt_4, with the counters: 24 K1 and
+   24 K2 per step, a profile of two steps) whose losses at steps 5-8 must
+   equal A's; one step's loss and grads through the kernels against the
+   plain attention at full depth and batch 2, with the causal mask dropped
+   on the kernel side failing both bounds; A's ckpt_8 served by the port's
+   Denoiser (fused qkv, stacked cache: K3's prefill) against the trained
+   model's forward (K1). Prints tokens/s, peak memory, the step's share of
+   the fp32 peak, B's idle share and K1/K2 ms per step.
+13. corpus phase: 5 synthetic 1280x720 videos (cv2, black bars around a
+   16:9 box) with their .grover.json through `python -m
+   merlot_tpu_torch.data.process` into one shard, whose stored frames must
+   all be 512x288; then pretrain.main on it for 2 steps with a copy of the
+   CLI phase's reduced pretrain_4seg.yaml (36 K1 and 36 K2 per step,
+   finite losses). Prints the frame route, videos/s and chunks/s.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -198,6 +220,20 @@ ATTN_SHAPES = [
 # VCR's two
 BWD_SHAPES = (PRETRAIN_SHAPES + [("pretrain_joint_fp32sm", 32, 396, True, False, True)]
               + VCR_SHAPES)
+# Grover training's attention (tools/grover_train.py's defaults at
+# configs/grover_medium.json): batch 8 x seq 1536, 16 heads of 64, fp32
+# inputs and softmax, the causal mask [B, S, S]; K1's and K2's FMA routes.
+# (name, batch, seq, masked, colsum, softmax_fp32, heads, dtype)
+GROVER_TRAIN_SHAPES = [("grover_train", 8, 1536, "causal", False, True, 16, "fp32")]
+# fp32 inputs against the plain version: the same fp32 arithmetic, sums
+# perhaps in another order; the largest error over the largest |ctx|
+# (|grad|). On the H100 K1's ctx equalled the plain version's bit for bit
+# and K2's grads were within 1.9e-7 of the largest, so FP32_GRAD_RTOL is
+# 5.4x that. For fp32 inputs both softmax modes are fp32, so the fault
+# probe is the mask dropped: it moved ctx by 1.0 of the largest |ctx| and
+# the grads by 1e5 times the bound
+FP32_CTX_RTOL = 1e-6
+FP32_GRAD_RTOL = 1e-6
 # ctx (bf16) against the plain version. Both round the probs and ctx at the
 # same points and differ only in the order of fp32 sums, so an element
 # differs by at most an ulp of itself, and rarely (about 0.1% of elements
@@ -491,6 +527,57 @@ VCR_LOSS_RTOL = 4e-4
 # (1.7x the kernels', 1.8x below the smaller fault)
 VCR_LOGIT_TOL = 4e-3
 
+# the Grover training phase: configs/grover_medium.json as it is (24 layers
+# x 1024 x 16 heads, 355.9 M parameters, fp32: the JSON sets no
+# use_bfloat16) under tools/grover_train.py's defaults for the data (seq
+# 1536, batch 8: 12,288 tokens per step), the learning rate and the AdamW
+# block; GT_REDUCED lists the cuts (CLI default -> the run's), all in the
+# step counts. The data: GT_ROWS seeded synthetic rows in 2 shards from the
+# port's write_lm_shard, some padded, is_target on each row's tail (4
+# batches: the 8 steps read 2 epochs)
+GT_SEQ, GT_BATCH = 1536, 8
+GT_STEPS, GT_CKPT_EVERY = 8, 4
+GT_REDUCED = {"num_train_steps": (80000, GT_STEPS), "num_warmup_steps": (1000, 2),
+              "checkpoint_every": (5000, GT_CKPT_EVERY), "log_every": (50, 1)}
+GT_ROWS = 32
+GT_LAUNCHES_PER_STEP = 24
+# one step's loss and grads through the kernels against the plain attention
+# at full depth on GT_CHECK_BATCH rows of the first batch (the plain path
+# keeps every layer's fp32 probs: 1.2 GB a layer at batch 8, 0.3 at 2), and
+# the same with the causal mask dropped on the kernel side, which must fail
+# both bounds. On the H100 the loss was equal and the grads within 3.9e-6
+# (grad_gap; a key bias): GT_GRAD_TOL is 25x that. The mask dropped moved
+# the loss by 6.9e-4 relative (69x GT_LOSS_RTOL) and the grads by 2.44
+GT_CHECK_BATCH = 2
+GT_LOSS_RTOL = 1e-5
+GT_GRAD_TOL = 1e-4
+# the round trip: the Denoiser (fused qkv, the stacked cache, fp32) serving
+# A's last checkpoint, its prefill logits through K3 over GT_ROUNDTRIP rows
+# x tokens against the trained model's deterministic forward through K1.
+# On the H100 they were equal (both fp32 FMA routes sum in one order);
+# GT_ROUNDTRIP_TOL leaves room for another order, and ckpt_4's logits,
+# 0.63 away, must fail it
+GT_ROUNDTRIP = (2, 1024)
+GT_ROUNDTRIP_TOL = 1e-4
+
+# the corpus phase: CORPUS_VIDEOS synthetic 1280x720 videos written by cv2
+# (mp4v, CORPUS_FPS), each a 16:9 content box (CORPUS_CONTENT, smooth
+# noise) inside black bars on all four sides, CORPUS_SECONDS long with a
+# word every 1 / CORPUS_WORDS_PER_S s in its .grover.json; python -m
+# merlot_tpu_torch.data.process writes them into one shard (frames trimmed
+# to the content and stored at 512x288), and the pretraining CLI trains
+# CORPUS_STEPS steps on it with a copy of the CLI phase's reduced
+# pretrain_4seg.yaml (36 K1 and 36 K2 per step)
+CORPUS_VIDEOS = 5
+CORPUS_HW = (720, 1280)
+CORPUS_CONTENT = (576, 1024)
+CORPUS_FPS = 2.0
+CORPUS_SECONDS = 150
+CORPUS_WORDS_PER_S = 5
+CORPUS_FRAME_HW = (288, 512)
+CORPUS_MIN_EXAMPLES = 8
+CORPUS_STEPS = 2
+
 # configs/pretrain_5seg.yaml, model block (init_checkpoint left out: the
 # weights are random, drawn from a seed)
 PRETRAIN_5SEG_MODEL = {
@@ -567,25 +654,52 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
+def bound(flops: float, nbytes: float, peak: float) -> tuple:
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the peak of their type (bf16 on the tensor cores by
-    default) and the bytes over the device-memory rate."""
+    operations over ``peak``, the card's rate for their type
+    (PEAK_BF16_FLOPS on the tensor cores, PEAK_FP32_FLOPS outside them),
+    and the bytes over the device-memory rate."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def attn_work(b: int, s: int, masked: bool, colsum: bool, backward: bool) -> tuple:
-    """(flops, bytes) one attention call needs at [b, s, HEADS*D_HEAD] bf16:
-    each input read once, each output written once. Forward: S = QK^T and
-    ctx = PV. Backward: S again (P is not an input), dV, dP, dQ, dK."""
+def attn_work(b: int, s: int, masked: bool, colsum: bool, backward: bool,
+              heads: int = HEADS, d: int = D_HEAD, elem: int = 2,
+              pairs: int | None = None) -> tuple:
+    """(flops, bytes) one attention call needs at [b, s, heads*d] with
+    ``elem``-byte elements: each input read once, each output written once.
+    Forward: S = QK^T and ctx = PV. Backward: S again (P is not an input),
+    dV, dP, dQ, dK. ``pairs``: the (query, key) pairs the mask lets
+    through, summed over the batch, where the work depends on it (a causal
+    mask: the rest is known to be 0 and need not be computed); b*s*s by
+    default."""
     n_products = 5 if backward else 2
-    flops = 2 * n_products * b * HEADS * s * s * D_HEAD
-    act = b * s * HEADS * D_HEAD * 2                  # one [b, s, H*D] bf16 tensor
+    pairs = b * s * s if pairs is None else pairs
+    flops = 2 * n_products * heads * pairs * d
+    act = b * s * heads * d * elem                    # one [b, s, H*D] tensor
     nbytes = act * (7 if backward else 4)             # q,k,v,dO + 3 grads | q,k,v + ctx
     nbytes += 4 * b * s * s if masked else 0
     nbytes += 4 * b * s if colsum else 0              # colsum out | its cotangent in
     return flops, nbytes
+
+
+def spec_parts(spec) -> tuple:
+    """(name, b, s, masked, colsum, sm32, heads, dtype) of a K1/K2 shape;
+    the pretrain, zero-shot and VCR shapes are bf16 at 12 heads."""
+    name, b, s, masked, colsum, sm32, *rest = spec
+    heads, dtype = rest if rest else (HEADS, "bf16")
+    return name, b, s, masked, colsum, sm32, heads, dtype
+
+
+def attn_bound(spec, backward: bool, mask=None) -> tuple:
+    """bound() of one K1 (K2 with ``backward``) call at a shape: bf16 on the
+    tensor cores, fp32 on the FMA units; a causal mask counts only the
+    pairs it lets through."""
+    _, b, s, masked, colsum, _, heads, dtype = spec_parts(spec)
+    elem = 2 if dtype == "bf16" else 4
+    pairs = int(mask.count_nonzero().item()) if masked == "causal" else None
+    return bound(*attn_work(b, s, bool(masked), colsum, backward, heads, D_HEAD, elem, pairs),
+                 PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS)
 
 
 @contextlib.contextmanager
@@ -620,27 +734,31 @@ def spans_ms(spans: list) -> float:
     return sum(start.elapsed_time(end) for start, end in spans)
 
 
-def attn_inputs(dev, g, b, s, masked):
-    """q, k, v bf16 ~ N(0, 1) [b, s, H*D]; with ``masked``, a validity mask
-    with padding rows as the towers build it, and the validity."""
+def attn_inputs(dev, g, b, s, masked, heads: int = HEADS, dtype: str = "bf16"):
+    """q, k, v ~ N(0, 1) [b, s, heads*D] in ``dtype``; with ``masked``, a
+    validity mask with padding rows as the towers build it, and the
+    validity; with masked == "causal", Grover's causal mask [b, s, s]
+    (contiguous, as the model passes it) and no validity."""
     import torch
-    q, k, v = (torch.randn((b, s, HEADS * D_HEAD), generator=g, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (torch.randn((b, s, heads * D_HEAD), generator=g, device=dev)
+               .to(torch.bfloat16 if dtype == "bf16" else torch.float32) for _ in range(3))
     mask = valid = None
-    if masked:
+    if masked == "causal":
+        mask = torch.tril(torch.ones((s, s), device=dev)).expand(b, s, s).contiguous()
+    elif masked:
         valid = torch.rand((b, s), generator=g, device=dev) > 0.15
         valid[:, 0] = True
         mask = (valid[:, None] & valid[:, :, None]).float()
     return q, k, v, mask, valid
 
 
-def sdpa_args(q3, k3, v3, mask):
+def sdpa_args(q3, k3, v3, mask, heads: int = HEADS):
     """torch's scaled_dot_product_attention on the same inputs: [B, H, S, D]
     views, the mask as an additive -1e10 bias in the input dtype."""
     b, s, hd = q3.shape
-    heads = [t.view(b, s, HEADS, D_HEAD).transpose(1, 2) for t in (q3, k3, v3)]
+    views = [t.view(b, s, heads, hd // heads).transpose(1, 2) for t in (q3, k3, v3)]
     bias = None if mask is None else ((mask - 1.0) * 1e10).to(q3.dtype)[:, None]
-    return heads, bias
+    return views, bias
 
 
 def kernel_shape(dev, g, spec) -> dict:
@@ -649,35 +767,44 @@ def kernel_shape(dev, g, spec) -> dict:
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
-    name, b, s, masked, colsum, sm32 = spec
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked)
-    kw = dict(num_heads=HEADS, collect_colsum=colsum)
-    stats = ca.new_stats(q, HEADS)
+    name, b, s, masked, colsum, sm32, heads, dtype = spec_parts(spec)
+    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype)
+    kw = dict(num_heads=heads, collect_colsum=colsum)
+    # K1 saves the row max and sum for K2 in its bf16 kernels only
+    stats = ca.new_stats(q, heads) if dtype == "bf16" else None
     ctx, cs = ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, stats=stats, **kw)
     torch.cuda.synchronize()
     ref, ref_cs = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=sm32, **kw)
-    ref_stats = ca.softmax_stats_plain(q, k, mask, num_heads=HEADS, softmax_fp32=sm32)
-    other, _ = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=not sm32, **kw)
     diff = (ctx.float() - ref.float()).abs()
-    other_diff = (other.float() - ref.float()).abs()
     ref_max = ref.float().abs().max().item()
-    row = {"shape": name, "batch": b, "seq": s, "masked": masked,
-           "colsum": colsum, "softmax": "fp32" if sm32 else "bf16",
+    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "dtype": dtype,
+           "masked": masked, "colsum": colsum, "softmax": "fp32" if sm32 else "bf16",
            "max_abs_err": diff.max().item(),
-           "max_abs_err_bound": CTX_ULPS * bf16_ulp(ref_max),
+           "max_abs_err_bound": (CTX_ULPS * bf16_ulp(ref_max) if dtype == "bf16"
+                                 else FP32_CTX_RTOL * ref_max),
            "ref_max_abs": ref_max,
            "mean_abs_err": diff.mean().item(),
-           "differing_share": (diff > 0).float().mean().item(),
-           "other_softmax_max_abs_diff": other_diff.max().item(),
-           "other_softmax_mean_abs_diff": other_diff.mean().item(),
-           "other_softmax_differing_share": (other_diff > 0).float().mean().item(),
-           "stats_max_rel_err": ((stats[0] - ref_stats[0]).abs()
-                                 / ref_stats[0].abs().clamp_min(1.0)).max().item(),
-           "stats_sum_rel_err": ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()}
+           "differing_share": (diff > 0).float().mean().item()}
+    if dtype == "bf16":
+        # the fault probe: the softmax in the other dtype
+        ref_stats = ca.softmax_stats_plain(q, k, mask, num_heads=heads, softmax_fp32=sm32)
+        other, _ = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=not sm32, **kw)
+        other_diff = (other.float() - ref.float()).abs()
+        row.update({
+            "other_softmax_max_abs_diff": other_diff.max().item(),
+            "other_softmax_mean_abs_diff": other_diff.mean().item(),
+            "other_softmax_differing_share": (other_diff > 0).float().mean().item(),
+            "stats_max_rel_err": ((stats[0] - ref_stats[0]).abs()
+                                  / ref_stats[0].abs().clamp_min(1.0)).max().item(),
+            "stats_sum_rel_err": ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()})
+    else:
+        # fp32 inputs softmax in fp32 in both modes: the probe is the mask dropped
+        no_mask, _ = ca.flash_attention_plain(q, k, v, None, softmax_fp32=sm32, **kw)
+        row["no_mask_max_abs_diff"] = (no_mask - ref).abs().max().item()
     if colsum:
         row["colsum_max_rel_err"] = (
             (cs - ref_cs).abs() / ref_cs.abs().clamp_min(1e-6)).max().item()
-    if masked:
+    if valid is not None:
         # fully masked rows: uniform over the true key length
         bi, qi = torch.nonzero(~valid, as_tuple=True)
         want = v.float().mean(dim=1)[bi]
@@ -686,14 +813,14 @@ def kernel_shape(dev, g, spec) -> dict:
     kw["softmax_fp32"] = sm32
     row["ms"] = cuda_ms(lambda: ca.attention_fwd_cuda(q, k, v, mask, **kw))
     row["plain_ms"] = cuda_ms(lambda: ca.flash_attention_plain(q, k, v, mask, **kw))
-    row["bound_ms"], row["bound_by"] = bound(*attn_work(b, s, masked, colsum, False))
+    row["bound_ms"], row["bound_by"] = attn_bound(spec, False, mask)
     # the yardstick: one torch call of the same function, where there is one
     if colsum:
         row["library_ms"], row["library_note"] = None, "no single call (colsum)"
     else:
-        heads, bias = sdpa_args(q, k, v, mask)
+        views, bias = sdpa_args(q, k, v, mask, heads)
         row["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(*heads, attn_mask=bias))
+            lambda: F.scaled_dot_product_attention(*views, attn_mask=bias))
         row["library_note"] = ("same function" if sm32 else
                                "fp32 softmax (not the bf16-softmax rounding)")
     return row
@@ -703,30 +830,35 @@ def check_kernel_row(row: dict) -> None:
     name = row["shape"]
     check(row["max_abs_err"] <= row["max_abs_err_bound"],
           f"{name}: ctx max err {row['max_abs_err']} > {row['max_abs_err_bound']}")
-    check(row["mean_abs_err"] <= CTX_MEAN_TOL,
-          f"{name}: ctx mean err {row['mean_abs_err']} > {CTX_MEAN_TOL}")
-    check(row["other_softmax_mean_abs_diff"] > CTX_MEAN_TOL,
-          f"{name}: the other softmax mode passes the mean bound "
-          f"({row['other_softmax_mean_abs_diff']}), so the check cannot see it")
+    if row["dtype"] == "fp32":
+        check(row["no_mask_max_abs_diff"] > row["max_abs_err_bound"],
+              f"{name}: the mask dropped passes the bound ({row['no_mask_max_abs_diff']}), "
+              "so the check cannot see it")
+    else:
+        check(row["mean_abs_err"] <= CTX_MEAN_TOL,
+              f"{name}: ctx mean err {row['mean_abs_err']} > {CTX_MEAN_TOL}")
+        check(row["other_softmax_mean_abs_diff"] > CTX_MEAN_TOL,
+              f"{name}: the other softmax mode passes the mean bound "
+              f"({row['other_softmax_mean_abs_diff']}), so the check cannot see it")
+        tol = STATS_RTOL[row["softmax"]]
+        check(row["stats_max_rel_err"] <= tol[0] and row["stats_sum_rel_err"] <= tol[1],
+              f"{name}: saved stats off: max {row['stats_max_rel_err']}, "
+              f"sum {row['stats_sum_rel_err']} (bounds {tol})")
     if row["colsum"]:
         check(row["colsum_max_rel_err"] <= COLSUM_RTOL,
               f"{name}: colsum rel err {row['colsum_max_rel_err']}")
-    if row["masked"]:
+    if "masked_row_uniform_err" in row:
         check(row["masked_row_uniform_err"] <= row["masked_row_uniform_bound"],
               f"{name}: fully masked rows not uniform ({row['masked_row_uniform_err']})")
-    tol = STATS_RTOL[row["softmax"]]
-    check(row["stats_max_rel_err"] <= tol[0] and row["stats_sum_rel_err"] <= tol[1],
-          f"{name}: saved stats off: max {row['stats_max_rel_err']}, "
-          f"sum {row['stats_sum_rel_err']} (bounds {tol})")
 
 
 def kernel_phase(dev) -> list[dict]:
-    """K1 against its plain version at the five shapes."""
+    """K1 against its plain version at every shape of its paths."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for spec in ATTN_SHAPES:
+    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES:
         row = kernel_shape(dev, g, spec)
         print(f"[kernel] {json.dumps(row)}", flush=True)
         check_kernel_row(row)
@@ -734,14 +866,17 @@ def kernel_phase(dev) -> list[dict]:
     return rows
 
 
-def grad_errors(got, ref) -> dict:
+def grad_errors(got, ref, dtype: str = "bf16") -> dict:
     """Largest and mean |difference| of each of dQ, dK, dV, and the bound
-    on the largest."""
+    on the largest (bf16: GRAD_ULPS ulps of the largest |grad|; fp32:
+    FP32_GRAD_RTOL of it)."""
     out = {}
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         diff = (a.float() - r.float()).abs()
+        r_max = r.float().abs().max().item()
         out[name] = {"max_abs_err": diff.max().item(),
-                     "max_abs_err_bound": GRAD_ULPS * bf16_ulp(r.float().abs().max().item()),
+                     "max_abs_err_bound": (GRAD_ULPS * bf16_ulp(r_max) if dtype == "bf16"
+                                           else FP32_GRAD_RTOL * r_max),
                      "mean_abs_err": diff.mean().item()}
     return out
 
@@ -752,86 +887,101 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
-    name, b, s, masked, colsum, sm32 = spec
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked)
-    do = (0.1 * torch.randn((b, s, HEADS * D_HEAD), generator=g, device=dev)
-          ).to(torch.bfloat16)
+    name, b, s, masked, colsum, sm32, heads, dtype = spec_parts(spec)
+    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype)
+    do = (0.1 * torch.randn((b, s, heads * D_HEAD), generator=g, device=dev)).to(q.dtype)
     gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
-    kw = dict(num_heads=HEADS, softmax_fp32=sm32)
+    kw = dict(num_heads=heads, softmax_fp32=sm32)
     got = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
     again = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
-    # the path's call: K1's saved row max and sum instead of K2's own pass
-    stats = ca.new_stats(q, HEADS)
-    ca.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=False, **kw)
-    saved = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
+    stats = None
+    if dtype == "bf16":
+        # the path's call: K1's saved row max and sum instead of K2's own pass
+        stats = ca.new_stats(q, heads)
+        ca.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=False, **kw)
+        saved = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
     torch.cuda.synchronize()
     ref = ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw)
-    other = ca.attention_bwd_plain(q, k, v, mask, do, gcol, num_heads=HEADS,
-                                   softmax_fp32=not sm32)
-    row = {"shape": name, "batch": b, "seq": s, "masked": masked,
-           "colsum_cotangent": colsum, "softmax": "fp32" if sm32 else "bf16",
-           "grads": grad_errors(got, ref),
-           "bitwise_repeatable": all(torch.equal(a, b_) for a, b_ in zip(got, again)),
-           "saved_stats_equal": all(torch.equal(a, b_) for a, b_ in zip(got, saved)),
-           "other_softmax_mean_abs_diff": min(
-               e["mean_abs_err"] for e in grad_errors(other, ref).values())}
+    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "dtype": dtype,
+           "masked": masked, "colsum_cotangent": colsum, "softmax": "fp32" if sm32 else "bf16",
+           "grads": grad_errors(got, ref, dtype),
+           "bitwise_repeatable": all(torch.equal(a, b_) for a, b_ in zip(got, again))}
+    if dtype == "bf16":
+        other = ca.attention_bwd_plain(q, k, v, mask, do, gcol, num_heads=heads,
+                                       softmax_fp32=not sm32)
+        row["saved_stats_equal"] = all(torch.equal(a, b_) for a, b_ in zip(got, saved))
+        row["other_softmax_mean_abs_diff"] = min(
+            e["mean_abs_err"] for e in grad_errors(other, ref).values())
+    else:
+        # fp32: no saved stats, one softmax; the probe is the mask dropped
+        nom = ca.attention_bwd_plain(q, k, v, None, do, gcol, **kw)
+        row["no_mask_rel_diff"] = min(e["max_abs_err"] / e["max_abs_err_bound"]
+                                      for e in grad_errors(nom, ref, dtype).values())
     if colsum:
         nog = ca.attention_bwd_plain(q, k, v, mask, do, None, **kw)
         row["no_colsum_cotangent_mean_abs_diff"] = grad_errors(nog, ref)["dq"]["mean_abs_err"]
-    if masked:
+    if valid is not None:
         bi, qi = torch.nonzero(~valid, as_tuple=True)
         row["dq_masked_rows_max_abs"] = got[0][bi, qi].float().abs().max().item()
     row["max_abs_err"] = max(e["max_abs_err"] for e in row["grads"].values())
     row["ms"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
                                                       stats=stats, **kw))
-    row["ms_without_stats"] = cuda_ms(
-        lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw))
+    row["ms_without_stats"] = (cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
+                                                                     **kw))
+                               if stats is not None else row["ms"])
     row["plain_ms"] = cuda_ms(lambda: ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw))
-    row["bound_ms"], row["bound_by"] = bound(*attn_work(b, s, masked, colsum, True))
+    row["bound_ms"], row["bound_by"] = attn_bound(spec, True, mask)
     # the yardstick: the backward of torch's attention (fp32 softmax, and no
     # colsum, so not the same rounding)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    heads, bias = sdpa_args(*leaves, mask)
-    out = F.scaled_dot_product_attention(*heads, attn_mask=bias)
-    do4 = do.view(b, s, HEADS, D_HEAD).transpose(1, 2)
+    views, bias = sdpa_args(*leaves, mask, heads)
+    out = F.scaled_dot_product_attention(*views, attn_mask=bias)
+    do4 = do.view(b, s, heads, D_HEAD).transpose(1, 2)
     row["library_ms"] = cuda_ms(
         lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
     row["library_note"] = ("backward of scaled_dot_product_attention: fp32 "
                            "softmax" + (", no colsum cotangent" if colsum else "")
-                           + "; not the same rounding")
+                           + ("; the same function" if dtype == "fp32"
+                              else "; not the same rounding"))
     return row
 
 
 def check_bwd_row(row: dict) -> None:
     name = row["shape"]
     check(row["bitwise_repeatable"], f"{name}: two K2 runs differ")
-    check(row["saved_stats_equal"],
-          f"{name}: K2 fed K1's saved stats differs from K2 computing them")
     for g, e in row["grads"].items():
         check(e["max_abs_err"] <= e["max_abs_err_bound"],
               f"{name}: {g} max err {e['max_abs_err']} > {e['max_abs_err_bound']}")
-        check(e["mean_abs_err"] <= GRAD_MEAN_TOL,
-              f"{name}: {g} mean err {e['mean_abs_err']} > {GRAD_MEAN_TOL}")
-    check(row["other_softmax_mean_abs_diff"] > GRAD_MEAN_TOL,
-          f"{name}: the other softmax mode passes the mean bound "
-          f"({row['other_softmax_mean_abs_diff']}), so the check cannot see it")
+    if row["dtype"] == "fp32":
+        check(row["no_mask_rel_diff"] > 1.0,
+              f"{name}: a backward without the mask passes the bounds "
+              f"({row['no_mask_rel_diff']} of them), so the check cannot see it")
+    else:
+        check(row["saved_stats_equal"],
+              f"{name}: K2 fed K1's saved stats differs from K2 computing them")
+        for g, e in row["grads"].items():
+            check(e["mean_abs_err"] <= GRAD_MEAN_TOL,
+                  f"{name}: {g} mean err {e['mean_abs_err']} > {GRAD_MEAN_TOL}")
+        check(row["other_softmax_mean_abs_diff"] > GRAD_MEAN_TOL,
+              f"{name}: the other softmax mode passes the mean bound "
+              f"({row['other_softmax_mean_abs_diff']}), so the check cannot see it")
     if row["colsum_cotangent"]:
         check(row["no_colsum_cotangent_mean_abs_diff"] > GRAD_MEAN_TOL,
               f"{name}: dropping the colsum cotangent passes the mean bound "
               f"({row['no_colsum_cotangent_mean_abs_diff']})")
-    if row["masked"]:
+    if "dq_masked_rows_max_abs" in row:
         check(row["dq_masked_rows_max_abs"] == 0.0,
               f"{name}: dQ on fully masked rows is not 0 "
               f"({row['dq_masked_rows_max_abs']})")
 
 
 def bwd_kernel_phase(dev) -> list[dict]:
-    """K2 against its plain version at the four shapes."""
+    """K2 against its plain version at every shape of its paths."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for spec in BWD_SHAPES:
+    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES:
         row = bwd_kernel_shape(dev, g, spec)
         print(f"[kernel2] {json.dumps(row)}", flush=True)
         check_bwd_row(row)
@@ -856,7 +1006,8 @@ def ablation_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(5)
     rows = []
-    for name, b, s, masked, colsum, sm32 in PRETRAIN_SHAPES:
+    for spec in PRETRAIN_SHAPES:
+        name, b, s, masked, colsum, sm32 = spec
         q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
         kw = dict(num_heads=HEADS, collect_colsum=colsum)
         heads, bias = sdpa_args(q, k, v, mask)
@@ -875,7 +1026,7 @@ def ablation_phase(dev) -> list[dict]:
         row = {"shape": name, "batch": b, "seq": s,
                **{f"{v}_ms": statistics.mean(t) for v, t in times.items()},
                "library_note": "SDPA, fp32 softmax" + (", no colsum" if colsum else "")}
-        row["bound_ms"], row["bound_by"] = bound(*attn_work(b, s, masked, colsum, False))
+        row["bound_ms"], row["bound_by"] = attn_bound(spec, False)
         print(f"[ablation] {json.dumps(row)}", flush=True)
         rows.append(row)
     return rows
@@ -1288,7 +1439,7 @@ def ln_shape(dev, g, spec) -> dict:
     row["library_ms"] = cuda_ms(lambda: F.linear(F.layer_norm(x, (k,), gb, bb, LN_EPS),
                                                  w, bias))
     nbytes = 2 * (m * k + j * n * k + j * n + j * m * n) + 8 * k
-    row["bound_ms"], row["bound_by"] = bound(2 * m * k * j * n, nbytes)
+    row["bound_ms"], row["bound_by"] = bound(2 * m * k * j * n, nbytes, PEAK_BF16_FLOPS)
     return row
 
 
@@ -1582,7 +1733,8 @@ def loss_and_grads(model, batch, draws) -> tuple:
 def grad_gap(grads: dict, ref: dict) -> dict:
     """Each tensor's largest gradient difference over its largest |grad|,
     floored at 1e-3 of the largest |grad| of all; the worst tensor, and the
-    worst of the LiteResNet's tensors and of all the others."""
+    worst of the LiteResNet's tensors and of all the others (where the model
+    has a LiteResNet)."""
     floor = 1e-3 * max(r.abs().max().item() for r in ref.values())
     per = {n: (grads[n] - r).abs().max().item() / max(r.abs().max().item(), floor)
            for n, r in ref.items()}
@@ -1591,8 +1743,9 @@ def grad_gap(grads: dict, ref: dict) -> dict:
            "median_rel": statistics.median(per.values())}
     for part, names in (("resnet", [n for n in per if ".resnet." in n]),
                         ("rest", [n for n in per if ".resnet." not in n])):
-        w = max(names, key=per.get)
-        out[f"max_rel_{part}"], out[f"worst_tensor_{part}"] = per[w], w
+        if names:
+            w = max(names, key=per.get)
+            out[f"max_rel_{part}"], out[f"worst_tensor_{part}"] = per[w], w
     return out
 
 
@@ -2776,14 +2929,16 @@ def feed_rates(dev, config, files, out: Path) -> list:
     return runs
 
 
-def run_module(module: str, yaml_path: Path, cwd: Path, log: Path) -> tuple:
-    """``python -m module yaml_path`` in a subprocess from ``cwd`` with this
-    checkout on its path: (exit code, seconds, its output)."""
+def run_module(module: str, args, cwd: Path, log: Path) -> tuple:
+    """``python -m module args`` (a path, or a list of arguments) in a
+    subprocess from ``cwd`` with this checkout on its path: (exit code,
+    seconds, its output)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    argv = [str(a) for a in (args if isinstance(args, (list, tuple)) else [args])]
     t0 = time.perf_counter()
     with open(log, "w") as f:
-        proc = subprocess.run([sys.executable, "-m", module, str(yaml_path)], cwd=cwd, env=env,
+        proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=cwd, env=env,
                               stdout=f, stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT_S)
     seconds = time.perf_counter() - t0
     text = log.read_text()
@@ -3586,15 +3741,363 @@ def vcr_phase(dev, tmp: Path) -> dict:
     return result
 
 
-def per_path(prefix: str, rows: dict, shapes: tuple) -> dict:
-    """The plain version's, SDPA's and the bound's ms over a path's 12
-    launches at each of ``shapes`` (per-call times of the kernel phases)."""
-    return {f"{prefix}_{k}": 12 * sum(rows[n][k] for n in shapes)
+# ---------------------------------------------------------------------------
+# Grover denoiser training and the corpus pipeline
+
+
+def grover_lm_rows(seed: int) -> tuple:
+    """GT_ROWS rows of token ids for the LM shard, a quarter of them
+    shorter than seq + 1 (write_lm_shard pads them), and is_target on each
+    row's last third."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows, targets = [], []
+    for i in range(GT_ROWS):
+        n = GT_SEQ + 1 if i % 4 else int(rng.integers(GT_SEQ // 3, GT_SEQ))
+        rows.append(rng.integers(1, 50257, n).tolist())
+        targets.append([0] * (n - n // 3) + [1] * (n // 3))
+    return rows, targets
+
+
+def grover_step_flops(cfg) -> tuple:
+    """(matmul parameters, FLOPs of one train step at GT_BATCH x GT_SEQ):
+    6 per matmul parameter per token (forward and backward), plus the
+    attention's products over the whole S x S square per layer, as the
+    kernels compute them (K1's two, K2's five)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    params = cfg.num_hidden_layers * (4 * h * h + 2 * h * i) + cfg.vocab_size * h
+    attn = sum(attn_work(GT_BATCH, GT_SEQ, True, False, bw, cfg.num_attention_heads,
+                         cfg.d_head, 4)[0] for bw in (False, True))
+    return params, 6 * params * GT_BATCH * GT_SEQ + cfg.num_hidden_layers * attn
+
+
+def grover_train_phase(dev, tmp: Path) -> dict:
+    """Grover denoiser training at grover-medium's full width and depth in
+    fp32 through its entry point: run A (`python -m
+    merlot_tpu_torch.tools.grover_train` in a subprocess: 8 steps,
+    checkpoints at 4 and 8), run B (grover_train.main in this process from
+    A's ckpt_4, with the kernels' counters and a profile of two steps)
+    against A, one step's loss and grads through the kernels against the
+    plain attention (and with the causal mask dropped on the kernel side),
+    and A's ckpt_8 served by the port's Denoiser against the trained
+    model's forward."""
+    import gc
+    import shutil
+    import torch
+    from merlot_tpu_torch.convert import load_flax_params
+    from merlot_tpu_torch.models.grover import GroverConfig, GroverLM, grover_lm_loss
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.tools import grover_train
+    from merlot_tpu_torch.tools.denoise_server import Denoiser
+    from merlot_tpu_torch.tools.grover_data import lm_batches, write_lm_shard
+    from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
+
+    card = card_line()
+    cfg_path = ROOT / "configs" / "grover_medium.json"
+    cfg = GroverConfig.from_json_file(str(cfg_path))
+    check(not cfg.use_bfloat16 and (cfg.num_hidden_layers, cfg.hidden_size,
+                                    cfg.num_attention_heads) == (24, 1024, 16),
+          f"configs/grover_medium.json is not grover-medium in fp32: {cfg}")
+    d = tmp / "grover_train"
+    (d / "shards").mkdir(parents=True)
+    rows, targets = grover_lm_rows(12)
+    for i in range(2):
+        write_lm_shard(str(d / "shards" / f"lm-{i:02d}.tfrecord"), rows[i::2], GT_SEQ,
+                       is_target=targets[i::2])
+    files = sorted(str(p) for p in (d / "shards").glob("lm-*.tfrecord"))
+
+    def argv(out: Path) -> list:
+        return ["--config", cfg_path, "--train_files", f"{d}/shards/lm-*.tfrecord",
+                "--output_dir", out, "--seq_length", GT_SEQ, "--batch_size", GT_BATCH,
+                "--num_train_steps", GT_STEPS,
+                "--num_warmup_steps", GT_REDUCED["num_warmup_steps"][1],
+                "--checkpoint_every", GT_CKPT_EVERY, "--log_every", 1]
+
+    rc, a_seconds, _ = run_module("merlot_tpu_torch.tools.grover_train", argv(d / "a"), ROOT,
+                                  d / "a.log")
+    check(rc == 0, f"Grover run A exited {rc}")
+    a_train = {x["step"]: x for x in jsonl(d / "a" / "train_metrics.jsonl")}
+    check(sorted(a_train) == list(range(1, GT_STEPS + 1)),
+          f"Grover run A logged steps {sorted(a_train)}, want 1..{GT_STEPS}")
+    for x in a_train.values():
+        bad = {k: v for k, v in x.items() if not math.isfinite(v)}
+        check(not bad, f"Grover run A step {x['step']}: non-finite metrics {bad}")
+    a_ckpt = CheckpointManager(str(d / "a" / "checkpoints"))
+    check(a_ckpt.all_steps() == list(range(GT_CKPT_EVERY, GT_STEPS + 1, GT_CKPT_EVERY)),
+          f"Grover run A's checkpoints at {a_ckpt.all_steps()}")
+    rate = [a_train[s]["perf/steps_per_sec"] for s in range(3, GT_STEPS + 1)]
+
+    # run B: A's ckpt_4 in a fresh output directory, in this process
+    (d / "b" / "checkpoints").mkdir(parents=True)
+    shutil.copytree(a_ckpt.path(GT_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{GT_CKPT_EVERY}")
+    per_step, windows = [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts set to 0 just before, read just after
+    reset_counts()
+    with wrapped(grover_train, "make_loss_train_step", counting_steps(per_step, windows)):
+        t0 = time.perf_counter()
+        b = grover_train.main([str(a) for a in argv(d / "b")])
+        b_seconds = time.perf_counter() - t0
+    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    profiles, prof = window_profiles(per_step, windows, "grover-train-profile")
+    b_train = {x["step"]: x for x in jsonl(d / "b" / "train_metrics.jsonl")}
+    check(sorted(b_train) == list(range(GT_CKPT_EVERY + 1, GT_STEPS + 1)),
+          f"Grover run B logged steps {sorted(b_train)}: it did not resume at {GT_CKPT_EVERY}")
+    check([n for n, *_ in per_step] == list(range(GT_CKPT_EVERY + 1, GT_STEPS + 1)),
+          f"Grover run B stepped {[n for n, *_ in per_step]}")
+    loss_gap = max(abs(b_train[s]["loss"] - a_train[s]["loss"]) / abs(a_train[s]["loss"])
+                   for s in b_train)
+
+    # one step's loss and grads at B's weights on the first batch's first
+    # rows, dropout off: the kernels, the plain attention, and the kernels
+    # with the causal mask dropped
+    model = b["trainer"].model
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = next(lm_batches(files, GT_SEQ, GT_BATCH))
+    ids = torch.from_numpy(first["input_ids"][:GT_CHECK_BATCH]).to(dev)
+    is_t = torch.from_numpy(first["is_target"][:GT_CHECK_BATCH]).to(dev)
+
+    def loss_and_grads(backend: str) -> tuple:
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        logits, _ = model(ids[:, :-1], attn_backend=backend)
+        loss, _ = grover_lm_loss(logits, ids[:, :-1], is_t[:, 1:],
+                                 pad_token_id=cfg.pad_token_id)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in params.items()}
+
+    kernel_loss, kernel_grads = loss_and_grads("cuda")
+    plain_loss, plain_grads = loss_and_grads("plain")
+    gap = grad_gap(kernel_grads, plain_grads)
+    del kernel_grads
+    drop = lambda f: lambda q3, k3, v3, mask, *a, **kw: f(q3, k3, v3, None, *a, **kw)
+    with wrapped(ca, "attention_fwd_cuda", drop), wrapped(ca, "attention_bwd_cuda", drop):
+        broken_loss, broken_grads = loss_and_grads("cuda")
+    broken = grad_gap(broken_grads, plain_grads)
+    loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    broken_loss_rel = abs(broken_loss - plain_loss) / abs(plain_loss)
+    n_params = sum(p.numel() for p in model.parameters())
+    for p in model.parameters():
+        p.grad = None
+    del model, plain_grads, broken_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the round trip: A's last checkpoint served by the Denoiser
+    trained = GroverLM(cfg, device=dev).eval()
+    load_flax_params(trained, load_params(a_ckpt.path(GT_STEPS)))
+    den = Denoiser(str(cfg_path), os.path.join(a_ckpt.path(GT_STEPS), "params.npz"),
+                   batch_window_ms=0, device=dev)
+    rt_rows, rt_len = GT_ROUNDTRIP
+    ctx = torch.from_numpy(first["input_ids"][:rt_rows, :rt_len]).long().to(dev)
+    with torch.no_grad():
+        reset_counts()
+        served, _ = den.model(ctx, cache=den.model.empty_cache(rt_rows, rt_len))
+        torch.cuda.synchronize()
+        rt_launches = {"attention_stacked": ca.stacked_launches}
+        reset_counts()
+        want, _ = trained(ctx)
+        torch.cuda.synchronize()
+        rt_launches["attention_fwd"] = ca.launches
+        load_flax_params(trained, load_params(a_ckpt.path(GT_CKPT_EVERY)))
+        earlier, _ = trained(ctx)
+    roundtrip_gap = (served - want).abs().max().item()
+    earlier_gap = (served - earlier).abs().max().item()
+    del trained, den, served, want, earlier
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mm_params, step_flops = grover_step_flops(cfg)
+    step_s = 1 / statistics.median(rate)
+    bound_s = step_flops / PEAK_FP32_FLOPS
+    steps_in = lambda fam: prof["families"].get(fam, {"ms": 0.0})["ms"] / len(prof["steps"])
+    result = {
+        "card": card, "config": "configs/grover_medium.json", "params": n_params,
+        "matmul_params": mm_params,
+        "reduced": [{"key": k, "default": a, "run": r} for k, (a, r) in GT_REDUCED.items()]
+        + [{"key": "plain-attention check batch", "default": GT_BATCH, "run": GT_CHECK_BATCH}],
+        "data": {"rows": GT_ROWS, "shards": len(files), "padded_rows": GT_ROWS // 4},
+        "run_a_seconds": a_seconds, "run_b_seconds": b_seconds,
+        "tokens_per_step": GT_BATCH * GT_SEQ,
+        "tokens_per_s": GT_BATCH * GT_SEQ * statistics.median(rate),
+        "steps_per_sec_3_to_8": rate, "step_flops": step_flops,
+        "step_bound_s": bound_s, "fp32_peak_share": bound_s / step_s,
+        "a_losses": {s: a_train[s]["loss"] for s in sorted(a_train)},
+        "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
+        "a_trg_loss": {s: a_train[s]["trg_loss"] for s in sorted(a_train)},
+        "resume_loss_rel_gap": loss_gap, "launches": launches, "launches_per_step": per_step,
+        "peak_mem_gib": peak_gib, "device_idle_share": prof["device_idle_share"],
+        "profile": prof, "profiles_held_all": [p["held_all"] for p in profiles],
+        "k1_ms_per_step": steps_in("K1 attention_fwd"),
+        "k2_ms_per_step": steps_in("K2 attention_bwd"),
+        "kernel_loss": kernel_loss, "plain_loss": plain_loss, "loss_rel_diff": loss_rel,
+        "grads_vs_plain": gap, "mask_dropped_loss_rel_diff": broken_loss_rel,
+        "mask_dropped_grads_vs_plain": broken,
+        "roundtrip": {"rows": rt_rows, "tokens": rt_len, "max_abs_diff": roundtrip_gap,
+                      "vs_ckpt_4_max_abs_diff": earlier_gap, "launches": rt_launches}}
+    print(f"[grover-train] {json.dumps({k: v for k, v in result.items() if k != 'profile'})}",
+          flush=True)
+    print(f"[grover-train] {card}: {result['tokens_per_s']:.1f} tokens/s through the CLI "
+          f"(batch {GT_BATCH} x {GT_SEQ}, fp32); peak {peak_gib:.2f} GiB; a step "
+          f"{step_s:.3f} s against the fp32 peak's {bound_s:.3f} s "
+          f"({result['fp32_peak_share']:.3f}); B's device idle "
+          f"{prof['device_idle_share']:.3f}; K1 {result['k1_ms_per_step']:.2f} and K2 "
+          f"{result['k2_ms_per_step']:.2f} ms per step (profiler)", flush=True)
+    check(all(k1 == k2 == GT_LAUNCHES_PER_STEP for _, k1, k2 in per_step),
+          f"Grover run B's K1/K2 launches per step {per_step}, want {GT_LAUNCHES_PER_STEP} each")
+    check(loss_gap <= RESUME_LOSS_RTOL, f"Grover run B's losses vs A's: {loss_gap}")
+    check(loss_rel <= GT_LOSS_RTOL, f"Grover kernel vs plain loss: {loss_rel} > {GT_LOSS_RTOL}")
+    check(gap["max_rel"] <= GT_GRAD_TOL,
+          f"Grover kernel vs plain grads: {gap} > {GT_GRAD_TOL}")
+    check(broken_loss_rel > GT_LOSS_RTOL and broken["max_rel"] > GT_GRAD_TOL,
+          f"the kernels without the causal mask pass a bound (loss {broken_loss_rel}, grads "
+          f"{broken['max_rel']}): the comparison cannot see it")
+    check(rt_launches == {"attention_stacked": GT_LAUNCHES_PER_STEP,
+                          "attention_fwd": GT_LAUNCHES_PER_STEP},
+          f"the round trip's launches {rt_launches}")
+    check(roundtrip_gap <= GT_ROUNDTRIP_TOL,
+          f"the Denoiser's logits vs the trained model's: {roundtrip_gap} > {GT_ROUNDTRIP_TOL}")
+    check(earlier_gap > GT_ROUNDTRIP_TOL,
+          f"ckpt_{GT_CKPT_EVERY}'s logits are within the round trip's bound of ckpt_{GT_STEPS}'s "
+          f"({earlier_gap}): the comparison cannot tell the checkpoints apart")
+    return result
+
+
+def write_corpus_videos(d: Path) -> dict:
+    """CORPUS_VIDEOS mp4s of CORPUS_HW with a CORPUS_CONTENT box of smooth
+    noise centred in black bars (8 content frames cycled), and each one's
+    .grover.json: a word every 1 / CORPUS_WORDS_PER_S s, the denoised text
+    the same words capitalized with a full stop every 12."""
+    import cv2
+    import numpy as np
+    from merlot_tpu_torch.data.make_synthetic_tfrecord import smooth_frame
+
+    h, w = CORPUS_HW
+    ch, cw = CORPUS_CONTENT
+    y0, x0 = (h - ch) // 2, (w - cw) // 2
+    words = ("so today we are going to make pasta with a tomato sauce from scratch and "
+             "you want to heat the oven first then chop the onions very fine").split()
+    videos = []
+    t0 = time.perf_counter()
+    for i in range(CORPUS_VIDEOS):
+        rng = np.random.default_rng(40 + i)
+        path = d / f"video{i:02d}.mp4"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), CORPUS_FPS, (w, h))
+        check(writer.isOpened(), f"cv2 cannot write {path}")
+        content = []
+        for _ in range(8):
+            frame = np.zeros((h, w, 3), np.uint8)
+            # content at least 40 everywhere, so the bars' edge is the box's
+            frame[y0:y0 + ch, x0:x0 + cw] = 40 + (smooth_frame(rng, ch, cw).astype(np.uint16)
+                                                  * 215 // 255).astype(np.uint8)
+            content.append(frame)
+        for f in range(int(CORPUS_SECONDS * CORPUS_FPS)):
+            writer.write(content[(f // int(CORPUS_FPS * 10)) % len(content)])
+        writer.release()
+        n_words = CORPUS_SECONDS * CORPUS_WORDS_PER_S
+        said = [words[j] for j in rng.integers(0, len(words), n_words)]
+        item = {"subtitles": [{"word": x, "time": j / CORPUS_WORDS_PER_S}
+                              for j, x in enumerate(said)],
+                "denoised": [{"cleanasr": " ".join(
+                    x.capitalize() + ("." if j % 12 == 11 else "") for j, x in enumerate(said))}],
+                "info": {"id": f"synthetic{i:02d}", "title": f"synthetic video {i}",
+                         "duration": float(CORPUS_SECONDS)}}
+        (d / f"video{i:02d}.grover.json").write_text(json.dumps(item))
+        videos.append(str(path))
+    return {"videos": videos, "seconds": time.perf_counter() - t0,
+            "bytes": sum(Path(v).stat().st_size for v in videos)}
+
+
+def corpus_phase(dev, tmp: Path) -> dict:
+    """The offline corpus pipeline on 720p videos, then the pretraining CLI
+    on its shard: `python -m merlot_tpu_torch.data.process` in a
+    subprocess, the stored frames' size, and pretrain.main in this process
+    for CORPUS_STEPS steps with the kernels' counters."""
+    from merlot_tpu_torch.data import _native
+    from merlot_tpu_torch.data.tfrecord import parse_example, read_tfrecords
+    from merlot_tpu_torch.train import harness, pretrain
+
+    card = card_line()
+    d = tmp / "corpus"
+    (d / "videos").mkdir(parents=True)
+    # cv2 in a process of its own, as the corpus pipeline runs
+    code = (f"import json, sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+            f"from pathlib import Path; "
+            f"print(json.dumps(chip_smoke.write_corpus_videos(Path({str(d / 'videos')!r}))))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    check(proc.returncode == 0, f"writing the videos failed: {proc.stderr[-3000:]}")
+    made = json.loads(proc.stdout.strip().splitlines()[-1])
+    shard = d / "train-00.tfrecord"
+    rc, seconds, log = run_module("merlot_tpu_torch.data.process",
+                                  ["--videos", *made["videos"], "--out", shard], ROOT,
+                                  d / "process.log")
+    check(rc == 0, f"the corpus pipeline exited {rc}")
+    built = json.loads(log.strip().splitlines()[-1])
+    examples = [parse_example(r) for r in read_tfrecords(str(shard))]
+    sizes = {(int(ex[f"c{i:02d}/image/height"][0]), int(ex[f"c{i:02d}/image/width"][0]))
+             for ex in examples for i in range(TRAIN_CHUNKS)}
+    decoded = _native.decode_jpeg(examples[0]["c00/image/encoded"][0]).shape
+
+    text, reduced, orig, copy = config_copy("pretrain_4seg.yaml", dict(
+        CLI_REDUCED, num_train_steps=CORPUS_STEPS, iterations_per_loop=CORPUS_STEPS,
+        train_file=f'"{shard}"', val_file='""', output_dir=f'"{d / "pretrain"}"'))
+    check(copy["model"] == orig["model"]
+          and dict(copy["optimizer"], num_train_steps=None)
+          == dict(orig["optimizer"], num_train_steps=None),
+          "the copy of pretrain_4seg.yaml changed its model or optimizer block")
+    (d / "pretrain.yaml").write_text(text)
+    per_step, windows = [], []
+    with cli_tf32():
+        reset_counts()
+        with wrapped(harness, "make_train_step", counting_steps(per_step, windows)):
+            t0 = time.perf_counter()
+            pretrain.main([str(d / "pretrain.yaml")])
+            train_s = time.perf_counter() - t0
+    losses = {x["step"]: x["loss"] for x in jsonl(d / "pretrain" / "train_metrics.jsonl")
+              if "loss" in x}
+    result = {"card": card, "frame_route": built["frame_route"], "videos": built["videos"],
+              "chunks": built["chunks"], "examples": built["examples"],
+              "process_seconds": built["seconds"], "process_wall_seconds": seconds,
+              "videos_per_s": built["videos"] / built["seconds"],
+              "chunks_per_s": built["chunks"] / built["seconds"],
+              "video_write_seconds": made["seconds"], "video_bytes": made["bytes"],
+              "shard_bytes": shard.stat().st_size, "stored_frame_sizes": sorted(sizes),
+              "decoded_shape": list(decoded), "reduced": reduced, "pretrain_seconds": train_s,
+              "launches_per_step": per_step, "losses": losses}
+    print(f"[corpus] {json.dumps(result)}", flush=True)
+    print(f"[corpus] {card}: frames by {built['frame_route']}; {result['videos_per_s']:.3f} "
+          f"videos/s and {result['chunks_per_s']:.2f} chunks/s ({built['videos']} videos of "
+          f"{CORPUS_HW[1]}x{CORPUS_HW[0]}, {built['chunks']} chunks, {built['examples']} "
+          f"examples); pretraining losses {losses}", flush=True)
+    check(built["examples"] >= CORPUS_MIN_EXAMPLES and len(examples) == built["examples"],
+          f"the corpus pipeline wrote {built['examples']} examples ({len(examples)} read)")
+    check(sizes == {CORPUS_FRAME_HW} and tuple(decoded) == (*CORPUS_FRAME_HW, 3),
+          f"stored frames {sorted(sizes)} (decoded {decoded}), want {CORPUS_FRAME_HW}")
+    check([n for n, *_ in per_step] == list(range(1, CORPUS_STEPS + 1))
+          and all(k1 == k2 == LAUNCHES_PER_STEP for _, k1, k2 in per_step),
+          f"the pretraining CLI's K1/K2 launches per step {per_step}")
+    check(sorted(losses) == list(range(1, CORPUS_STEPS + 1))
+          and all(math.isfinite(v) for v in losses.values()), f"pretraining losses {losses}")
+    return result
+
+
+def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict:
+    """The plain version's, SDPA's and the bound's ms over a path's
+    ``launches`` at each of ``shapes`` (per-call times of the kernel
+    phases)."""
+    return {f"{prefix}_{k}": launches * sum(rows[n][k] for n in shapes)
             for k in ("plain_ms", "library_ms", "bound_ms")}
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -3612,14 +4115,21 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "replaces": "merlot_tpu/ops/pallas_attention.py:273",
         "launches": sl["launches"] + tr["launches"]["attention_fwd"]
         + cli["launches"]["attention_fwd"] + zs_cli["launches"]
-        + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values()),
+        + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values())
+        + gt["launches"]["attention_fwd"] + gt["roundtrip"]["launches"]["attention_fwd"]
+        + sum(k1 for _, k1, _ in cp["launches_per_step"]),
         "launches_by_path": {"zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
                              "pretrain_cli": cli["launches"]["attention_fwd"],
                              "zero_shot_cli": zs_cli["launches"],
                              "vcr_train": vcr["launches"]["attention_fwd"],
                              **{f"vcr_eval_{m}": e["launches"]
-                                for m, e in vcr["eval"].items()}},
+                                for m, e in vcr["eval"].items()},
+                             "grover_train": gt["launches"]["attention_fwd"],
+                             "grover_roundtrip_forward":
+                                 gt["roundtrip"]["launches"]["attention_fwd"],
+                             "corpus_pretrain_cli": sum(k1 for _, k1, _ in
+                                                        cp["launches_per_step"])},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -3653,7 +4163,12 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         **per_path("vcr_train", zs, ("vcr_vit", "vcr_joint")),
         "vcr_eval_ms_per_batch": statistics.median(
             e["k1_ms_per_batch"] for e in vcr["eval"].values()),
-        **per_path("vcr_eval", zs, ("vcr_eval_vit", "vcr_eval_joint"))}
+        **per_path("vcr_eval", zs, ("vcr_eval_vit", "vcr_eval_joint")),
+        # per Grover train step (24 launches at B 8 x S 1536, 16 heads, fp32,
+        # causal): the profile of run B, and the per-call times at that shape
+        "grover_train_ms_per_step": gt["k1_ms_per_step"],
+        "grover_train_shape_sum_ms": 24 * zs["grover_train"]["ms"],
+        **per_path("grover_train", zs, ("grover_train",), 24)}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
     train_shapes = ("pretrain_vit", "pretrain_joint", "pretrain_lang")
@@ -3662,10 +4177,14 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "source": "merlot_tpu_torch/csrc/attention_bwd.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:504",
         "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
-        + vcr["launches"]["attention_bwd"],
+        + vcr["launches"]["attention_bwd"] + gt["launches"]["attention_bwd"]
+        + sum(k2 for _, _, k2 in cp["launches_per_step"]),
         "launches_by_path": {"train": tr["launches"]["attention_bwd"],
                              "pretrain_cli": cli["launches"]["attention_bwd"],
-                             "vcr_train": vcr["launches"]["attention_bwd"]},
+                             "vcr_train": vcr["launches"]["attention_bwd"],
+                             "grover_train": gt["launches"]["attention_bwd"],
+                             "corpus_pretrain_cli": sum(k2 for _, _, k2 in
+                                                        cp["launches_per_step"])},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -3678,7 +4197,13 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         # per VCR train step (12 launches at each VCR shape, fp32 softmax):
         # the profile of run B, and the per-call times at those shapes
         "vcr_train_ms_per_step": vcr["k2_ms_per_step"],
-        **per_path("vcr_train", tb, ("vcr_vit", "vcr_joint"))}
+        **per_path("vcr_train", tb, ("vcr_vit", "vcr_joint")),
+        # per Grover train step (24 launches, fp32, causal): the profile of
+        # run B, and the per-call times at that shape (SDPA's backward is
+        # the same function there)
+        "grover_train_ms_per_step": gt["k2_ms_per_step"],
+        "grover_train_shape_sum_ms": 24 * tb["grover_train"]["ms"],
+        **per_path("grover_train", tb, ("grover_train",), 24)}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
     # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
     # bound (live slots) all from the K3 phase's timing of that shape (the
@@ -3692,9 +4217,12 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "source": "merlot_tpu_torch/csrc/attention_stacked.cu",
         "replaces": "merlot_tpu/ops/pallas_attention.py:656",
         "launches": gv["launches"]["attention_stacked"]
-        + sv["launches"]["attention_stacked"],
+        + sv["launches"]["attention_stacked"]
+        + gt["roundtrip"]["launches"]["attention_stacked"],
         "launches_by_path": {"grover_decode": gv["launches"]["attention_stacked"],
-                             "server": sv["launches"]["attention_stacked"]},
+                             "server": sv["launches"]["attention_stacked"],
+                             "grover_train_roundtrip_prefill":
+                                 gt["roundtrip"]["launches"]["attention_stacked"]},
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": 24 * k3["ms"], "plain_ms": 24 * k3["plain_ms"],
         "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
@@ -3811,47 +4339,80 @@ def main() -> int:
     for name in libs:
         print(_build.build_logs.get(name, ""), flush=True)
 
+    # each phase's wall seconds, printed as it ends and kept in --out
+    phase_s = {"build": build_s}
+    last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name], last[0] = now - last[0], now
+        print(f"[time] {name} {phase_s[name]:.1f}s", flush=True)
+
     k1_rows = kernel_phase(dev)
+    lap("k1")
     k2_rows = bwd_kernel_phase(dev)
+    lap("k2")
     k3_rows = stacked_phase(dev)
+    lap("k3")
     k4_rows = gn_kernel_phase(dev)
+    lap("k4")
     k5_rows = ln_kernel_phase(dev)
+    lap("k5")
     ab_rows = ablation_phase(dev)
+    lap("ablation")
     fd = first_design_phase(dev, args.parent) if args.parent else None
+    lap("first_design")
     sl, *zero_shot = slice_phase(dev)
+    lap("zero_shot")
     fsl = fused_slice_phase(dev, *zero_shot)
     del zero_shot
+    lap("fused_zero_shot")
     tr, model, state, step, batch, ref = train_phase(dev)
     prof = profile_steps(dev, step, model, state, batch)
     del model, state, step, batch
     torch.cuda.empty_cache()
+    lap("train")
     ftr, fprof = fused_train_phase(dev, ref)
     del ref
     torch.cuda.empty_cache()
+    lap("fused_train")
     ab = ab_phase(dev)
+    lap("train_ab")
     gv = grover_phase(dev)
+    lap("grover_decode")
     with tempfile.TemporaryDirectory() as tmp:
         sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
+    lap("server")
     with tempfile.TemporaryDirectory() as tmp:  # shards and ~1.7 GB checkpoints
         cli = cli_phase(dev, Path(tmp))
+    lap("pretrain_cli")
     with tempfile.TemporaryDirectory() as tmp:
         zs_cli = zero_shot_cli_phase(dev, Path(tmp), sl["stories_per_s"])
+    lap("zero_shot_cli")
     with tempfile.TemporaryDirectory() as tmp:
         vcr = vcr_phase(dev, Path(tmp))
+    lap("vcr")
+    with tempfile.TemporaryDirectory() as tmp:  # ~4.3 GB checkpoints
+        gt = grover_train_phase(dev, Path(tmp))
+    lap("grover_train")
+    with tempfile.TemporaryDirectory() as tmp:
+        cp = corpus_phase(dev, Path(tmp))
+    lap("corpus")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
-            {"card": card, "build_s": build_s, "kernel_shapes": k1_rows,
+            {"card": card, "build_s": build_s, "phase_seconds": phase_s,
+             "kernel_shapes": k1_rows,
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
              "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
-             "vcr": vcr, "ablation": ab_rows,
+             "vcr": vcr, "grover_train": gt, "corpus": cp, "ablation": ab_rows,
              "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},

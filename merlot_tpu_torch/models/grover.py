@@ -1,5 +1,5 @@
 """Grover, the decoder-only LM of the ASR denoiser (counterpart of
-merlot_tpu/models/grover.py), for serving.
+merlot_tpu/models/grover.py), for training and serving.
 
 Per layer, the reference's residual layout:
   h = LN1( (h + attn(h)) + mlp(LN0(h + attn(h))) )
@@ -9,6 +9,14 @@ with an ``embed_norm`` LN; the logits are tied to the word embedding, no
 bias. Parameters and module names follow the flax tree one for one
 (``convert.load_flax_params`` moves them).
 
+Training (no cache): hidden dropout at the JAX package's two sites, after
+``out_proj`` and after the MLP's ``output``, at ``hidden_dropout_prob``,
+drawn from the caller's ``torch.Generator`` when ``deterministic=False``.
+Like the JAX package, no attention-prob dropout is applied, whatever
+``attention_probs_dropout_prob`` says. ``grover_lm_loss`` is the weighted
+next-token cross-entropy with the x``target_bonus`` weight on denoise
+targets.
+
 Caches are preallocated per layer and written in place at
 ``position_offset``: the flat cache holds ``k00``/``v00``... as
 [B, max_len, H, D]; the stacked cache (``cfg.stacked_kv``) holds
@@ -17,15 +25,19 @@ Caches are preallocated per layer and written in place at
 qkv product. The cache's dtype is the model dtype; slots past the position
 hold zeros and the causal mask gives them probability 0.
 
-Attention: without a cache the plain attention on every device (as the JAX
-package uses XLA there). With a cache, ``ops.cuda_attention``: K3 over the
-stacked cache, K1 over the flat one, both with the fp32 softmax, on CUDA
-tensors (a shape they refuse raises), their plain versions on CPU tensors.
+Attention, fp32 softmax throughout: without a cache the device's training
+backend (``ops.attention.training_backend``): on a card K1 forward and K2
+backward through ``FlashAttention``, with the causal mask expanded to a
+contiguous [B, S, S]; on the CPU the plain path (the JAX package uses
+XLA's einsums there, the same function). With a cache,
+``ops.cuda_attention``: K3 over the stacked cache, K1 over the flat one,
+on CUDA tensors (a shape they refuse raises), their plain versions on CPU
+tensors.
 
 Sampling (``top_p_sample``, ``top_k_sample``, ``make_seq2seq_sampler``)
 draws from an explicit ``torch.Generator``: the same distributions as the
-JAX package, not the same streams. Dropout and the training loss are not
-ported here.
+JAX package, not the same streams. The pipeline-parallel helpers
+(``stack_grover_params``, ``grover_pipeline_forward``) are not ported.
 """
 
 from __future__ import annotations
@@ -39,10 +51,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, trunc_normal_
+from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout, trunc_normal_
 from merlot_tpu_torch.ops import cuda_attention
 from merlot_tpu_torch.ops.activations import gelu
-from merlot_tpu_torch.ops.attention import attention_core
+from merlot_tpu_torch.ops.attention import attention_core, training_backend
 from merlot_tpu_torch.ops.sampling import gumbel_noise, top_k_indices
 
 MASK_PENALTY = 1e10
@@ -105,10 +117,15 @@ class GroverLayer(nn.Module):
     def forward(self, h: torch.Tensor, mask: torch.Tensor, kv_write_pos: int = 0,
                 cache_k: Optional[torch.Tensor] = None,
                 cache_v: Optional[torch.Tensor] = None,
-                cache_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cache_kv: Optional[torch.Tensor] = None, *,
+                attn_backend: str = "plain", deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """h [B, S, H]; mask [B or 1, S, K] over the key axis (the whole
-        cache when one is given, else S). A given cache takes the chunk's
-        keys and values at ``kv_write_pos``, in place."""
+        cache when one is given, else S; [B, S, S] for the 'cuda' backend).
+        A given cache takes the chunk's keys and values at
+        ``kv_write_pos``, in place. Without a cache the attention runs on
+        ``attn_backend``; the hidden dropout draws from ``generator``
+        unless ``deterministic``."""
         c = self.cfg
         b, s, _ = h.shape
         hs, nh, d = c.hidden_size, c.num_attention_heads, c.d_head
@@ -140,10 +157,13 @@ class GroverLayer(nn.Module):
         else:
             ctx, _ = attention_core(q, k_flat.reshape(b, s, nh, d),
                                     v_flat.reshape(b, s, nh, d), mask,
-                                    backend="plain", softmax_fp32=True)
-        attn_out = self.out_proj(ctx.to(q.dtype).reshape(b, s, hs))
+                                    backend=attn_backend, softmax_fp32=True)
+        drop = dict(deterministic=deterministic, generator=generator)
+        attn_out = dropout(self.out_proj(ctx.to(q.dtype).reshape(b, s, hs)),
+                           c.hidden_dropout_prob, **drop)
         x = h + attn_out
-        mlp = self.output(gelu(self.intermediate(self.mlp_ln0(x))))
+        mlp = dropout(self.output(gelu(self.intermediate(self.mlp_ln0(x)))),
+                      c.hidden_dropout_prob, **drop)
         return self.mlp_ln1(x + mlp)
 
 
@@ -170,15 +190,23 @@ class GroverLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, *,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 position_offset: int = 0, return_hidden: bool = False,
-                compute_logits: bool = True):
-        """Without a cache: causal within the sequence. With a cache (see
-        ``empty_cache``): the chunk is written at ``position_offset`` and
-        attention covers cache positions < position_offset + S. Returns
-        (logits [B, S, vocab] fp32 or None, cache or None), and the final
-        hidden states [B, S, H] third with ``return_hidden``."""
+                compute_logits: bool = True, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                attn_backend: Optional[str] = None):
+        """Without a cache: causal within the sequence, attention on
+        ``attn_backend`` (default: the device's ``training_backend``). With
+        a cache (see ``empty_cache``): the chunk is written at
+        ``position_offset`` and attention covers cache positions <
+        position_offset + S. ``deterministic=False`` applies the hidden
+        dropout, drawn from ``generator`` (required then). Returns (logits
+        [B, S, vocab] fp32 or None, cache or None), and the final hidden
+        states [B, S, H] third with ``return_hidden``."""
         c = self.cfg
         b, s = input_ids.shape
         dev = input_ids.device
+        if not deterministic and generator is None:
+            raise ValueError("GroverLM: deterministic=False needs a generator for the dropout")
+        backend = attn_backend or training_backend(dev)
         h = self.word_embed[input_ids]
         h = self.embed_norm(h + self.pos_embed[position_offset:position_offset + s][None])
 
@@ -188,17 +216,20 @@ class GroverLM(nn.Module):
         # flat cache) takes a [B, S, K] one
         mask = (torch.arange(k_len, device=dev)[None] <= q_pos[:, None]
                 ).to(torch.float32)[None]
-        if cache is not None and not c.stacked_kv:
+        # and so does the kernel backend without a cache (made once: every
+        # layer saves the same tensor for its backward)
+        if (cache is not None and not c.stacked_kv) or (cache is None and backend == "cuda"):
             mask = mask.expand(b, s, k_len).contiguous()
 
+        kw = dict(attn_backend=backend, deterministic=deterministic, generator=generator)
         for i, layer in enumerate(self.layers()):
             if cache is None:
-                h = layer(h, mask)
+                h = layer(h, mask, **kw)
             elif c.stacked_kv:
-                h = layer(h, mask, position_offset, cache_kv=cache[f"kv{i:02d}"])
+                h = layer(h, mask, position_offset, cache_kv=cache[f"kv{i:02d}"], **kw)
             else:
                 h = layer(h, mask, position_offset, cache_k=cache[f"k{i:02d}"],
-                          cache_v=cache[f"v{i:02d}"])
+                          cache_v=cache[f"v{i:02d}"], **kw)
 
         logits = lm_logits_for_hidden(self.word_embed, c, h) if compute_logits else None
         if return_hidden:
@@ -238,6 +269,28 @@ def pooled_hidden(hidden: torch.Tensor, input_ids: torch.Tensor,
     """Hidden state at the first occurrence of clf_token per row."""
     idx = (input_ids == clf_token).to(torch.float32).argmax(dim=1)
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+
+
+def grover_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor, is_target: torch.Tensor,
+                   pad_token_id: int = 0, target_bonus: float = 4.0
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted next-token cross-entropy. logits [B, S, V] align with
+    input_ids [B, S]; the targets are input_ids shifted left, pad-filled.
+    Each non-pad target weighs 1, plus ``target_bonus`` where
+    ``is_target``; the sums are over the weights plus 1e-5. Log-softmax in
+    fp32. Returns (loss, {'loss', 'ctx_loss', 'trg_loss'}), the last two
+    the loss's parts off and on the targets."""
+    targets = torch.cat([input_ids[:, 1:], torch.full_like(input_ids[:, :1], pad_token_id)],
+                        dim=1)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    per_tok = -logp.gather(-1, targets[..., None].long())[..., 0]
+    is_t = is_target.float()
+    w = (targets != pad_token_id).float() + is_t * target_bonus
+    denom = w.sum() + 1e-5
+    loss = (w * per_tok).sum() / denom
+    ctx_loss = ((1 - is_t) * w * per_tok).sum() / denom
+    trg_loss = (is_t * w * per_tok).sum() / denom
+    return loss, {"loss": loss, "ctx_loss": ctx_loss, "trg_loss": trg_loss}
 
 
 # ----------------------------------------------------------------------

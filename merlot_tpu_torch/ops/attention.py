@@ -15,9 +15,10 @@ fp32 and bf16), so only the multiplicative form is kept.
 
 Backends: 'plain' is the PyTorch composition below (autograd through it);
 'cuda' is the hand-written attention kernels (ops/cuda_attention.py): the
-forward K1 and, when a gradient is taken, the backward K2, taken where the
-call is fusable and the shape is supported, exactly as the JAX package
-takes its Pallas kernels; 'auto' means 'plain'.
+forward K1 and, when a gradient is taken, the backward K2; a shape or
+dtype they do not take raises (``collect='probs'`` alone takes the plain
+path, as the JAX package's kernel never returns the probs); 'auto' means
+'plain'.
 """
 
 from __future__ import annotations
@@ -64,14 +65,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if backend not in ("auto", "plain", "cuda"):
         raise ValueError(f"bad backend={backend}")
 
-    fusable = collect != "probs"
-    if backend == "cuda" and fusable:
+    if backend == "cuda" and collect != "probs":
         from merlot_tpu_torch.ops.cuda_attention import (flash_attention,
                                                          kernel_supported)
-        if kernel_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype):
-            return flash_attention(q, k, v, mask, collect=collect,
-                                   softmax_fp32=softmax_fp32)
-        # a shape or dtype the kernel does not take -> plain path below
+        if not kernel_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype):
+            raise ValueError(f"attention_core: the kernels do not take Sq={q.shape[1]} "
+                             f"Sk={k.shape[1]} d={q.shape[-1]} {q.dtype}")
+        return flash_attention(q, k, v, mask, collect=collect,
+                               softmax_fp32=softmax_fp32)
 
     return _plain_attention(q, k, v, mask, collect=collect,
                             softmax_fp32=softmax_fp32)

@@ -55,8 +55,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_supported(sq: int, sk: int, d_head: int, dtype: torch.dtype) -> bool:
-    """Shapes and dtypes the kernels take; callers use the plain path
-    otherwise. bf16 runs on the tensor cores in 16-wide head-dim steps, so
+    """Shapes and dtypes the kernels take (the wrappers and
+    ``attention_core(backend='cuda')`` raise on any other). bf16 runs on the tensor cores in 16-wide head-dim steps, so
     its head dim must be a multiple of 16; fp32 takes any head dim."""
     if dtype not in _DTYPE_CODE:
         return False

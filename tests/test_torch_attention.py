@@ -139,9 +139,25 @@ def test_kernel_supported(sq, sk, d, dtype, supported):
 
 @pytest.mark.parametrize("d,dtype", [(144, "float32"), (40, "bfloat16")])
 def test_dispatch_rule(d, dtype):
-    # shapes and dtypes the kernel does not take go to the plain path, whose
-    # results match the kernel backend's plain version
+    # a shape or dtype the kernels do not take raises on the kernel backend
+    # (no silent plain path); 'auto' is the plain path
     _, _, tx, tm = _inputs(5, 8, 8, "dense", dtype, d=d)
-    a, _ = attention_core(*tx, tm, backend="cuda")
+    with pytest.raises(ValueError, match=f"d={d}"):
+        attention_core(*tx, tm, backend="cuda")
+    a, _ = attention_core(*tx, tm, backend="auto")
     b, _ = attention_core(*tx, tm, backend="plain")
     torch.testing.assert_close(a, b)
+
+
+@pytest.mark.parametrize("sq,sk,d,dtype", [(8, 2049, 16, torch.float32),
+                                           (8, 8, 8, torch.bfloat16)])
+def test_cuda_backend_refuses_unsupported_shapes(sq, sk, d, dtype):
+    """attention_core(backend='cuda') names the shape it refuses; the
+    probs collection still takes the plain path by design."""
+    g = torch.Generator().manual_seed(6)
+    q = torch.randn((1, sq, 2, d), generator=g).to(dtype)
+    k, v = (torch.randn((1, sk, 2, d), generator=g).to(dtype) for _ in range(2))
+    with pytest.raises(ValueError, match=f"Sq={sq} Sk={sk} d={d}"):
+        attention_core(q, k, v, None, backend="cuda")
+    _, probs = attention_core(q, k, v, None, backend="cuda", collect="probs")
+    assert probs.shape == (1, sq, sk)

@@ -204,6 +204,28 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
         assert diff.max().item() <= 4 * _bf16_bound(r.float())
 
 
+@pytest.mark.parametrize("s", [200, 1536])
+def test_fp32_causal_kernels_at_grover_heads(cuda, s):
+    """Grover training's attention (fp32 inputs and softmax, 16 heads of
+    64, a causal [B, S, S] mask; S 1536 is grover_train's default): K1 and
+    K2 (the FMA routes) within 1e-5 of the plain versions, which the
+    forward with the mask dropped misses."""
+    b, h, d = 2, 16, 64
+    q, k, v, _ = _inputs(cuda, b, s, s, h, d, torch.float32, False, seed=3)
+    mask = torch.tril(torch.ones((s, s), device=cuda)).expand(b, s, s).contiguous()
+    do, _ = _bwd_extra(cuda, b, s, s, h, d, torch.float32, False)
+    kw = dict(num_heads=h, softmax_fp32=True)
+    ctx, _ = cuda_attention.attention_fwd_cuda(q, k, v, mask, collect_colsum=False, **kw)
+    ref, _ = cuda_attention.flash_attention_plain(q, k, v, mask, collect_colsum=False, **kw)
+    no_mask, _ = cuda_attention.flash_attention_plain(q, k, v, None, collect_colsum=False,
+                                                      **kw)
+    torch.testing.assert_close(ctx, ref, atol=1e-5, rtol=1e-5)
+    assert (no_mask - ref).abs().max().item() > 1e-2
+    got = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, None, **kw)
+    for a, r in zip(got, cuda_attention.attention_bwd_plain(q, k, v, mask, do, None, **kw)):
+        assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
 # K1's tiles (64-row q tiles, 64-key K/V tiles, TMA zero-fill past Sq and Sk)
 # at lengths on either side of a tile edge and at the limit, every head dim
 # class of the wgmma descriptors; bf16, the softmax mode alternating

@@ -1,5 +1,6 @@
 """merlot_tpu_torch imports neither jax nor flax, nor the libraries the
-card's machine may lack (pyyaml, PIL, orbax, h5py, sacremoses), nor
+card's machine may lack or that only some functions need (pyyaml, PIL,
+orbax, h5py, sacremoses, cv2), nor
 merlot_tpu: every module is imported in a fresh interpreter, which then
 must hold none of them. Importing builds nothing: no native library
 appears."""
@@ -20,9 +21,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in (
     "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "sacremoses",
-    "merlot_tpu"))
+    "cv2", "merlot_tpu"))
 assert not bad, bad
-assert len(names) >= 54, names
+assert len(names) >= 58, names
 assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server",
         "merlot_tpu_torch.core.tokenizer", "merlot_tpu_torch.ops.cuda_groupnorm",
         "merlot_tpu_torch.ops.cuda_ln_matmul", "merlot_tpu_torch.core.config",
@@ -41,7 +42,10 @@ assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server
         "merlot_tpu_torch.downstream.vcr.dataloader",
         "merlot_tpu_torch.downstream.vcr.modeling",
         "merlot_tpu_torch.downstream.vcr.train",
-        "merlot_tpu_torch.downstream.vcr.validate"} <= set(names), names
+        "merlot_tpu_torch.downstream.vcr.validate",
+        "merlot_tpu_torch.tools.grover_data", "merlot_tpu_torch.tools.grover_train",
+        "merlot_tpu_torch.data.process", "merlot_tpu_torch.data.video",
+        "merlot_tpu_torch.models.grover"} <= set(names), names
 print(len(names))
 """
 
