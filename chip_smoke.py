@@ -11,10 +11,13 @@
    softmax) and VCR's four (fp32 softmax: the ViT at 16 x 1058 and the
    joint tower at 64 x 449 in a train step, 8 x 1058 and 32 x 449 in an
    eval batch), all in bf16, and Grover training's (8 x 1536, 16 heads,
-   fp32 inputs and softmax, a causal mask: the FMA route, whose fault probe
-   is the mask dropped), and times K1, the plain version and, as a
-   yardstick, torch's scaled_dot_product_attention, beside the least time
-   the card could take (bound);
+   fp32 inputs and softmax, a causal mask: the fp32 route, whose fault
+   probe is the mask dropped) with four fp32 probes (padded rows, a
+   block-sparse mask, a ragged S of 1000, a head dim of 40 with the
+   colsum), holds the saved row max and sum against the plain version's,
+   and times K1, the plain version and, as a yardstick, torch's
+   scaled_dot_product_attention, beside the least time the card could
+   take (bound);
 3. K2 phase: the same for K2 at the three pretrain shapes in bf16 softmax,
    the pretrain joint shape in fp32 softmax, VCR's train-step two and
    Grover training's fp32 causal shape (the mask dropped as its probe), with
@@ -22,15 +25,18 @@
    shape; each shape
    also shows that its check sees a fault (the other softmax mode; at the
    lang shape, the missing colsum cotangent) and that dQ is exactly 0 on
-   fully masked rows; K2 fed K1's saved row max and sum must equal K2
-   computing them itself, and two runs must agree bit for bit;
+   fully masked rows; the fp32 probes as for K1; K2 fed K1's saved row max
+   and sum (and in fp32 its tile classes) must equal K2 computing them
+   itself, and two runs must agree bit for bit;
 3a. ablation phase: K1's probe at the three pretrain shapes (the kernel,
    its fp32 softmax, the softmax removed, the pass for the row max and sum
    skipped, and SDPA), timed in turns; with ``--parent DIR`` (a checkout of
    commit 83510f1, which holds the first designs of K1, K2, K3, K4 and K5)
    those designs are built from DIR and timed in turns with the current
    kernels at every shape (K3's decode over rotating copies, its launches
-   queued), with per-path totals;
+   queued), with per-path totals, and at Grover training's fp32 shape
+   (PR 2's fp32 route, unchanged until the redesign) beside SDPA and the
+   plain versions;
 3b. K4 phase: holds K4 against its plain version at the 13 distinct
    GroupNorm shapes of the train step's LiteResNet (128 frames of 192x352)
    and the 13 of zero-shot's (20 frames of 384x384), bf16, with fault probes
@@ -101,12 +107,15 @@
    batching at max_batch 8) answers 4 concurrent POST /api/ask, coalesced
    (/stats mean_batch > 1), with 4 JSONL records and the seconds per batch;
 9. CLI phase: the pretraining entry point from tfrecords at full
-   pretrain_4seg width. The machine's JPEG route (libjpeg, else nvJPEG) is
-   held against the committed fixture; the port's writer makes 16 training
+   pretrain_4seg width. The machine's JPEG route (libjpeg, else pil) is
+   held against the committed fixture bit for bit, nvJPEG (asked for by
+   name) within its bounds, and a CMYK JPEG decodes through each as PIL
+   decodes it; the port's writer makes 16 training
    and 16 validation examples of 16 chunks, 512x288 frames of smooth noise;
    a copy of configs/pretrain_4seg.yaml changes only CLI_REDUCED's keys and
    the paths. The loader alone is timed at the config's num_threads and at
-   the cores it gets, and device_iterator's batches on the card are held
+   the cores it gets, there with the default JPEG route and nvJPEG in
+   turns, and device_iterator's batches on the card are held
    against their host batches element for element. Run A is `python -m
    merlot_tpu_torch.train.pretrain a.yaml` in a subprocess (8 steps,
    checkpoints at 4 and 8, two evaluation batches), between two runs of
@@ -150,13 +159,16 @@
    (`python -m merlot_tpu_torch.tools.grover_train` at its defaults of
    batch 8 x 1536; GT_REDUCED lists the cuts: 8 steps, checkpoints at 4
    and 8), run B (in process from A's ckpt_4, with the counters: 24 K1 and
-   24 K2 per step, a profile of two steps) whose losses at steps 5-8 must
-   equal A's; one step's loss and grads through the kernels against the
-   plain attention at full depth and batch 2, with the causal mask dropped
-   on the kernel side failing both bounds; A's ckpt_8 served by the port's
+   24 K2 per step) whose losses at steps 5-8 must equal A's; one step's
+   loss and grads through the kernels against the plain attention at full
+   depth and batch 2, with the causal mask dropped on the kernel side
+   failing both bounds; a profile of two more steps of B's step function;
+   A's ckpt_8 served by the port's
    Denoiser (fused qkv, stacked cache: K3's prefill) against the trained
-   model's forward (K1). Prints tokens/s, peak memory, the step's share of
-   the fp32 peak, B's idle share and K1/K2 ms per step.
+   model's forward (K1); with ``--parent``, the step's forward and backward
+   at the full batch through the first design's fp32 K1/K2 and the
+   current ones in turns. Prints tokens/s, peak memory, the step's share of
+   the fp32 peak, the profiled steps' idle share and K1/K2 ms per step.
 13. corpus phase: 5 synthetic 1280x720 videos (cv2, black bars around a
    16:9 box) with their .grover.json through `python -m
    merlot_tpu_torch.data.process` into one shard, whose stored frames must
@@ -225,6 +237,18 @@ BWD_SHAPES = (PRETRAIN_SHAPES + [("pretrain_joint_fp32sm", 32, 396, True, False,
 # inputs and softmax, the causal mask [B, S, S]; K1's and K2's FMA routes.
 # (name, batch, seq, masked, colsum, softmax_fp32, heads, dtype)
 GROVER_TRAIN_SHAPES = [("grover_train", 8, 1536, "causal", False, True, 16, "fp32")]
+# the fp32 route's probes beside Grover's shape (csrc/attention_fp32.cuh
+# skips the mask's all-0 64 x 64 tiles): padded rows and keys (fully
+# masked rows: their q tiles skip nothing), 64 x 64 blocks kept on the
+# diagonal and at random (all-0 tiles beside rows that attend), a ragged S
+# of 1000, and a head dim of 40 with the colsum on. (name, batch, seq,
+# masked, colsum, softmax_fp32, heads, dtype, head dim)
+FP32_PROBE_SHAPES = [
+    ("fp32_padded", 2, 1000, True, False, True, 4, "fp32", 64),
+    ("fp32_block_sparse", 2, 1024, "block", False, True, 4, "fp32", 64),
+    ("fp32_causal_s1000", 2, 1000, "causal", False, True, 4, "fp32", 64),
+    ("fp32_d40_colsum", 2, 1000, "causal", True, True, 4, "fp32", 40),
+]
 # fp32 inputs against the plain version: the same fp32 arithmetic, sums
 # perhaps in another order; the largest error over the largest |ctx|
 # (|grad|). On the H100 K1's ctx equalled the plain version's bit for bit
@@ -366,7 +390,7 @@ LN_MEAN_TOL = 1e-5
 # the fused paths' launches: K1, K4, K5 per zero-shot batch; K1, K2, K4, K5
 # per train step
 # the A/B of the unfused and fused steps: warm-up and timed steps per run
-AB_WARMUP, AB_STEPS = 3, 8
+AB_WARMUP, AB_STEPS = 2, 5
 FUSED_LAUNCHES_PER_BATCH = (24, 54, 48)
 FUSED_LAUNCHES_PER_STEP = (36, 36, 54, 72)
 # fused vs unfused zero-shot probs: two more sums in another order in every
@@ -416,7 +440,7 @@ STACKED_SHAPES = [
 STACKED_FP32_RTOL = 3e-6
 # the Grover decode phase: bench.py's grover method
 GROVER_BATCH, GROVER_PREFIX, GROVER_GENS = 8, 1024, (32, 192)
-GROVER_REPEATS = 3
+GROVER_REPEATS = 2
 GREEDY_STEPS = 8
 # prefill + 8 argmax decode steps, K3 vs the plain attention fed the same
 # tokens: the largest |logit difference| (fp32 logits of |x| up to ~4.3,
@@ -453,10 +477,10 @@ CLI_REDUCED = {"train_batch_size": TRAIN_BATCH, "num_train_steps": CLI_STEPS,
 # share is read from the first window whose profile holds every K1/K2
 # launch the wrappers counted in it (a profile now and then loses records)
 CLI_PROFILE_WINDOWS = ((6, 7), (8,))
-CLI_SYNTH_WARMUP, CLI_SYNTH_STEPS = 2, 6
-CLI_FEED_STEPS = 6          # timed steps of each feed run, after two
-CLI_LOADER_BATCHES = 4
-CLI_SKIP_BATCHES = 20000    # batches a resumed loader passes over, timed
+CLI_SYNTH_WARMUP, CLI_SYNTH_STEPS = 2, 2
+CLI_FEED_STEPS = 2          # timed steps of each feed run, after two
+CLI_LOADER_BATCHES = 2
+CLI_SKIP_BATCHES = 10000    # batches a resumed loader passes over, timed
 CLI_H2D_BATCHES = 3
 CLI_TIMEOUT_S = 900
 # nvJPEG against the fixture's libjpeg pixels, in levels of 255: its
@@ -549,6 +573,7 @@ GT_LAUNCHES_PER_STEP = 24
 # (grad_gap; a key bias): GT_GRAD_TOL is 25x that. The mask dropped moved
 # the loss by 6.9e-4 relative (69x GT_LOSS_RTOL) and the grads by 2.44
 GT_CHECK_BATCH = 2
+GT_TURN_STEPS = 2      # timed forward+backward steps per design and turn
 GT_LOSS_RTOL = 1e-5
 GT_GRAD_TOL = 1e-4
 # the round trip: the Denoiser (fused qkv, the stacked cache, fp32) serving
@@ -684,21 +709,22 @@ def attn_work(b: int, s: int, masked: bool, colsum: bool, backward: bool,
 
 
 def spec_parts(spec) -> tuple:
-    """(name, b, s, masked, colsum, sm32, heads, dtype) of a K1/K2 shape;
-    the pretrain, zero-shot and VCR shapes are bf16 at 12 heads."""
+    """(name, b, s, masked, colsum, sm32, heads, dtype, head dim) of a K1/K2
+    shape; the pretrain, zero-shot and VCR shapes are bf16 at 12 heads of
+    64."""
     name, b, s, masked, colsum, sm32, *rest = spec
-    heads, dtype = rest if rest else (HEADS, "bf16")
-    return name, b, s, masked, colsum, sm32, heads, dtype
+    heads, dtype, d = (*rest, D_HEAD)[:3] if rest else (HEADS, "bf16", D_HEAD)
+    return name, b, s, masked, colsum, sm32, heads, dtype, d
 
 
 def attn_bound(spec, backward: bool, mask=None) -> tuple:
     """bound() of one K1 (K2 with ``backward``) call at a shape: bf16 on the
-    tensor cores, fp32 on the FMA units; a causal mask counts only the
-    pairs it lets through."""
-    _, b, s, masked, colsum, _, heads, dtype = spec_parts(spec)
+    tensor cores, fp32 on the FMA units; a causal or block mask counts only
+    the pairs it lets through."""
+    _, b, s, masked, colsum, _, heads, dtype, d = spec_parts(spec)
     elem = 2 if dtype == "bf16" else 4
-    pairs = int(mask.count_nonzero().item()) if masked == "causal" else None
-    return bound(*attn_work(b, s, bool(masked), colsum, backward, heads, D_HEAD, elem, pairs),
+    pairs = int(mask.count_nonzero().item()) if masked in ("causal", "block") else None
+    return bound(*attn_work(b, s, bool(masked), colsum, backward, heads, d, elem, pairs),
                  PEAK_BF16_FLOPS if dtype == "bf16" else PEAK_FP32_FLOPS)
 
 
@@ -734,17 +760,26 @@ def spans_ms(spans: list) -> float:
     return sum(start.elapsed_time(end) for start, end in spans)
 
 
-def attn_inputs(dev, g, b, s, masked, heads: int = HEADS, dtype: str = "bf16"):
-    """q, k, v ~ N(0, 1) [b, s, heads*D] in ``dtype``; with ``masked``, a
+def attn_inputs(dev, g, b, s, masked, heads: int = HEADS, dtype: str = "bf16",
+                d: int = D_HEAD):
+    """q, k, v ~ N(0, 1) [b, s, heads*d] in ``dtype``; with ``masked``, a
     validity mask with padding rows as the towers build it, and the
     validity; with masked == "causal", Grover's causal mask [b, s, s]
-    (contiguous, as the model passes it) and no validity."""
+    (contiguous, as the model passes it) and no validity; with "block", 64
+    x 64 blocks of ones on the diagonal and at random (40%), zeros
+    elsewhere."""
     import torch
-    q, k, v = (torch.randn((b, s, heads * D_HEAD), generator=g, device=dev)
+    q, k, v = (torch.randn((b, s, heads * d), generator=g, device=dev)
                .to(torch.bfloat16 if dtype == "bf16" else torch.float32) for _ in range(3))
     mask = valid = None
     if masked == "causal":
         mask = torch.tril(torch.ones((s, s), device=dev)).expand(b, s, s).contiguous()
+    elif masked == "block":
+        nb = -(-s // 64)
+        keep = torch.rand((b, nb, nb), generator=g, device=dev) < 0.4
+        keep |= torch.eye(nb, dtype=torch.bool, device=dev)
+        mask = (keep.repeat_interleave(64, 1).repeat_interleave(64, 2)[:, :s, :s]
+                .float().contiguous())
     elif masked:
         valid = torch.rand((b, s), generator=g, device=dev) > 0.15
         valid[:, 0] = True
@@ -767,36 +802,41 @@ def kernel_shape(dev, g, spec) -> dict:
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
-    name, b, s, masked, colsum, sm32, heads, dtype = spec_parts(spec)
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype)
+    name, b, s, masked, colsum, sm32, heads, dtype, d = spec_parts(spec)
+    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
     kw = dict(num_heads=heads, collect_colsum=colsum)
-    # K1 saves the row max and sum for K2 in its bf16 kernels only
-    stats = ca.new_stats(q, heads) if dtype == "bf16" else None
-    ctx, cs = ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, stats=stats, **kw)
+    # K1 saves the row max and sum for K2, and in fp32 the mask's tile classes
+    stats = ca.new_stats(q, heads)
+    tile_class = None if dtype == "bf16" or mask is None else ca.new_tile_class(mask)
+    saved = dict(stats=stats, tile_class=tile_class)
+    ctx, cs = ca.attention_fwd_cuda(q, k, v, mask, softmax_fp32=sm32, **saved, **kw)
     torch.cuda.synchronize()
     ref, ref_cs = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=sm32, **kw)
+    ref_stats = ca.softmax_stats_plain(q, k, mask, num_heads=heads, softmax_fp32=sm32)
     diff = (ctx.float() - ref.float()).abs()
     ref_max = ref.float().abs().max().item()
-    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "dtype": dtype,
-           "masked": masked, "colsum": colsum, "softmax": "fp32" if sm32 else "bf16",
+    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "head_dim": d,
+           "dtype": dtype, "masked": masked, "colsum": colsum,
+           "softmax": "fp32" if sm32 else "bf16",
            "max_abs_err": diff.max().item(),
            "max_abs_err_bound": (CTX_ULPS * bf16_ulp(ref_max) if dtype == "bf16"
                                  else FP32_CTX_RTOL * ref_max),
            "ref_max_abs": ref_max,
            "mean_abs_err": diff.mean().item(),
-           "differing_share": (diff > 0).float().mean().item()}
+           "differing_share": (diff > 0).float().mean().item(),
+           "stats_max_rel_err": ((stats[0] - ref_stats[0]).abs()
+                                 / ref_stats[0].abs().clamp_min(1.0)).max().item(),
+           "stats_sum_rel_err": ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()}
+    if tile_class is not None:
+        row["tile_classes"] = torch.bincount(tile_class.flatten().long(), minlength=3).tolist()
     if dtype == "bf16":
         # the fault probe: the softmax in the other dtype
-        ref_stats = ca.softmax_stats_plain(q, k, mask, num_heads=heads, softmax_fp32=sm32)
         other, _ = ca.flash_attention_plain(q, k, v, mask, softmax_fp32=not sm32, **kw)
         other_diff = (other.float() - ref.float()).abs()
         row.update({
             "other_softmax_max_abs_diff": other_diff.max().item(),
             "other_softmax_mean_abs_diff": other_diff.mean().item(),
-            "other_softmax_differing_share": (other_diff > 0).float().mean().item(),
-            "stats_max_rel_err": ((stats[0] - ref_stats[0]).abs()
-                                  / ref_stats[0].abs().clamp_min(1.0)).max().item(),
-            "stats_sum_rel_err": ((stats[1] - ref_stats[1]).abs() / ref_stats[1]).max().item()})
+            "other_softmax_differing_share": (other_diff > 0).float().mean().item()})
     else:
         # fp32 inputs softmax in fp32 in both modes: the probe is the mask dropped
         no_mask, _ = ca.flash_attention_plain(q, k, v, None, softmax_fp32=sm32, **kw)
@@ -809,9 +849,10 @@ def kernel_shape(dev, g, spec) -> dict:
         bi, qi = torch.nonzero(~valid, as_tuple=True)
         want = v.float().mean(dim=1)[bi]
         row["masked_row_uniform_err"] = (ctx[bi, qi].float() - want).abs().max().item()
-        row["masked_row_uniform_bound"] = UNIFORM_ULPS * bf16_ulp(want.abs().max().item())
+        row["masked_row_uniform_bound"] = (UNIFORM_ULPS * bf16_ulp(want.abs().max().item())
+                                           if dtype == "bf16" else row["max_abs_err_bound"])
     kw["softmax_fp32"] = sm32
-    row["ms"] = cuda_ms(lambda: ca.attention_fwd_cuda(q, k, v, mask, **kw))
+    row["ms"] = cuda_ms(lambda: ca.attention_fwd_cuda(q, k, v, mask, **saved, **kw))
     row["plain_ms"] = cuda_ms(lambda: ca.flash_attention_plain(q, k, v, mask, **kw))
     row["bound_ms"], row["bound_by"] = attn_bound(spec, False, mask)
     # the yardstick: one torch call of the same function, where there is one
@@ -840,10 +881,10 @@ def check_kernel_row(row: dict) -> None:
         check(row["other_softmax_mean_abs_diff"] > CTX_MEAN_TOL,
               f"{name}: the other softmax mode passes the mean bound "
               f"({row['other_softmax_mean_abs_diff']}), so the check cannot see it")
-        tol = STATS_RTOL[row["softmax"]]
-        check(row["stats_max_rel_err"] <= tol[0] and row["stats_sum_rel_err"] <= tol[1],
-              f"{name}: saved stats off: max {row['stats_max_rel_err']}, "
-              f"sum {row['stats_sum_rel_err']} (bounds {tol})")
+    tol = STATS_RTOL[row["softmax"]]
+    check(row["stats_max_rel_err"] <= tol[0] and row["stats_sum_rel_err"] <= tol[1],
+          f"{name}: saved stats off: max {row['stats_max_rel_err']}, "
+          f"sum {row['stats_sum_rel_err']} (bounds {tol})")
     if row["colsum"]:
         check(row["colsum_max_rel_err"] <= COLSUM_RTOL,
               f"{name}: colsum rel err {row['colsum_max_rel_err']}")
@@ -858,7 +899,7 @@ def kernel_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES:
+    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES:
         row = kernel_shape(dev, g, spec)
         print(f"[kernel] {json.dumps(row)}", flush=True)
         check_kernel_row(row)
@@ -887,33 +928,35 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
-    name, b, s, masked, colsum, sm32, heads, dtype = spec_parts(spec)
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype)
-    do = (0.1 * torch.randn((b, s, heads * D_HEAD), generator=g, device=dev)).to(q.dtype)
+    name, b, s, masked, colsum, sm32, heads, dtype, d = spec_parts(spec)
+    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
+    do = (0.1 * torch.randn((b, s, heads * d), generator=g, device=dev)).to(q.dtype)
     gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
     kw = dict(num_heads=heads, softmax_fp32=sm32)
     got = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
     again = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
-    stats = None
-    if dtype == "bf16":
-        # the path's call: K1's saved row max and sum instead of K2's own pass
-        stats = ca.new_stats(q, heads)
-        ca.attention_fwd_cuda(q, k, v, mask, stats=stats, collect_colsum=False, **kw)
-        saved = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats, **kw)
+    # the path's call: K1's saved row max and sum (and in fp32 the mask's
+    # tile classes) instead of K2's own pass
+    saved_kw = dict(stats=ca.new_stats(q, heads),
+                    tile_class=None if dtype == "bf16" or mask is None
+                    else ca.new_tile_class(mask))
+    ca.attention_fwd_cuda(q, k, v, mask, collect_colsum=False, **saved_kw, **kw)
+    saved = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **saved_kw, **kw)
     torch.cuda.synchronize()
     ref = ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw)
-    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "dtype": dtype,
-           "masked": masked, "colsum_cotangent": colsum, "softmax": "fp32" if sm32 else "bf16",
+    row = {"shape": name, "batch": b, "seq": s, "heads": heads, "head_dim": d,
+           "dtype": dtype, "masked": masked, "colsum_cotangent": colsum,
+           "softmax": "fp32" if sm32 else "bf16",
            "grads": grad_errors(got, ref, dtype),
-           "bitwise_repeatable": all(torch.equal(a, b_) for a, b_ in zip(got, again))}
+           "bitwise_repeatable": all(torch.equal(a, b_) for a, b_ in zip(got, again)),
+           "saved_stats_equal": all(torch.equal(a, b_) for a, b_ in zip(got, saved))}
     if dtype == "bf16":
         other = ca.attention_bwd_plain(q, k, v, mask, do, gcol, num_heads=heads,
                                        softmax_fp32=not sm32)
-        row["saved_stats_equal"] = all(torch.equal(a, b_) for a, b_ in zip(got, saved))
         row["other_softmax_mean_abs_diff"] = min(
             e["mean_abs_err"] for e in grad_errors(other, ref).values())
     else:
-        # fp32: no saved stats, one softmax; the probe is the mask dropped
+        # fp32: one softmax; the probe is the mask dropped
         nom = ca.attention_bwd_plain(q, k, v, None, do, gcol, **kw)
         row["no_mask_rel_diff"] = min(e["max_abs_err"] / e["max_abs_err_bound"]
                                       for e in grad_errors(nom, ref, dtype).values())
@@ -924,11 +967,10 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
         bi, qi = torch.nonzero(~valid, as_tuple=True)
         row["dq_masked_rows_max_abs"] = got[0][bi, qi].float().abs().max().item()
     row["max_abs_err"] = max(e["max_abs_err"] for e in row["grads"].values())
-    row["ms"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
-                                                      stats=stats, **kw))
-    row["ms_without_stats"] = (cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
-                                                                     **kw))
-                               if stats is not None else row["ms"])
+    row["ms"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **saved_kw,
+                                                      **kw))
+    row["ms_without_stats"] = cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, gcol,
+                                                                    **kw))
     row["plain_ms"] = cuda_ms(lambda: ca.attention_bwd_plain(q, k, v, mask, do, gcol, **kw))
     row["bound_ms"], row["bound_by"] = attn_bound(spec, True, mask)
     # the yardstick: the backward of torch's attention (fp32 softmax, and no
@@ -936,7 +978,7 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     views, bias = sdpa_args(*leaves, mask, heads)
     out = F.scaled_dot_product_attention(*views, attn_mask=bias)
-    do4 = do.view(b, s, heads, D_HEAD).transpose(1, 2)
+    do4 = do.view(b, s, heads, d).transpose(1, 2)
     row["library_ms"] = cuda_ms(
         lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True))
     row["library_note"] = ("backward of scaled_dot_product_attention: fp32 "
@@ -949,6 +991,8 @@ def bwd_kernel_shape(dev, g, spec) -> dict:
 def check_bwd_row(row: dict) -> None:
     name = row["shape"]
     check(row["bitwise_repeatable"], f"{name}: two K2 runs differ")
+    check(row["saved_stats_equal"],
+          f"{name}: K2 fed K1's saved stats differs from K2 computing them")
     for g, e in row["grads"].items():
         check(e["max_abs_err"] <= e["max_abs_err_bound"],
               f"{name}: {g} max err {e['max_abs_err']} > {e['max_abs_err_bound']}")
@@ -957,8 +1001,6 @@ def check_bwd_row(row: dict) -> None:
               f"{name}: a backward without the mask passes the bounds "
               f"({row['no_mask_rel_diff']} of them), so the check cannot see it")
     else:
-        check(row["saved_stats_equal"],
-              f"{name}: K2 fed K1's saved stats differs from K2 computing them")
         for g, e in row["grads"].items():
             check(e["mean_abs_err"] <= GRAD_MEAN_TOL,
                   f"{name}: {g} mean err {e['mean_abs_err']} > {GRAD_MEAN_TOL}")
@@ -981,7 +1023,7 @@ def bwd_kernel_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES:
+    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES:
         row = bwd_kernel_shape(dev, g, spec)
         print(f"[kernel2] {json.dumps(row)}", flush=True)
         check_bwd_row(row)
@@ -1090,7 +1132,8 @@ def parent_calls(libs, dev):
             cs = torch.empty((b, sk), device=dev)
         err = libs["attention_fwd"].merlot_attention_fwd(
             ptr(q), ptr(k), ptr(v), ptr(mask), ptr(out), ptr(part), ptr(cs), b, sq, sk,
-            heads, hd // heads, 1, int(sm32), (hd // heads) ** -0.5, stream())
+            heads, hd // heads, int(q.dtype == torch.bfloat16), int(sm32),
+            (hd // heads) ** -0.5, stream())
         check(err == 0, f"first-design K1 failed: {err}")
         return out
 
@@ -1101,8 +1144,8 @@ def parent_calls(libs, dev):
         stats = torch.empty(3 * b * heads * sq, device=dev)
         err = libs["attention_bwd"].merlot_attention_bwd(
             ptr(q), ptr(k), ptr(v), ptr(mask), ptr(do), ptr(gcol), ptr(dq), ptr(dk),
-            ptr(dv), ptr(stats), b, sq, sk, heads, hd // heads, 1, int(sm32),
-            (hd // heads) ** -0.5, stream())
+            ptr(dv), ptr(stats), b, sq, sk, heads, hd // heads,
+            int(q.dtype == torch.bfloat16), int(sm32), (hd // heads) ** -0.5, stream())
         check(err == 0, f"first-design K2 failed: {err}")
         return dq, dk, dv
 
@@ -1153,18 +1196,58 @@ def in_turns(first, second, iters: int = 10, timer=cuda_ms) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def first_design_phase(dev, parent_dir: Path) -> dict:
-    """The first designs against the current kernels at every K1, K2, K4
-    and K5 shape and K3's prefill shapes, in turns on this card; each pair's
-    largest output difference is reported."""
+def first_design_phase(dev, old) -> dict:
+    """The first designs (``old``: parent_calls' callables) against the
+    current kernels at every K1, K2, K4 and K5 shape and K3's prefill
+    shapes, in turns on this card, and at Grover training's fp32 shape
+    beside SDPA and the plain versions; each pair's largest output
+    difference is reported."""
     import torch
+    import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
     from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops import cuda_ln_matmul as lm
 
-    fwd, bwd, stacked, old_gn, old_ln = parent_calls(parent_libraries(parent_dir), dev)
+    fwd, bwd, stacked, old_gn, old_ln = old
     g = torch.Generator(device=dev).manual_seed(6)
     rows = []
+    # Grover training's fp32 K1 and K2 (the first design's FMA route, PR 2's,
+    # unchanged until this one) on the path's calls: K1 saving its stats
+    # and tile classes, K2 taking them
+    for spec in GROVER_TRAIN_SHAPES:
+        name, b, s, masked, colsum, sm32, heads, dtype, d = spec_parts(spec)
+        q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
+        do = 0.1 * torch.randn((b, s, heads * d), generator=g, device=dev)
+        kw = dict(num_heads=heads, softmax_fp32=sm32)
+        saved = dict(stats=ca.new_stats(q, heads), tile_class=ca.new_tile_class(mask))
+        new = lambda: ca.attention_fwd_cuda(q, k, v, mask, collect_colsum=colsum, **saved,
+                                            **kw)[0]
+        prev = lambda: fwd(q, k, v, mask, sm32, colsum, heads)
+        diff = (new() - prev()).abs().max().item()
+        first_ms, ms = in_turns(prev, new)
+        views, bias = sdpa_args(q, k, v, mask, heads)
+        rows.append({"kernel": "K1", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff,
+                     "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                         *views, attn_mask=bias)),
+                     "plain_ms": cuda_ms(lambda: ca.flash_attention_plain(
+                         q, k, v, mask, collect_colsum=colsum, **kw))})
+        new = lambda: ca.attention_bwd_cuda(q, k, v, mask, do, None, **saved, **kw)
+        prev = lambda: bwd(q, k, v, mask, do, None, sm32, heads)
+        diff = max((x - y).abs().max().item() for x, y in zip(new(), prev()))
+        first_ms, ms = in_turns(prev, new)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lviews, _ = sdpa_args(*leaves, mask, heads)
+        out = F.scaled_dot_product_attention(*lviews, attn_mask=bias)
+        do4 = do.view(b, s, heads, d).transpose(1, 2)
+        rows.append({"kernel": "K2", "shape": name, "first_design_ms": first_ms, "ms": ms,
+                     "speedup": first_ms / ms, "max_abs_diff": diff,
+                     "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                         out, leaves, do4, retain_graph=True)),
+                     "plain_ms": cuda_ms(lambda: ca.attention_bwd_plain(
+                         q, k, v, mask, do, None, **kw))})
+        del q, k, v, mask, do, saved, leaves, lviews, out, do4, views, bias
+        torch.cuda.empty_cache()
     for name, b, s, masked, colsum, sm32 in ATTN_SHAPES:
         q, k, v, mask, _ = attn_inputs(dev, g, b, s, masked)
         # the train step's K1 also saves the softmax stats for K2
@@ -1242,7 +1325,13 @@ def first_design_phase(dev, parent_dir: Path) -> dict:
         "k3_prefill": (per("K3", ("prefill_b8_bf16",), "first_design_ms", 24),
                        per("K3", ("prefill_b8_bf16",), "ms", 24)),
         "k3_decode_step": (per("K3", ("decode_b8_bf16_bench",), "first_design_ms", 24),
-                           per("K3", ("decode_b8_bf16_bench",), "ms", 24))}
+                           per("K3", ("decode_b8_bf16_bench",), "ms", 24)),
+        "k3_prefill_fp32": (per("K3", ("prefill_b2_fp32",), "first_design_ms", 24),
+                            per("K3", ("prefill_b2_fp32",), "ms", 24)),
+        "k1_grover_step": (per("K1", ("grover_train",), "first_design_ms", 24),
+                           per("K1", ("grover_train",), "ms", 24)),
+        "k2_grover_step": (per("K2", ("grover_train",), "first_design_ms", 24),
+                           per("K2", ("grover_train",), "ms", 24))}
     # K4: each shape times its sites per forward; K5: 12 layers per shape
     for path, frames in (("train_step", TRAIN_BATCH * TRAIN_CHUNKS),
                          ("zero_shot_batch", 2 * STORIES * CHUNKS)):
@@ -1834,10 +1923,10 @@ def train_phase(dev) -> dict:
            "grads": kernel_grads}
     ca.launches = ca.bwd_launches = 0
     s1, s2 = [], []
-    # the plain versions in the kernels' places: they take no saved stats
-    # (the plain backward recomputes P)
-    plain_fwd = lambda *a, stats=None, **kw: ca.flash_attention_plain(*a, **kw)
-    plain_bwd = lambda *a, stats=None, **kw: ca.attention_bwd_plain(*a, **kw)
+    # the plain versions in the kernels' places: they take no saved stats or
+    # tile classes (the plain backward recomputes P)
+    plain_fwd = lambda *a, stats=None, tile_class=None, **kw: ca.flash_attention_plain(*a, **kw)
+    plain_bwd = lambda *a, stats=None, tile_class=None, **kw: ca.attention_bwd_plain(*a, **kw)
     with wrapped(merlot_mod, "attention_guided_span_mask", pin), \
             wrapped(ca, "attention_fwd_cuda", lambda f: event_timed(s1)(plain_fwd)), \
             wrapped(ca, "attention_bwd_cuda", lambda f: event_timed(s2)(plain_bwd)):
@@ -2045,8 +2134,13 @@ def ab_phase(dev) -> dict:
 def kernel_family(name: str) -> str:
     """A coarse family for a kernel name in a profile: this package's
     kernels, library matmuls and convolutions, or everything else
-    (elementwise, reductions, norms, copies, RNG)."""
+    (elementwise, reductions, norms, copies, RNG). The fp32 routes' mask
+    classifier has a family of its own: an fp32 K1 call with a mask
+    launches it beside its main kernel (K2's entry does too when it is
+    given no saved stats, and K3's fp32 prefill)."""
     low = name.lower()
+    if "mask_tile_classes" in low:
+        return "K1 mask_tile_classes"
     if any(t in low for t in ("::gn_kernel<", "gn_kerneli")):  # demangled or mangled
         return "K4 groupnorm"
     if "ln_matmul" in low:
@@ -2124,6 +2218,45 @@ def profile_device(run, label: str, family=kernel_family, counted=None, **info) 
     print(f"[{label}] {json.dumps({k: summary[k] for k in summary if k != 'top_kernels'})}",
           flush=True)
     return summary
+
+
+def grover_profile_child(ckpt: str, train_files: str, out: str) -> int:
+    """``chip_smoke.py --grover-profile CKPT --train-files GLOB --out JSON``:
+    the Grover training step's checked profile in a process of its own
+    (``profile_steps``: two steps of grover_train's step function at CKPT's
+    weights on the shards' first batch, already on the card, after one
+    unprofiled step), written to JSON. In the Grover phase's own process,
+    after the earlier phases' profiles, every such profile has lacked the
+    records of one layer's forward (one K1 call with its matmuls and
+    elementwise kernels); in a fresh process it has held every time."""
+    import glob
+    import torch
+    from merlot_tpu_torch.convert import load_flax_params
+    from merlot_tpu_torch.models.grover import GroverConfig, GroverLM
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.tools import grover_train
+    from merlot_tpu_torch.tools.grover_data import lm_batches
+    from merlot_tpu_torch.train.checkpoint import load_params
+    from merlot_tpu_torch.train.train_step import init_train_state, make_loss_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = GroverConfig.from_json_file(str(ROOT / "configs" / "grover_medium.json"))
+    model = GroverLM(cfg, device=dev)
+    opt = grover_train.grover_optimizer(1e-5, GT_STEPS, GT_REDUCED["num_warmup_steps"][1])
+    state = init_train_state(model, opt, seed=0)
+    load_flax_params(model, load_params(ckpt))
+    step = make_loss_train_step(grover_train.make_grover_loss(cfg, 4.0), opt, device=dev)
+    first = next(lm_batches(sorted(glob.glob(train_files)), GT_SEQ, GT_BATCH))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    step(model, state, batch, torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    prof = profile_steps(dev, step, model, state, batch, "grover-train-profile",
+                         counted={("K1 attention_fwd",): lambda: ca.launches,
+                                  ("K2 attention_bwd",): lambda: 2 * ca.bwd_launches})
+    Path(out).write_text(json.dumps(prof))
+    return 0
 
 
 def profile_steps(dev, step, model, state, batch, label: str = "profile",
@@ -2707,32 +2840,56 @@ def cli_yaml(out_dir: Path, train_glob: str, val_glob: str) -> tuple:
 
 
 def jpeg_route_check() -> dict:
-    """The machine's JPEG route against the committed fixture (three JPEGs
-    and the pixels PIL decodes from them): bit for bit for libjpeg, within
-    NVJPEG_MAX_ERR / NVJPEG_MEAN_ERR levels for nvJPEG."""
+    """The JPEG routes against the committed fixture (three JPEGs and the
+    pixels PIL decodes from them): the machine's default route, libjpeg or
+    pil (never nvJPEG where PIL imports), bit for bit; nvJPEG, asked for by
+    name where the CUDA toolkit has it, within NVJPEG_MAX_ERR /
+    NVJPEG_MEAN_ERR levels; and through each, a CMYK JPEG made here with
+    PIL (the decoders refuse it and PIL decodes it, as in the JAX package)
+    equal to PIL's pixels."""
+    import io
     import numpy as np
+    from PIL import Image
     from merlot_tpu_torch.data import _native
 
     route = _native.jpeg_route()
-    rows = []
+    check(route in ("libjpeg", "pil"), f"the default JPEG route is {route}, not JAX's pixels")
+    routes = [route] + (["nvjpeg"] if _native._nvjpeg_header() is not None else [])
+    rgb = np.random.default_rng(3).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(buf, format="JPEG", quality=90)
+    want_cmyk = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    rows, cmyk = {r: [] for r in routes}, {}
     with np.load(ROOT / "merlot_tpu_torch" / "assets" / "jpeg_fixture.npz") as z:
-        for i in range(3):
-            got = _native.decode_jpeg(z[f"jpeg{i}"].tobytes()).astype(np.int16)
-            want = z[f"pixels{i}"].astype(np.int16)
-            check(got.shape == want.shape, f"jpeg fixture {i}: {got.shape} vs {want.shape}")
-            err = np.abs(got - want)
-            rows.append({"shape": list(want.shape), "max_abs_err": int(err.max()),
-                         "mean_abs_err": float(err.mean()),
-                         "share_differing": float((err > 0).mean())})
-    result = {"route": route, "fixture": rows}
+        for r in routes:
+            _native.set_jpeg_route(r)
+            try:
+                for i in range(3):
+                    got = _native.decode_jpeg(z[f"jpeg{i}"].tobytes()).astype(np.int16)
+                    want = z[f"pixels{i}"].astype(np.int16)
+                    check(got.shape == want.shape,
+                          f"{r} jpeg fixture {i}: {got.shape} vs {want.shape}")
+                    err = np.abs(got - want)
+                    rows[r].append({"shape": list(want.shape), "max_abs_err": int(err.max()),
+                                    "mean_abs_err": float(err.mean()),
+                                    "share_differing": float((err > 0).mean())})
+                cmyk[r] = _native.decode_jpeg(buf.getvalue())
+            finally:
+                _native.set_jpeg_route(None)
+    result = {"route": route, "fixture": rows[route],
+              "nvjpeg_fixture": rows.get("nvjpeg"),
+              "cmyk": {r: {"shape": list(x.shape),
+                           "equals_pil": bool(np.array_equal(x, want_cmyk))}
+                       for r, x in cmyk.items()}}
     print(f"[jpeg] {json.dumps(result)}", flush=True)
-    for r in rows:
-        if route == "libjpeg":
-            check(r["max_abs_err"] == 0, f"libjpeg decode differs from the fixture: {rows}")
-        else:
-            check(r["max_abs_err"] <= NVJPEG_MAX_ERR and r["mean_abs_err"] <= NVJPEG_MEAN_ERR,
-                  f"nvJPEG decode vs the fixture beyond ({NVJPEG_MAX_ERR}, "
-                  f"{NVJPEG_MEAN_ERR}): {rows}")
+    for r in rows[route]:
+        check(r["max_abs_err"] == 0, f"{route} decode differs from the fixture: {rows[route]}")
+    for r in rows.get("nvjpeg", []):
+        check(r["max_abs_err"] <= NVJPEG_MAX_ERR and r["mean_abs_err"] <= NVJPEG_MEAN_ERR,
+              f"nvJPEG decode vs the fixture beyond ({NVJPEG_MAX_ERR}, "
+              f"{NVJPEG_MEAN_ERR}): {rows['nvjpeg']}")
+    for r, c in result["cmyk"].items():
+        check(c["shape"] == [48, 64, 3] and c["equals_pil"], f"{r}: the CMYK JPEG gave {c}")
     return result
 
 
@@ -2984,10 +3141,10 @@ def counting_steps(per_step: list, windows: list):
     return counting
 
 
-def window_profiles(per_step: list, windows: list, label: str) -> tuple:
+def window_summaries(per_step: list, windows: list, label: str) -> list:
     """The profiles of ``counting_steps``' windows, each with its (profiled,
     counted) K1/K2 launches (a K2 call launches two kernels, the rows and
-    the column kernel), and the first that held every counted launch."""
+    the column kernel) and whether it held them all."""
     check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
           f"[{label}] profiled {[w['steps'] for w in windows]}")
     profiles = []
@@ -3006,6 +3163,12 @@ def window_profiles(per_step: list, windows: list, label: str) -> tuple:
         print(f"[{label}] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
               flush=True)
     windows.clear()
+    return profiles
+
+
+def window_profiles(per_step: list, windows: list, label: str) -> tuple:
+    """``window_summaries`` and the first that held every counted launch."""
+    profiles = window_summaries(per_step, windows, label)
     held = [p for p in profiles if p["held_all"]]
     check(held, f"[{label}] no profile held the K1/K2 launches counted in its window: "
                 f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
@@ -3028,6 +3191,7 @@ def cli_phase(dev, tmp: Path) -> dict:
     import torch
     from merlot_tpu_torch.convert import flax_layout, flax_path, load_flax_params
     from merlot_tpu_torch.core.config import NeatConfig
+    from merlot_tpu_torch.data import _native
     from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
     from merlot_tpu_torch.models.config import MerlotConfig
     from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
@@ -3057,7 +3221,15 @@ def cli_phase(dev, tmp: Path) -> dict:
     # cores this process gets (the loader caps its threads there)
     cores = len(os.sched_getaffinity(0))
     loader = [loader_rate(train_files, merged, n)
-              for n in dict.fromkeys((config.data["num_threads"], cores, max(1, cores // 2)))]
+              for n in dict.fromkeys((config.data["num_threads"], cores))]
+    # at the cores, the default JPEG route and nvJPEG in turns
+    by_route = {jpeg["route"]: [], "nvjpeg": []} if jpeg["nvjpeg_fixture"] else {}
+    for route in (jpeg["route"], "nvjpeg", "nvjpeg", jpeg["route"]) if by_route else ():
+        _native.set_jpeg_route(route)
+        by_route[route].append(loader_rate(train_files, merged, cores)["segments_per_s"])
+    _native.set_jpeg_route(None)
+    loader_routes = {r: statistics.mean(x) for r, x in by_route.items()}
+    print(f"[cli-jpeg-routes] {json.dumps(by_route)}", flush=True)
     skip = skip_rate(train_files, merged)
     print(f"[cli-skip] {json.dumps(skip)}", flush=True)
     h2d = h2d_check(dev, train_files, merged)
@@ -3174,6 +3346,8 @@ def cli_phase(dev, tmp: Path) -> dict:
     ckpt_dir = Path(a_ckpt.path(CLI_STEPS))
     result = {
         "card": card, "jpeg_route": jpeg["route"], "jpeg_fixture": jpeg["fixture"],
+        "jpeg": jpeg, "loader_by_jpeg_route": by_route,
+        "loader_by_jpeg_route_mean": loader_routes,
         "reduced": reduced, "data": data,
         "cli_segments_per_s": segments * statistics.median(rate),
         "cli_steps_per_sec_3_to_8": rate,
@@ -3198,7 +3372,8 @@ def cli_phase(dev, tmp: Path) -> dict:
     print(f"[cli] {card}: {result['cli_segments_per_s']:.2f} segments/s through the CLI; "
           f"synthetic-batch step {result['synthetic_segments_per_s']} before and after; "
           f"loader alone {[round(r['segments_per_s'], 2) for r in loader]} at "
-          f"{[r['threads'] for r in loader]} threads; Trainer fed "
+          f"{[r['threads'] for r in loader]} threads, by JPEG route {loader_routes}; "
+          f"Trainer fed "
           f"{[(r['feed'], r['threads'], round(r['segments_per_s'], 2)) for r in feeds]}; "
           f"resume skip {skip['records_per_s']:.0f} records/s; B's device idle "
           f"{prof['device_idle_share']:.3f} (steps {prof['steps']}); JPEG route {jpeg['route']}; checkpoint "
@@ -3594,8 +3769,8 @@ def vcr_phase(dev, tmp: Path) -> dict:
     it.close()
     r = torch.randn((2 * VCR_BATCH, 4), generator=torch.Generator(device=dev).manual_seed(9),
                     device=dev)
-    plain_fwd = lambda *a, stats=None, **kw: ca.flash_attention_plain(*a, **kw)
-    plain_bwd = lambda *a, stats=None, **kw: ca.attention_bwd_plain(*a, **kw)
+    plain_fwd = lambda *a, stats=None, tile_class=None, **kw: ca.flash_attention_plain(*a, **kw)
+    plain_bwd = lambda *a, stats=None, tile_class=None, **kw: ca.attention_bwd_plain(*a, **kw)
     no_mask_fwd = lambda q, k, v, mask, *a, **kw: plain_fwd(q, k, v, None, *a, **kw)
     no_mask_bwd = lambda q, k, v, mask, *a, **kw: plain_bwd(q, k, v, None, *a, **kw)
 
@@ -3771,16 +3946,81 @@ def grover_step_flops(cfg) -> tuple:
     return params, 6 * params * GT_BATCH * GT_SEQ + cfg.num_hidden_layers * attn
 
 
-def grover_train_phase(dev, tmp: Path) -> dict:
+def grover_turns(dev, model, batch, old, pad_token_id) -> dict:
+    """The Grover step's forward and backward (the loss of run B's weights
+    on the first batch at GT_BATCH x GT_SEQ, no optimizer) through the first
+    design's fp32 K1 and K2 (``old``) and the current ones, in turns (first,
+    current, current, first; GT_TURN_STEPS timed after one warm-up each):
+    seconds and tokens/s, and K1/K2 ms per step from CUDA events around
+    their launches."""
+    import torch
+    from merlot_tpu_torch.models.grover import grover_lm_loss
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    fwd, bwd = old[:2]
+    ids = torch.from_numpy(batch["input_ids"]).to(dev)
+    is_t = torch.from_numpy(batch["is_target"]).to(dev)
+    first_fwd = lambda f: lambda q3, k3, v3, mask, *, num_heads, softmax_fp32, \
+        collect_colsum, **_: (fwd(q3, k3, v3, mask, softmax_fp32, collect_colsum, num_heads),
+                              None)
+    first_bwd = lambda f: lambda q3, k3, v3, mask, g3, gcol, *, num_heads, softmax_fp32, \
+        **_: bwd(q3, k3, v3, mask, g3, gcol, softmax_fp32, num_heads)
+
+    def step():
+        for p in model.parameters():
+            p.grad = None
+        logits, _ = model(ids[:, :-1], attn_backend="cuda")
+        loss, _ = grover_lm_loss(logits, ids[:, :-1], is_t[:, 1:], pad_token_id=pad_token_id)
+        loss.backward()
+
+    def run(design: str) -> dict:
+        k1, k2 = [], []
+        with contextlib.ExitStack() as stack:
+            if design == "first":
+                stack.enter_context(wrapped(ca, "attention_fwd_cuda", first_fwd))
+                stack.enter_context(wrapped(ca, "attention_bwd_cuda", first_bwd))
+            stack.enter_context(wrapped(ca, "attention_fwd_cuda", event_timed(k1)))
+            stack.enter_context(wrapped(ca, "attention_bwd_cuda", event_timed(k2)))
+            step()
+            torch.cuda.synchronize()
+            k1.clear(), k2.clear()
+            t0 = time.perf_counter()
+            for _ in range(GT_TURN_STEPS):
+                step()
+            torch.cuda.synchronize()
+            seconds = (time.perf_counter() - t0) / GT_TURN_STEPS
+        return {"step_seconds": seconds, "tokens_per_s": GT_BATCH * GT_SEQ / seconds,
+                "k1_ms_per_step": spans_ms(k1) / GT_TURN_STEPS,
+                "k2_ms_per_step": spans_ms(k2) / GT_TURN_STEPS}
+
+    runs = {"first": [], "current": []}
+    for design in ("first", "current", "current", "first"):
+        runs[design].append(run(design))
+    for p in model.parameters():
+        p.grad = None
+    out = {design: {k: statistics.mean(r[k] for r in rs) for k in rs[0]}
+           for design, rs in runs.items()}
+    out["runs"] = runs
+    out["speedup"] = out["first"]["step_seconds"] / out["current"]["step_seconds"]
+    print(f"[grover-turns] {json.dumps(out)}", flush=True)
+    return out
+
+
+def grover_train_phase(dev, tmp: Path, old=None) -> dict:
     """Grover denoiser training at grover-medium's full width and depth in
     fp32 through its entry point: run A (`python -m
     merlot_tpu_torch.tools.grover_train` in a subprocess: 8 steps,
     checkpoints at 4 and 8), run B (grover_train.main in this process from
-    A's ckpt_4, with the kernels' counters and a profile of two steps)
-    against A, one step's loss and grads through the kernels against the
-    plain attention (and with the causal mask dropped on the kernel side),
-    and A's ckpt_8 served by the port's Denoiser against the trained
-    model's forward."""
+    A's ckpt_4, with the kernels' counters) against A, one step's loss and
+    grads through the kernels against the plain attention (and with the
+    causal mask dropped on the kernel side), the profiles of run B's own
+    windows (loader on; reported, not checked), with ``old`` (parent_calls'
+    callables) the step's forward and backward at the full batch through
+    the first design's fp32 K1 and K2 and through the current ones, in
+    turns, the side loop's profile in a process of its own
+    (``grover_profile_child``, checked to hold every counted launch), and
+    A's ckpt_8 served by the port's Denoiser against the trained model's
+    forward."""
     import gc
     import shutil
     import torch
@@ -3842,7 +4082,11 @@ def grover_train_phase(dev, tmp: Path) -> dict:
         b_seconds = time.perf_counter() - t0
     launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    profiles, prof = window_profiles(per_step, windows, "grover-train-profile")
+    # run B's own windows, the loader on: reported beside the side loop's
+    # checked profile below, not checked (on the card a window of run B
+    # has lacked one K1 record of its 24 or 48, a loss not yet explained;
+    # each window's families show whether its mask classifier's went too)
+    b_windows = window_summaries(per_step, windows, "grover-train-run-b")
     b_train = {x["step"]: x for x in jsonl(d / "b" / "train_metrics.jsonl")}
     check(sorted(b_train) == list(range(GT_CKPT_EVERY + 1, GT_STEPS + 1)),
           f"Grover run B logged steps {sorted(b_train)}: it did not resume at {GT_CKPT_EVERY}")
@@ -3883,11 +4127,23 @@ def grover_train_phase(dev, tmp: Path) -> dict:
     loss_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
     broken_loss_rel = abs(broken_loss - plain_loss) / abs(plain_loss)
     n_params = sum(p.numel() for p in model.parameters())
+    del plain_grads, broken_grads
+    turns = grover_turns(dev, model, first, old, cfg.pad_token_id) if old else None
     for p in model.parameters():
         p.grad = None
-    del model, plain_grads, broken_grads
+    del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the step's device time by kernel family and the device's idle share:
+    # the side loop (``grover_profile_child``) in a process of its own, at
+    # A's step-8 weights (B's, bit for bit)
+    prof_json = d / "side_loop_profile.json"
+    rc, side_s, _ = run_module("chip_smoke", ["--grover-profile", a_ckpt.path(GT_STEPS),
+                                              "--train-files", f"{d}/shards/lm-*.tfrecord",
+                                              "--out", prof_json], ROOT, d / "side_loop.log")
+    check(rc == 0, f"the Grover side loop's profile exited {rc}")
+    prof = json.loads(prof_json.read_text())
 
     # the round trip: A's last checkpoint served by the Denoiser
     trained = GroverLM(cfg, device=dev).eval()
@@ -3916,7 +4172,11 @@ def grover_train_phase(dev, tmp: Path) -> dict:
     mm_params, step_flops = grover_step_flops(cfg)
     step_s = 1 / statistics.median(rate)
     bound_s = step_flops / PEAK_FP32_FLOPS
-    steps_in = lambda fam: prof["families"].get(fam, {"ms": 0.0})["ms"] / len(prof["steps"])
+
+    def steps_in(fam: str, p=prof) -> float:
+        steps = p["steps"] if isinstance(p["steps"], int) else len(p["steps"])
+        return p["families"].get(fam, {"ms": 0.0})["ms"] / steps
+
     result = {
         "card": card, "config": "configs/grover_medium.json", "params": n_params,
         "matmul_params": mm_params,
@@ -3932,23 +4192,42 @@ def grover_train_phase(dev, tmp: Path) -> dict:
         "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
         "a_trg_loss": {s: a_train[s]["trg_loss"] for s in sorted(a_train)},
         "resume_loss_rel_gap": loss_gap, "launches": launches, "launches_per_step": per_step,
-        "peak_mem_gib": peak_gib, "device_idle_share": prof["device_idle_share"],
-        "profile": prof, "profiles_held_all": [p["held_all"] for p in profiles],
-        "k1_ms_per_step": steps_in("K1 attention_fwd"),
+        "peak_mem_gib": peak_gib,
+        "profile_source": "side loop in a process of its own: two steps of "
+                          "grover_train's step function at A's step-8 weights on one "
+                          "batch already on the card, no loader",
+        "side_loop_seconds": side_s,
+        "device_idle_share": prof["device_idle_share"],
+        "profile": prof, "profile_tries": prof["tries"],
+        # K1's time counts its mask classifier's, launched in each call
+        "k1_ms_per_step": steps_in("K1 attention_fwd") + steps_in("K1 mask_tile_classes"),
+        "k1_classes_ms_per_step": steps_in("K1 mask_tile_classes"),
         "k2_ms_per_step": steps_in("K2 attention_bwd"),
+        "run_b_windows": [
+            {"steps": w["steps"], "held_all": w["held_all"],
+             "profiled_vs_counted": w["profiled_vs_counted"],
+             "classes_launches": w["families"].get("K1 mask_tile_classes",
+                                                   {"launches": 0})["launches"],
+             "device_idle_share": w["device_idle_share"],
+             "k1_ms_per_step": steps_in("K1 attention_fwd", w)
+             + steps_in("K1 mask_tile_classes", w),
+             "k2_ms_per_step": steps_in("K2 attention_bwd", w)} for w in b_windows],
         "kernel_loss": kernel_loss, "plain_loss": plain_loss, "loss_rel_diff": loss_rel,
         "grads_vs_plain": gap, "mask_dropped_loss_rel_diff": broken_loss_rel,
         "mask_dropped_grads_vs_plain": broken,
         "roundtrip": {"rows": rt_rows, "tokens": rt_len, "max_abs_diff": roundtrip_gap,
-                      "vs_ckpt_4_max_abs_diff": earlier_gap, "launches": rt_launches}}
+                      "vs_ckpt_4_max_abs_diff": earlier_gap, "launches": rt_launches},
+        "first_design_turns": turns}
     print(f"[grover-train] {json.dumps({k: v for k, v in result.items() if k != 'profile'})}",
           flush=True)
     print(f"[grover-train] {card}: {result['tokens_per_s']:.1f} tokens/s through the CLI "
           f"(batch {GT_BATCH} x {GT_SEQ}, fp32); peak {peak_gib:.2f} GiB; a step "
           f"{step_s:.3f} s against the fp32 peak's {bound_s:.3f} s "
-          f"({result['fp32_peak_share']:.3f}); B's device idle "
-          f"{prof['device_idle_share']:.3f}; K1 {result['k1_ms_per_step']:.2f} and K2 "
-          f"{result['k2_ms_per_step']:.2f} ms per step (profiler)", flush=True)
+          f"({result['fp32_peak_share']:.3f}); the side loop's device idle "
+          f"{prof['device_idle_share']:.3f}, run B's windows' "
+          f"{[w['device_idle_share'] for w in result['run_b_windows']]}; K1 (classifier "
+          f"included) {result['k1_ms_per_step']:.2f} and K2 {result['k2_ms_per_step']:.2f} "
+          f"ms per step (side loop's profile)", flush=True)
     check(all(k1 == k2 == GT_LAUNCHES_PER_STEP for _, k1, k2 in per_step),
           f"Grover run B's K1/K2 launches per step {per_step}, want {GT_LAUNCHES_PER_STEP} each")
     check(loss_gap <= RESUME_LOSS_RTOL, f"Grover run B's losses vs A's: {loss_gap}")
@@ -4104,7 +4383,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     first = {k: fd["per_path"][k]["first_design_ms"] if fd else None
              for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill",
                        "k3_decode_step", "k4_train_step", "k4_zero_shot_batch",
-                       "k5_train_step", "k5_zero_shot_batch")}
+                       "k5_train_step", "k5_zero_shot_batch", "k3_prefill_fp32",
+                       "k1_grover_step", "k2_grover_step")}
     # per zero-shot batch (12 launches at each zero-shot shape), as ms and
     # plain_ms are
     zs = {r["shape"]: r for r in k1_rows}
@@ -4165,9 +4445,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
             e["k1_ms_per_batch"] for e in vcr["eval"].values()),
         **per_path("vcr_eval", zs, ("vcr_eval_vit", "vcr_eval_joint")),
         # per Grover train step (24 launches at B 8 x S 1536, 16 heads, fp32,
-        # causal): the profile of run B, and the per-call times at that shape
+        # causal): the side loop's profile (the mask classifier included),
+        # and the per-call times at that shape
         "grover_train_ms_per_step": gt["k1_ms_per_step"],
         "grover_train_shape_sum_ms": 24 * zs["grover_train"]["ms"],
+        "grover_train_first_design_ms": first["k1_grover_step"],
         **per_path("grover_train", zs, ("grover_train",), 24)}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
@@ -4198,11 +4480,12 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         # the profile of run B, and the per-call times at those shapes
         "vcr_train_ms_per_step": vcr["k2_ms_per_step"],
         **per_path("vcr_train", tb, ("vcr_vit", "vcr_joint")),
-        # per Grover train step (24 launches, fp32, causal): the profile of
-        # run B, and the per-call times at that shape (SDPA's backward is
+        # per Grover train step (24 launches, fp32, causal): the side loop's
+        # profile, and the per-call times at that shape (SDPA's backward is
         # the same function there)
         "grover_train_ms_per_step": gt["k2_ms_per_step"],
         "grover_train_shape_sum_ms": 24 * tb["grover_train"]["ms"],
+        "grover_train_first_design_ms": first["k2_grover_step"],
         **per_path("grover_train", tb, ("grover_train",), 24)}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
     # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
@@ -4212,6 +4495,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
     # generation, beside the bound of that generation's own decode steps
     k3 = {r["shape"]: r for r in k3_rows}["decode_b8_bf16_bench"]
     pre = {r["shape"]: r for r in k3_rows}["prefill_b8_bf16"]
+    pre32 = {r["shape"]: r for r in k3_rows}["prefill_b2_fp32"]
     k3_record = {
         "name": "attention_stacked", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/attention_stacked.cu",
@@ -4239,7 +4523,13 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "prefill_ms": 24 * pre["ms"], "prefill_plain_ms": 24 * pre["plain_ms"],
         "prefill_library_ms": 24 * pre["library_ms"],
         "prefill_bound_ms": 24 * pre["bound_ms"], "prefill_bound_by": pre["bound_by"],
-        "prefill_path_device_ms": gv["k3_prefill_device_ms"]}
+        "prefill_path_device_ms": gv["k3_prefill_device_ms"],
+        # the fp32 prefill (attention_fp32.cuh's K1 kernel): 24 launches at
+        # B=2, Sq=1024, Sk=1537, as Grover training's round trip serves
+        "prefill_fp32_ms": 24 * pre32["ms"], "prefill_fp32_plain_ms": 24 * pre32["plain_ms"],
+        "prefill_fp32_library_ms": 24 * pre32["library_ms"],
+        "prefill_fp32_bound_ms": 24 * pre32["bound_ms"],
+        "prefill_fp32_first_design_ms": first["k3_prefill_fp32"]}
     # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
     # on the fused path (torch.profiler over two steps, halved), "event_ms"
@@ -4313,12 +4603,18 @@ def main() -> int:
     ap.add_argument("--parent", type=Path,
                     help="a checkout of the first designs' commit (83510f1): time them "
                          "against the current K1-K5 (first_design phase)")
+    ap.add_argument("--grover-profile", metavar="CKPT",
+                    help="only the Grover training step's profile at this checkpoint "
+                         "(with --train-files and --out; the Grover phase runs it)")
+    ap.add_argument("--train-files", help="with --grover-profile: the LM shards' glob")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.grover_profile:
+        return grover_profile_child(args.grover_profile, args.train_files, args.out)
     from merlot_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4360,7 +4656,8 @@ def main() -> int:
     lap("k5")
     ab_rows = ablation_phase(dev)
     lap("ablation")
-    fd = first_design_phase(dev, args.parent) if args.parent else None
+    old = parent_calls(parent_libraries(args.parent), dev) if args.parent else None
+    fd = first_design_phase(dev, old) if old else None
     lap("first_design")
     sl, *zero_shot = slice_phase(dev)
     lap("zero_shot")
@@ -4393,7 +4690,7 @@ def main() -> int:
         vcr = vcr_phase(dev, Path(tmp))
     lap("vcr")
     with tempfile.TemporaryDirectory() as tmp:  # ~4.3 GB checkpoints
-        gt = grover_train_phase(dev, Path(tmp))
+        gt = grover_train_phase(dev, Path(tmp), old)
     lap("grover_train")
     with tempfile.TemporaryDirectory() as tmp:
         cp = corpus_phase(dev, Path(tmp))

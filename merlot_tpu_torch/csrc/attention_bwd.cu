@@ -39,8 +39,15 @@
 // the fp32-softmax mode: each is split into three bf16 terms hi + mid + lo,
 // which hold its 24 significant bits exactly, and the product is the sum of
 // three products. Rounding dS to bf16 instead would compute another
-// function (the TPU's ATTN_BWD_BF16_DOTS=1). fp32 inputs run the fp32-FMA
-// kernels of the first design (16-row tiles), unchanged.
+// function (the TPU's ATTN_BWD_BF16_DOTS=1). fp32 inputs run the FMA
+// kernels below on attention_fp32.cuh's tiles (64-row blocks, 4 x 4 register
+// blocks, cp.async rings): the same two kernels, K1's saved row max and sum
+// and the mask's tile classes. The rows kernel's second pass skips every
+// all-0 tile (dS is 0 there); its first pass and the column kernel skip
+// them unless a row of the q tile has p0 != 0 (D and dV take P). The fp32
+// route runs 9 products of the 64 x 64 tiles it visits (S and dP twice in
+// the rows kernel, once more in the column kernel, dQ, dV, dK) on the FMA
+// pipes: the operations bound it (5 products at 67 TFLOP/s).
 //
 // What bounds it on the H100. At the train step's shapes the bytes (q, k,
 // v, dO, the mask and three grads once each) take 0.016-0.109 ms and the
@@ -56,13 +63,6 @@ namespace {
 
 using namespace merlot;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;  // FMA kernels
-constexpr int kKeyTile = 64;           // keys per block of the column kernels
-// FMA kernels: 4 row groups of 64 threads; each thread takes 4 rows
-constexpr int kFmaRows = kQRows / 4;
-constexpr int kFmaCols = kMaxHeadDim / 64;  // dQ columns per thread
-constexpr int kFmaKCols = kMaxHeadDim / 4;  // dK/dV columns per thread
 constexpr int kRowStages = 2;  // rows kernel: K/V tile pairs in flight
 constexpr int kColStages = 2;  // column kernel: Q/dO tile pairs in flight
 constexpr uint32_t kTermBytes = 64 * 64 * sizeof(bf16);  // one 64x64 bf16 A operand
@@ -475,275 +475,345 @@ cudaError_t launch_bwd_wgmma(const CUtensorMap (&tm)[4], const BwdArgs& a, int B
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernels: fp32 inputs (the softmax is fp32 too), the same tiling.
-// Thread (rg = tid / 64, col = tid % 64) takes rows rg*4 .. rg*4+3.
+// fp32 kernels on attention_fp32.cuh's tiles, from K1's saved row max and sum
 
-// fp32 dots of kFmaRows rows of `rows` (stride D) with `col` (stride 1), d
-// ascending: the forward's FMA kernel sums its scores in the same order
-__device__ __forceinline__ void dot_rows(float (&acc)[kFmaRows], const float* rows,
-                                         const float* col, int D) {
+struct BwdF32Args {
+  const float *q, *k, *v, *dout;
+  const float* mask;     // [B, Sq, Sk], or null
+  const uint8_t* cls;    // its tile classes [B][n_qt][n_kt] (null: no mask)
+  const float* gcol;     // [B, Sk], or null
+  float *dq, *dk, *dv;
+  const float* row_max;  // [B, H, Sq] each: the forward's stats
+  const float* row_sum;
+  float* row_d;          // D = rowsum(dP * P), written by the rows kernel
+  int Sq, Sk, H, D;
+  float scale;
+};
+
+// The fp32 kernels' ring has one stage, so that two blocks (16 warps, the
+// registers capped at 128 a thread) share an SM where their shared memory
+// allows it: on the H100 at Grover training's shape that beat two stages
+// with one block. (One loop for S and dP, in place of two, was slower.)
+constexpr int kBwdStages = 1;
+
+// blocks per SM an fp32 kernel's registers are capped for: 2 where two
+// blocks' shared memory fits, else 1 (no cap, no spills for nothing)
+__host__ __device__ constexpr int bwd_blocks(size_t smem) {
+  return 2 * (smem + 1024) <= 228 * 1024 ? 2 : 1;
+}
+
+// Q, dO, kBwdStages x (K, V), the dS tile, the load list
+template <int DP>
+__host__ __device__ constexpr size_t rows_f32_smem() {
+  return sizeof(float) * ((2 + 2 * kBwdStages) * f32::tile_floats(DP) + f32::kPFloats) +
+         sizeof(int) * f32::kListInts;
+}
+
+// one block per (64 q rows, head, batch element): two passes over the K/V
+// tiles, the first for D, the second for dS (through shared memory) and
+// dQ += dS . K
+template <int DP>
+__global__ void __launch_bounds__(f32::kThreads, bwd_blocks(rows_f32_smem<DP>()))
+    attention_bwd_rows_f32(const BwdF32Args a) {
+  using namespace f32;
+  constexpr int NC = DP / 16, TF = tile_floats(DP), kStages = kBwdStages;
+  extern __shared__ float4 smem4[];
+  float* s_q = reinterpret_cast<float*>(smem4);
+  float* s_do = s_q + TF;
+  float* s_ring = s_do + TF;  // stage st: K at 2 st, V at 2 st + 1
+  float* s_ds = s_ring + 2 * kStages * TF;
+  int* s_list = reinterpret_cast<int*>(s_ds + kPFloats);  // key tiles: pass 1, then pass 2
+
+  const int n_qt = gridDim.x, qt = n_qt - 1 - blockIdx.x;  // the longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  int tr, tc;
+  place(tid, tr, tc);
+  const int Sq = a.Sq, Sk = a.Sk, D = a.D, H = a.H;
+  const int q0 = qt * kTile, rows = min(kTile, Sq - q0);
+  const int n_kt = (Sk + kTile - 1) / kTile;
+  const size_t hd = (size_t)H * D, stat0 = ((size_t)b * H + h) * Sq + q0;
+  const bool vec = D % 4 == 0;
+  const uint8_t* cls = a.cls == nullptr ? nullptr : a.cls + ((size_t)b * n_qt + qt) * n_kt;
+  const float* mb = a.mask == nullptr ? nullptr : a.mask + ((size_t)b * Sq + q0) * Sk;
+  const float* gb = a.gcol == nullptr ? nullptr : a.gcol + (size_t)b * Sk;
+  const float* kb = a.k + (size_t)b * Sk * hd + (size_t)h * D;
+  const float* vb = a.v + (size_t)b * Sk * hd + (size_t)h * D;
+
+  float mx[kRM], sm[kRM], rcp[kRM], dd[kRM];
+  bool nz = false;  // some real row's p0 != 0: D needs the all-0 tiles
 #pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float kv = col[d];
+  for (int r = 0; r < kRM; ++r) {
+    const bool real = tr + kRS * r < rows;
+    mx[r] = real ? a.row_max[stat0 + tr + kRS * r] : 0.f;
+    sm[r] = real ? a.row_sum[stat0 + tr + kRS * r] : 1.f;
+    rcp[r] = __frcp_rn(sm[r]);
+    dd[r] = 0.f;
+    nz |= real && cls != nullptr && zero_tile_prob(mx[r], sm[r], rcp[r]) != 0.f;
+  }
+  nz = __syncthreads_or(nz);
+  if (tid == 0) {
+    int n = 0;
+    for (int kt = 0; kt < n_kt; ++kt)
+      if (cls == nullptr || cls[kt] != kZero || nz) s_list[n++] = kt;
+    s_list[kListInts - 2] = n;
+    for (int kt = 0; kt < n_kt; ++kt)
+      if (cls == nullptr || cls[kt] != kZero) s_list[n++] = kt;
+    s_list[kListInts - 1] = n;
+  }
+  zero_pad<DP>(s_q, 2 + 2 * kStages, D);
+  __syncthreads();
+  const int n1 = s_list[kListInts - 2], n_loads = s_list[kListInts - 1];
+
+  auto fetch = [&](int i) {
+    if (i < n_loads) {
+      const int k0 = s_list[i] * kTile;
+      float* dst = s_ring + 2 * (i % kStages) * TF;
+      load_tile<DP>(dst, kb + (size_t)k0 * hd, hd, Sk - k0, D, vec);
+      load_tile<DP>(dst + TF, vb + (size_t)k0 * hd, hd, Sk - k0, D, vec);
+    }
+    cp_async_commit();
+  };
+  const size_t row0 = ((size_t)b * Sq + q0) * hd + (size_t)h * D;
+  load_tile<DP>(s_q, a.q + row0, hd, rows, D, vec);
+  load_tile<DP>(s_do, a.dout + row0, hd, rows, D, vec);
+  for (int i = 0; i < kStages; ++i) fetch(i);
+
+  float dq[kRM][NC];
 #pragma unroll
-    for (int r = 0; r < kFmaRows; ++r) acc[r] = fmaf(rows[r * D + d], kv, acc[r]);
+  for (int r = 0; r < kRM; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dq[r][c] = 0.f;
+  for (int i = 0; i < n_loads; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const bool pass1 = i < n1;
+    const int kt = s_list[i], k0 = kt * kTile;
+    // an all-0 tile in pass 1 (a row's p0 != 0): its mask read
+    const int c = cls == nullptr ? kOne : cls[kt] == kZero ? kMixed : cls[kt];
+    const float* s_k = s_ring + 2 * (i % kStages) * TF;
+    float s[kRM][kCN], dp[kRM][kCN];
+    dot_tile<DP>(s, s_q, s_k, tr, tc);
+    dot_tile<DP>(dp, s_do, s_k + TF, tr, tc);
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) {
+      const int key = k0 + tc + kCS * j;
+      const float gt = gb != nullptr && key < Sk ? gcol_term(gb, key, H) : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRM; ++r) {
+        const int row = tr + kRS * r;
+        float ds = 0.f;
+        if (key < Sk && row < rows) {
+          const float m = c == kOne ? 1.f : mb[(size_t)row * Sk + key];
+          const float x = s[r][j] * a.scale;
+          const float p = prob32(c == kOne ? x : mask_score(x, m), mx[r], sm[r], rcp[r]);
+          const float g = dp[r][j] + gt;
+          if (pass1) {
+            dd[r] += g * p;
+          } else {
+            ds = p * (g - dd[r]);
+            if (c != kOne) ds *= m;
+            ds *= a.scale;
+          }
+        }
+        if (!pass1) s_ds[row * kPLd + tc + kCS * j] = ds;
+      }
+    }
+    if (!pass1) {
+      __syncthreads();
+      acc_tile<DP>(dq, s_ds, s_k, tr, tc);
+    }
+    __syncthreads();
+    fetch(i + kStages);
+    if (i + 1 == n1) {
+      // D of each row: its 16 threads' sums (s_ds is free until pass 2)
+      row_combine(dd, Sum(), s_ds, tr, tc);
+      if (tc == 0)
+#pragma unroll
+        for (int r = 0; r < kRM; ++r)
+          if (tr + kRS * r < rows) a.row_d[stat0 + tr + kRS * r] = dd[r];
+    }
+  }
+
+  float* ob = a.dq + row0;
+#pragma unroll
+  for (int r = 0; r < kRM; ++r) {
+    if (tr + kRS * r >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc * NC + c;
+      if (col < D) ob[(size_t)(tr + kRS * r) * hd + col] = dq[r][c];
+    }
   }
 }
 
-// rows x D fp32 into shared memory with row stride ld, zero past `valid`
-__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src,
-                                          size_t hd, int rows, int valid, int D) {
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    dst[r * ld + d] = r < valid ? src[(size_t)r * hd + d] : 0.f;
-  }
+// K and V, kBwdStages x (Q, dO), the P^T and dS^T tiles, the load list,
+// the q tiles' p0 flags
+template <int DP>
+__host__ __device__ constexpr size_t cols_f32_smem() {
+  return sizeof(float) * ((2 + 2 * kBwdStages) * f32::tile_floats(DP) + 2 * f32::kPFloats) +
+         sizeof(int) * (f32::kListInts + f32::kMaxTiles);
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_rows_fma(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ mask,
-                       const float* __restrict__ dout, const float* __restrict__ gcol,
-                       float* __restrict__ dq, float* __restrict__ row_max,
-                       float* __restrict__ row_sum, float* __restrict__ row_d,
-                       int Sq, int Sk, int H, int D, float scale) {
-  extern __shared__ float smem[];
-  float* s_t = smem;                           // [16][D]: Q, then dO
-  float* s_kv = s_t + kQRows * D;              // [kKeyChunk][D + 1]: K or V
-  float* s_red = s_kv + kKeyChunk * (D + 1);   // [kWarps][kFmaRows]
-  float* s_d = s_red + kWarps * kFmaRows;      // [16]
-  float* s_p = s_d + kQRows;                   // [16][Sk]: P, then dS
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kQRows;
-  const int rows = min(kQRows, Sq - q0);
-  const size_t hd = (size_t)H * D;
-  const int tid = threadIdx.x, col = tid % kKeyChunk, rg = tid / kKeyChunk;
-  const float* kb = k + (size_t)b * Sk * hd + (size_t)h * D;
-  const float* vb = v + (size_t)b * Sk * hd + (size_t)h * D;
-  const size_t row0 = (size_t)b * Sq + q0;
-  const size_t stat0 = ((size_t)b * H + h) * Sq + q0;
-  const float* gb = gcol == nullptr ? nullptr : gcol + (size_t)b * Sk;
-  const float* my_rows = s_t + rg * kFmaRows * D;
-
-  stage_f32(s_t, D, q + row0 * hd + (size_t)h * D, hd, kQRows, rows, D);
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    stage_f32(s_kv, D + 1, kb + (size_t)k0 * hd, hd, kKeyChunk, Sk - k0, D);
-    __syncthreads();
-    float acc[kFmaRows];
-    dot_rows(acc, my_rows, s_kv + col * (D + 1), D);
-    const int kk = k0 + col;
-    if (kk < Sk) {
-#pragma unroll
-      for (int r = 0; r < kFmaRows; ++r) {
-        const int row = rg * kFmaRows + r;
-        s_p[row * Sk + kk] = masked_score(acc[r], row < rows ? mask : nullptr,
-                                          (row0 + row) * Sk, kk, scale, false);
-      }
-    }
-  }
-  __syncthreads();
-  softmax_rows(s_p, Sk, rows, Sk, false, row_max + stat0, row_sum + stat0);
-  __syncthreads();
-  stage_f32(s_t, D, dout + row0 * hd + (size_t)h * D, hd, kQRows, rows, D);
-
-  // D = rowsum(dP * P)
-  float part[kFmaRows];
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) part[r] = 0.f;
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    stage_f32(s_kv, D + 1, vb + (size_t)k0 * hd, hd, kKeyChunk, Sk - k0, D);
-    __syncthreads();
-    float dp[kFmaRows];
-    dot_rows(dp, my_rows, s_kv + col * (D + 1), D);
-    const int kk = k0 + col;
-#pragma unroll
-    for (int r = 0; r < kFmaRows; ++r) {
-      const int row = rg * kFmaRows + r;
-      if (row < rows && kk < Sk)
-        part[r] += (dp[r] + gcol_term(gb, kk, H)) * s_p[row * Sk + kk];
-    }
-  }
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) {
-    const float s = warp_sum(part[r]);
-    if (lane == 0) s_red[warp * kFmaRows + r] = s;
-  }
-  __syncthreads();
-  if (tid < kQRows) {  // row tid: its group's two warps, in order
-    const int g2 = tid / kFmaRows, r = tid % kFmaRows;
-    const float d = s_red[(2 * g2) * kFmaRows + r] + s_red[(2 * g2 + 1) * kFmaRows + r];
-    s_d[tid] = d;
-    if (tid < rows) row_d[stat0 + tid] = d;
-  }
-
-  // dS in place of P
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    stage_f32(s_kv, D + 1, vb + (size_t)k0 * hd, hd, kKeyChunk, Sk - k0, D);
-    __syncthreads();
-    float dp[kFmaRows];
-    dot_rows(dp, my_rows, s_kv + col * (D + 1), D);
-    const int kk = k0 + col;
-    if (kk >= Sk) continue;
-#pragma unroll
-    for (int r = 0; r < kFmaRows; ++r) {
-      const int row = rg * kFmaRows + r;
-      float ds = 0.f;
-      if (row < rows) {
-        const float p = s_p[row * Sk + kk];
-        ds = p * (dp[r] + gcol_term(gb, kk, H) - s_d[row]);
-        if (mask != nullptr) ds *= mask[(row0 + row) * Sk + kk];
-        ds *= scale;
-      }
-      s_p[row * Sk + kk] = ds;
-    }
-  }
-
-  // dQ = dS . K
-  float acc[kFmaRows][kFmaCols];
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kFmaCols; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    const int n = min(kKeyChunk, Sk - k0);
-    stage_f32(s_kv, D + 1, kb + (size_t)k0 * hd, hd, n, n, D);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* krow = s_kv + j * (D + 1);
-      float kv[kFmaCols];
-#pragma unroll
-      for (int c = 0; c < kFmaCols; ++c) {
-        const int d = col + c * 64;
-        kv[c] = d < D ? krow[d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kFmaRows; ++r) {
-        const float ds = s_p[(rg * kFmaRows + r) * Sk + k0 + j];
-#pragma unroll
-        for (int c = 0; c < kFmaCols; ++c) acc[r][c] = fmaf(ds, kv[c], acc[r][c]);
-      }
-    }
-  }
-  float* ob = dq + row0 * hd + (size_t)h * D;
-#pragma unroll
-  for (int r = 0; r < kFmaRows; ++r) {
-    const int row = rg * kFmaRows + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < kFmaCols; ++c) {
-      const int d = col + c * 64;
-      if (d < D) ob[(size_t)row * hd + d] = acc[r][c];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_cols_fma(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ mask,
-                       const float* __restrict__ dout, const float* __restrict__ gcol,
-                       float* __restrict__ dk, float* __restrict__ dv,
-                       const float* __restrict__ row_max,
-                       const float* __restrict__ row_sum,
-                       const float* __restrict__ row_d,
-                       int Sq, int Sk, int H, int D, float scale) {
-  extern __shared__ float smem[];
-  float* s_k = smem;                              // [64][D + 1]
-  float* s_v = s_k + kKeyTile * (D + 1);          // [64][D + 1]
-  float* s_q = s_v + kKeyTile * (D + 1);          // [16][D]
-  float* s_do = s_q + kQRows * D;                 // [16][D]
-  float* s_pt = s_do + kQRows * D;                // [16][64]
-  float* s_ds = s_pt + kQRows * kKeyTile;         // [16][64]
-  float* s_stat = s_ds + kQRows * kKeyTile;       // [3][16]
+// one block per (64 keys, head, batch element) with its K and V resident:
+// walks the q tiles, S^T and dP^T in registers, P^T and dS^T through shared
+// memory, dV += P^T . dO and dK += dS^T . Q in registers
+template <int DP>
+__global__ void __launch_bounds__(f32::kThreads, bwd_blocks(cols_f32_smem<DP>()))
+    attention_bwd_cols_f32(const BwdF32Args a) {
+  using namespace f32;
+  constexpr int NC = DP / 16, TF = tile_floats(DP), kStages = kBwdStages;
+  extern __shared__ float4 smem4[];
+  float* s_k = reinterpret_cast<float*>(smem4);
+  float* s_v = s_k + TF;
+  float* s_ring = s_v + TF;  // stage st: Q at 2 st, dO at 2 st + 1
+  float* s_pt = s_ring + 2 * kStages * TF;
+  float* s_dst = s_pt + kPFloats;
+  int* s_list = reinterpret_cast<int*>(s_dst + kPFloats);
+  int* s_nz = s_list + kListInts;  // [q tile]: some real row's p0 != 0
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kKeyTile;
-  const size_t hd = (size_t)H * D;
-  const int tid = threadIdx.x, col = tid % kKeyTile, rg = tid / kKeyTile;
-  const int kk = k0 + col;  // this thread's key for S/dP, and for dK/dV
-  const size_t stat_b = ((size_t)b * H + h) * Sq;
-  const float* gb = gcol == nullptr ? nullptr : gcol + (size_t)b * Sk;
+  const int tid = threadIdx.x;
+  int tr, tc;
+  place(tid, tr, tc);
+  const int Sq = a.Sq, Sk = a.Sk, D = a.D, H = a.H;
+  const int k0 = kt * kTile, n_kt = gridDim.x;
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  const size_t hd = (size_t)H * D, stat_b = ((size_t)b * H + h) * Sq;
+  const bool vec = D % 4 == 0;
+  const uint8_t* cls = a.cls == nullptr ? nullptr : a.cls + (size_t)b * n_qt * n_kt + kt;
 
-  stage_f32(s_k, D + 1, k + ((size_t)b * Sk + k0) * hd + (size_t)h * D, hd,
-            kKeyTile, Sk - k0, D);
-  stage_f32(s_v, D + 1, v + ((size_t)b * Sk + k0) * hd + (size_t)h * D, hd,
-            kKeyTile, Sk - k0, D);
-
-  float acc_dv[kFmaKCols], acc_dk[kFmaKCols];  // columns rg, rg + 4, ...
-#pragma unroll
-  for (int c = 0; c < kFmaKCols; ++c) acc_dv[c] = acc_dk[c] = 0.f;
-
-  for (int q0 = 0; q0 < Sq; q0 += kQRows) {
-    const int rows = min(kQRows, Sq - q0);
-    const size_t row0 = (size_t)b * Sq + q0;
-    __syncthreads();
-    stage_f32(s_q, D, q + row0 * hd + (size_t)h * D, hd, kQRows, rows, D);
-    stage_f32(s_do, D, dout + row0 * hd + (size_t)h * D, hd, kQRows, rows, D);
-    if (tid < kQRows) {
-      const bool real = tid < rows;
-      const size_t i = stat_b + q0 + tid;
-      s_stat[tid] = real ? row_max[i] : 0.f;
-      s_stat[kQRows + tid] = real ? row_sum[i] : 1.f;
-      s_stat[2 * kQRows + tid] = real ? row_d[i] : 0.f;
+  for (int t = tid; t < n_qt; t += kThreads) s_nz[t] = 0;
+  zero_pad<DP>(s_k, 2 + 2 * kStages, D);
+  __syncthreads();
+  if (cls != nullptr)
+    for (int r = tid; r < Sq; r += kThreads) {
+      const float sum = a.row_sum[stat_b + r];
+      if (zero_tile_prob(a.row_max[stat_b + r], sum, __frcp_rn(sum)) != 0.f)
+        atomicOr(&s_nz[r / kTile], 1);
     }
-    __syncthreads();
-    float sc[kFmaRows], dp[kFmaRows];
-    dot_rows(sc, s_q + rg * kFmaRows * D, s_k + col * (D + 1), D);
-    dot_rows(dp, s_do + rg * kFmaRows * D, s_v + col * (D + 1), D);
-#pragma unroll
-    for (int r = 0; r < kFmaRows; ++r) {
-      const int row = rg * kFmaRows + r;
-      float p = 0.f, ds = 0.f;
-      if (row < rows && kk < Sk) {
-        const size_t mrow = (row0 + row) * Sk;
-        const float s = masked_score(sc[r], mask, mrow, kk, scale, false);
-        p = prob_from_stats(s, s_stat[row], s_stat[kQRows + row], false);
-        ds = p * (dp[r] + gcol_term(gb, kk, H) - s_stat[2 * kQRows + row]);
-        if (mask != nullptr) ds *= mask[mrow + kk];
-        ds *= scale;
-      }
-      s_pt[row * kKeyTile + col] = p;
-      s_ds[row * kKeyTile + col] = ds;
+  __syncthreads();
+  // the q tiles: those whose tile is not all 0, and the others of a q tile
+  // with p0 != 0 (dV takes their P)
+  if (tid == 0) {
+    int n = 0;
+    for (int qt = 0; qt < n_qt; ++qt)
+      if (cls == nullptr || cls[(size_t)qt * n_kt] != kZero || s_nz[qt]) s_list[n++] = qt;
+    s_list[kListInts - 1] = n;
+  }
+  __syncthreads();
+  const int n_loads = s_list[kListInts - 1];
+
+  auto fetch = [&](int i) {
+    if (i < n_loads) {
+      const int q0 = s_list[i] * kTile;
+      const size_t row0 = ((size_t)b * Sq + q0) * hd + (size_t)h * D;
+      float* dst = s_ring + 2 * (i % kStages) * TF;
+      load_tile<DP>(dst, a.q + row0, hd, Sq - q0, D, vec);
+      load_tile<DP>(dst + TF, a.dout + row0, hd, Sq - q0, D, vec);
     }
-    __syncthreads();
-    for (int r = 0; r < kQRows; ++r) {
-      const float p = s_pt[r * kKeyTile + col], ds = s_ds[r * kKeyTile + col];
+    cp_async_commit();
+  };
+  const size_t key0 = ((size_t)b * Sk + k0) * hd + (size_t)h * D;
+  load_tile<DP>(s_k, a.k + key0, hd, Sk - k0, D, vec);
+  load_tile<DP>(s_v, a.v + key0, hd, Sk - k0, D, vec);
+  for (int i = 0; i < kStages; ++i) fetch(i);
+
+  float gt[kRM];  // g_colsum / H at this thread's keys
 #pragma unroll
-      for (int c = 0; c < kFmaKCols; ++c) {
-        const int d = rg + 4 * c;
-        if (d < D) {
-          acc_dv[c] = fmaf(p, s_do[r * D + d], acc_dv[c]);
-          acc_dk[c] = fmaf(ds, s_q[r * D + d], acc_dk[c]);
+  for (int r = 0; r < kRM; ++r) {
+    const int key = k0 + tr + kRS * r;
+    gt[r] = a.gcol != nullptr && key < Sk ? gcol_term(a.gcol + (size_t)b * Sk, key, H) : 0.f;
+  }
+  float dv[kRM][NC], dk[kRM][NC];
+#pragma unroll
+  for (int r = 0; r < kRM; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dv[r][c] = dk[r][c] = 0.f;
+
+  for (int i = 0; i < n_loads; ++i) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int qt = s_list[i], q0 = qt * kTile, rows = min(kTile, Sq - q0);
+    const int c = cls == nullptr ? kOne : cls[(size_t)qt * n_kt] == kZero ? kMixed
+                                                                        : cls[(size_t)qt * n_kt];
+    const float* s_q = s_ring + 2 * (i % kStages) * TF;
+    const float* s_do = s_q + TF;
+    // the stats of this thread's q rows tc + 16 j
+    float mx[kCN], sm[kCN], rcp[kCN], dd[kCN];
+#pragma unroll
+    for (int j = 0; j < kCN; ++j) {
+      const bool real = tc + kCS * j < rows;
+      const size_t r = stat_b + q0 + tc + kCS * j;
+      mx[j] = real ? a.row_max[r] : 0.f;
+      sm[j] = real ? a.row_sum[r] : 1.f;
+      dd[j] = real ? a.row_d[r] : 0.f;
+      rcp[j] = __frcp_rn(sm[j]);
+    }
+    float s[kRM][kCN], dp[kRM][kCN];  // [key tr + 8 i][q row tc + 16 j]
+    dot_tile<DP>(s, s_k, s_q, tr, tc);
+    dot_tile<DP>(dp, s_v, s_do, tr, tc);
+    const float* mq = a.mask == nullptr ? nullptr : a.mask + ((size_t)b * Sq + q0) * Sk;
+#pragma unroll
+    for (int r = 0; r < kRM; ++r)
+#pragma unroll
+      for (int j = 0; j < kCN; ++j) {
+        const int key = k0 + tr + kRS * r, row = tc + kCS * j;
+        float p = 0.f, ds = 0.f;
+        if (key < Sk && row < rows) {
+          const float m = c == kOne ? 1.f : mq[(size_t)row * Sk + key];
+          const float x = s[r][j] * a.scale;
+          p = prob32(c == kOne ? x : mask_score(x, m), mx[j], sm[j], rcp[j]);
+          ds = p * ((dp[r][j] + gt[r]) - dd[j]);
+          if (c != kOne) ds *= m;
+          ds *= a.scale;
         }
+        s_pt[(tr + kRS * r) * kPLd + row] = p;
+        s_dst[(tr + kRS * r) * kPLd + row] = ds;
+      }
+    __syncthreads();
+    acc_tile<DP>(dv, s_pt, s_do, tr, tc);
+    acc_tile<DP>(dk, s_dst, s_q, tr, tc);
+    __syncthreads();
+    fetch(i + kStages);
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRM; ++r) {
+    if (k0 + tr + kRS * r >= Sk) continue;
+    const size_t off = key0 + (size_t)(tr + kRS * r) * hd;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tc * NC + c;
+      if (col < D) {
+        a.dv[off + col] = dv[r][c];
+        a.dk[off + col] = dk[r][c];
       }
     }
   }
-  if (kk >= Sk) return;
-  const size_t off = ((size_t)b * Sk + kk) * hd + (size_t)h * D;
-#pragma unroll
-  for (int c = 0; c < kFmaKCols; ++c) {
-    const int d = rg + 4 * c;
-    if (d < D) {
-      dv[off + d] = acc_dv[c];
-      dk[off + d] = acc_dk[c];
-    }
+}
+
+template <int DP>
+cudaError_t launch_bwd_f32_dp(const BwdF32Args& a, int B, cudaStream_t st) {
+  const dim3 rgrid(f32::n_tiles(a.Sq), a.H, B), cgrid(f32::n_tiles(a.Sk), a.H, B);
+  cudaError_t err = launch(attention_bwd_rows_f32<DP>, rgrid, f32::kThreads,
+                           rows_f32_smem<DP>(), st, a);
+  if (err != cudaSuccess) return err;
+  return launch(attention_bwd_cols_f32<DP>, cgrid, f32::kThreads, cols_f32_smem<DP>(), st, a);
+}
+
+cudaError_t launch_bwd_f32(const BwdF32Args& a, int B, cudaStream_t st) {
+  switch (f32::pad16(a.D)) {
+    case 16: return launch_bwd_f32_dp<16>(a, B, st);
+    case 32: return launch_bwd_f32_dp<32>(a, B, st);
+    case 48: return launch_bwd_f32_dp<48>(a, B, st);
+    case 64: return launch_bwd_f32_dp<64>(a, B, st);
+    case 80: return launch_bwd_f32_dp<80>(a, B, st);
+    case 96: return launch_bwd_f32_dp<96>(a, B, st);
+    case 112: return launch_bwd_f32_dp<112>(a, B, st);
+    case 128: return launch_bwd_f32_dp<128>(a, B, st);
+    default: return cudaErrorInvalidValue;
   }
-}
-
-size_t rows_fma_smem(int Sk, int D) {
-  return sizeof(float) * ((size_t)kQRows * D + (size_t)kKeyChunk * (D + 1) +
-                          kWarps * kFmaRows + kQRows + (size_t)kQRows * Sk);
-}
-
-size_t cols_fma_smem(int D) {
-  return sizeof(float) * (2 * (size_t)kKeyTile * (D + 1) + 2 * (size_t)kQRows * D +
-                          2 * kQRows * kKeyTile + 3 * kQRows);
 }
 
 }  // namespace
@@ -754,15 +824,16 @@ extern "C" {
 // 16-byte aligned, fp32 (is_bf16=0) or bf16 (is_bf16=1, D a multiple of 16).
 // mask: [B, Sq, Sk] fp32 or NULL. gcol: [B, Sk] fp32 cotangent of the
 // colsum, or NULL. stats: 3 * B * H * Sq fp32, [row max, row sum, D] by
-// [B, H, Sq]. bf16: with stats_saved=1 its first two planes hold the
-// forward's (K1's) row max and sum, else they are computed first by K1's
-// stats-only pass; D is written. fp32: all three are computed
-// (stats_saved is ignored). Launches on `stream` and returns a cudaError_t
-// (0 on success).
+// [B, H, Sq]: with stats_saved=1 its first two planes hold the forward's
+// (K1's) row max and sum, else they are computed first by K1's stats-only
+// pass; D is written. tile_class: with fp32 inputs and a mask, the mask's
+// tile classes ([B][ceil(Sq / 64)][ceil(Sk / 64)] bytes), K1's with
+// stats_saved=1, else written here; ignored for bf16. Launches on `stream`
+// and returns a cudaError_t (0 on success).
 int merlot_attention_bwd(const void* q, const void* k, const void* v,
                          const void* mask, const void* dout, const void* gcol,
                          void* dq, void* dk, void* dv, void* stats, int stats_saved,
-                         int B, int Sq, int Sk, int H, int D, int is_bf16,
+                         void* tile_class, int B, int Sq, int Sk, int H, int D, int is_bf16,
                          int softmax_fp32, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > kMaxSeq ||
       Sk > kMaxSeq || D > kMaxHeadDim || B > 65535 || H > 65535 ||
@@ -778,8 +849,8 @@ int merlot_attention_bwd(const void* q, const void* k, const void* v,
   if (is_bf16) {
     const bool sm_bf16 = softmax_fp32 == 0;
     if (!stats_saved) {
-      err = launch_fwd_tiles(q, k, v, 0, m, nullptr, nullptr, row_max, B, Sq, Sk, H, D,
-                             H * D, (size_t)Sq * Sk, true, sm_bf16, scale, st, kProd,
+      err = launch_fwd_tiles(q, k, v, 0, m, nullptr, nullptr, row_max, nullptr, B, Sq, Sk,
+                             H, D, H * D, (size_t)Sq * Sk, true, sm_bf16, scale, st, kProd,
                              true);
       if (err != cudaSuccess) return (int)err;
     }
@@ -803,22 +874,33 @@ int merlot_attention_bwd(const void* q, const void* k, const void* v,
       default: return (int)launch_bwd_wgmma<128>(tm, a, B, st);
     }
   }
-  const size_t r_smem = rows_fma_smem(Sk, D), c_smem = cols_fma_smem(D);
-  if (r_smem > kMaxSmem || c_smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const dim3 rgrid((Sq + kQRows - 1) / kQRows, H, B);
-  const dim3 cgrid((Sk + kKeyTile - 1) / kKeyTile, H, B);
-  err = launch(attention_bwd_rows_fma, rgrid, kThreads, r_smem, st,
-               static_cast<const float*>(q), static_cast<const float*>(k),
-               static_cast<const float*>(v), m, static_cast<const float*>(dout), gc,
-               static_cast<float*>(dq), row_max, row_sum, row_d, Sq, Sk, H, D, scale);
-  if (err != cudaSuccess) return (int)err;
-  err = launch(attention_bwd_cols_fma, cgrid, kThreads, c_smem, st,
-               static_cast<const float*>(q), static_cast<const float*>(k),
-               static_cast<const float*>(v), m, static_cast<const float*>(dout), gc,
-               static_cast<float*>(dk), static_cast<float*>(dv),
-               static_cast<const float*>(row_max), static_cast<const float*>(row_sum),
-               static_cast<const float*>(row_d), Sq, Sk, H, D, scale);
-  return (int)err;
+  // fp32: the mask's tile classes and K1's stats, computed here when not saved
+  uint8_t* cls = m == nullptr ? nullptr : static_cast<uint8_t*>(tile_class);
+  if (m != nullptr && cls == nullptr) return (int)cudaErrorInvalidValue;
+  if (!stats_saved) {
+    err = launch_fwd_tiles(q, k, v, 0, m, nullptr, nullptr, row_max, cls, B, Sq, Sk, H, D,
+                           H * D, (size_t)Sq * Sk, false, false, scale, st, kProd, true);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const BwdF32Args a{static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout),
+                     m,
+                     cls,
+                     gc,
+                     static_cast<float*>(dq),
+                     static_cast<float*>(dk),
+                     static_cast<float*>(dv),
+                     row_max,
+                     row_sum,
+                     row_d,
+                     Sq,
+                     Sk,
+                     H,
+                     D,
+                     scale};
+  return (int)launch_bwd_f32(a, B, st);
 }
 
 }  // extern "C"

@@ -15,12 +15,10 @@
 
 namespace merlot {
 
-constexpr int kKeyChunk = 64;  // keys staged per round trip by the FMA kernels
 constexpr float kMaskPenalty = 1e10f;
 constexpr int kMaxSeq = 2048;
 constexpr int kMaxHeadDim = 128;
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kQRows = 16;  // query rows per tile of the FMA kernels
 
 typedef __nv_bfloat16 bf16;
 
@@ -68,37 +66,19 @@ __device__ __forceinline__ float masked_score(float acc, const float* mask,
   return s;
 }
 
-// a probability rebuilt from its score and its row's max and sum: the same
-// fp32 operations as softmax_rows, so the same bits
+// a probability rebuilt from its score and its row's max and sum (K3's
+// decode kernel)
 __device__ __forceinline__ float prob_from_stats(float s, float mx, float sum,
                                                  bool sm_bf16) {
   return round_sm(expf(s - mx) / sum, sm_bf16);
 }
 
-// softmax over each real row of s_p (row stride `ld`), in place, one warp
-// per row; the rows' max and sum go to row_max/row_sum when those are given
-__device__ void softmax_rows(float* s_p, int ld, int rows, int Sk, bool sm_bf16,
-                             float* row_max = nullptr, float* row_sum = nullptr) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int row = warp; row < rows; row += n_warps) {
-    float* prow = s_p + (size_t)row * ld;
-    float mx = -INFINITY;
-    for (int j = lane; j < Sk; j += 32) mx = fmaxf(mx, prow[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Sk; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Sk; j += 32) prow[j] = round_sm(prow[j] / sum, sm_bf16);
-    if (lane == 0 && row_max != nullptr) {
-      row_max[row] = mx;
-      row_sum[row] = sum;
-    }
-  }
+// e / sum, correctly rounded, from r = 1/sum correctly rounded: one FMA
+// correction of e * r (Markstein) instead of a division per element. K1
+// and K2 both take p from it, so K2's P is K1's bit for bit.
+__device__ __forceinline__ float div_rn(float e, float sum, float r) {
+  const float q = __fmul_rn(e, r);
+  return fmaf(fmaf(-q, sum, e), r, q);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

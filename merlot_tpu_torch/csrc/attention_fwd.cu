@@ -53,9 +53,9 @@
 // division is). The row max and sum are saved
 // when asked ([2, B, H, Sq] fp32) for K2. The per-tile colsum partials go to
 // [B, H, q tiles, Sk] and a second kernel (below) reduces them in a fixed
-// order: deterministic, no atomics. fp32 inputs run attention_fwd_fma
-// (16-row tiles, full score rows, fp32 FMAs), unchanged from the first
-// design. The block's registers are capped at 128 a thread so that four
+// order: deterministic, no atomics. fp32 inputs run attention_fp32.cuh's
+// kernel (the same two passes on 64 x 64 tiles of fp32 FMAs, the masked
+// tiles skipped; its header says how). The block's registers are capped at 128 a thread so that four
 // blocks (16 warps) share an SM. Timed against this shape at d = 64 and
 // slower at the train step's shapes (H100 80GB HBM3, 700 W): no cap; two
 // warpgroups per block, capped alike (faster only at the zero-shot ViT
@@ -101,23 +101,22 @@ __global__ void colsum_reduce_kernel(const float* __restrict__ part,
 
 extern "C" {
 
-// Query rows per block; the caller sizes the colsum workspace as
-// B * H * ceil(Sq / tile) * Sk floats.
-int merlot_attention_fwd_q_tile(int is_bf16) { return fwd_q_tile(is_bf16 != 0); }
-
 // q/out: [B, Sq, H*D]; k/v: [B, Sk, H*D], all contiguous and 16-byte
 // aligned, fp32 (is_bf16=0) or bf16 (is_bf16=1, D a multiple of 16). mask:
-// [B, Sq, Sk] fp32 or NULL. colsum_part/colsum: workspace and [B, Sk] fp32
-// output, both NULL when no colsum is wanted. stats: NULL, or (bf16 only)
-// [2, B, H, Sq] fp32 that receives each row's softmax max and sum, which K2
-// takes instead of recomputing them. variant: 0 (the kernel); 1 and 2 are
+// [B, Sq, Sk] fp32 or NULL. colsum_part/colsum: workspace of B * H *
+// ceil(Sq / 64) * Sk floats and [B, Sk] fp32 output, both NULL when no
+// colsum is wanted. stats: NULL, or [2, B, H, Sq]
+// fp32 that receives each row's softmax max and sum, which K2 takes
+// instead of recomputing them. tile_class: with fp32 inputs and a mask,
+// [B][q tiles][key tiles] bytes that receive the mask's tile classes (K2
+// takes them too); else ignored. variant: 0 (the kernel); 1 and 2 are
 // the ablation probe's mm_only and no_max (bf16, D = 64; wrong on purpose,
 // no model path asks for them). Launches on `stream` and returns a
 // cudaError_t (0 on success).
 int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
                                  const void* mask, void* out, void* colsum_part,
-                                 void* colsum, void* stats, int B, int Sq, int Sk,
-                                 int H, int D, int is_bf16, int softmax_fp32,
+                                 void* colsum, void* stats, void* tile_class, int B, int Sq,
+                                 int Sk, int H, int D, int is_bf16, int softmax_fp32,
                                  float scale, void* stream, int variant) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > kMaxSeq ||
       Sk > kMaxSeq || D > kMaxHeadDim || B > 65535 || H > 65535 ||
@@ -129,10 +128,10 @@ int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
   float* part = static_cast<float*>(colsum_part);
   const cudaError_t err = launch_fwd_tiles(
       q, k, v, 0, static_cast<const float*>(mask), out, part, static_cast<float*>(stats),
-      B, Sq, Sk, H, D, H * D, (size_t)Sq * Sk, is_bf16 != 0, softmax_fp32 == 0, scale,
-      st, variant);
+      static_cast<uint8_t*>(tile_class), B, Sq, Sk, H, D, H * D, (size_t)Sq * Sk,
+      is_bf16 != 0, is_bf16 != 0 && softmax_fp32 == 0, scale, st, variant);
   if (err != cudaSuccess || colsum == nullptr) return (int)err;
-  const int n_tiles = (Sq + fwd_q_tile(is_bf16 != 0) - 1) / fwd_q_tile(is_bf16 != 0);
+  const int n_tiles = (Sq + sm90::kTileRows - 1) / sm90::kTileRows;
   const int threads = 256;
   const int blocks = (B * Sk + threads - 1) / threads;
   colsum_reduce_kernel<<<blocks, threads, 0, st>>>(
@@ -142,12 +141,12 @@ int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
 
 int merlot_attention_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* colsum_part,
-                         void* colsum, void* stats, int B, int Sq, int Sk, int H,
-                         int D, int is_bf16, int softmax_fp32, float scale,
+                         void* colsum, void* stats, void* tile_class, int B, int Sq,
+                         int Sk, int H, int D, int is_bf16, int softmax_fp32, float scale,
                          void* stream) {
-  return merlot_attention_fwd_variant(q, k, v, mask, out, colsum_part, colsum, stats, B,
-                                      Sq, Sk, H, D, is_bf16, softmax_fp32, scale, stream,
-                                      kProd);
+  return merlot_attention_fwd_variant(q, k, v, mask, out, colsum_part, colsum, stats,
+                                      tile_class, B, Sq, Sk, H, D, is_bf16, softmax_fp32,
+                                      scale, stream, kProd);
 }
 
 }  // extern "C"

@@ -1,25 +1,23 @@
 // The tiled attention-forward kernels, shared by K1 (attention_fwd.cu) and
-// the prefill path of K3 (attention_stacked.cu). attention_fwd.cu's header
-// comment describes the design; the two callers differ only in layout:
+// the prefill path of K3 (attention_stacked.cu): the bf16 kernel here
+// (attention_fwd.cu's header comment describes its design) and the fp32
+// kernels of attention_fp32.cuh. The two callers differ only in layout:
 //   - K/V rows are `kv_ld` elements apart: H*D for K1's separate k and v
 //     tensors, 2*H*D for K3's stacked cache, whose values start at column
 //     v_col0 = H*D of the same rows (the caller passes v = kv);
 //   - the mask of batch element b starts at b * mask_bs: Sq*Sk for a
 //     [B, Sq, Sk] mask, 0 for one [1, Sq, Sk] mask shared by the batch.
-// K2 (attention_bwd.cu) launches the bf16 kernel in its stats-only form
-// when it is called without the forward's row max and sum.
+// K2 (attention_bwd.cu) launches them in their stats-only form when it is
+// called without the forward's row max and sum.
 
 #pragma once
 
 #include "attention_common.cuh"
+#include "attention_fp32.cuh"
 #include "sm90.cuh"
 #include "wgmma.cuh"
 
 namespace merlot {
-
-constexpr int kFmaThreads = 256;
-constexpr int kFmaRowsPerThread = kQRows / 4;  // 4 row groups of 64 threads
-constexpr int kFmaCols = kMaxHeadDim / 64;     // output columns per thread
 
 constexpr int kWgThreads = 128;             // threads of a warpgroup
 constexpr int kKvTile = sm90::kTileRows;    // keys per staged K/V tile
@@ -31,136 +29,6 @@ constexpr int kFwdMinBlocks = 4;  // blocks per SM the registers are capped for 
 // probe's two (wrong on purpose, for timing only): the softmax removed (p =
 // round(s)), and the softmax without its stats pass (max = 0, sum = 1)
 enum FwdVariant { kProd = 0, kMmOnly = 1, kNoMax = 2 };
-
-// phase 3: per-tile colsum over real rows (softmax-dtype probs) into
-// `part` (may be null), then the probs rounded to T in place
-template <typename T>
-__device__ void colsum_and_round(float* s_p, int ld, int rows, int Sk, float* part) {
-  for (int j = threadIdx.x; j < Sk; j += blockDim.x) {
-    float c = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float p = s_p[(size_t)r * ld + j];
-      c += p;
-      s_p[(size_t)r * ld + j] = round_as<T>(p);
-    }
-    if (part != nullptr) part[j] = c;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// FMA kernel, fp32 (the softmax is fp32 too). Score rows have stride Sk.
-__global__ void __launch_bounds__(kFmaThreads)
-attention_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ out, float* __restrict__ colsum_part,
-                  int Sq, int Sk, int H, int D, int kv_ld, size_t mask_bs,
-                  float scale) {
-  constexpr int BQ = kQRows, RPT = kFmaRowsPerThread, NCOL = kFmaCols;
-  extern __shared__ float smem[];
-  float* s_q = smem;                          // [BQ][D]
-  float* s_kv = s_q + BQ * D;                 // [kKeyChunk][D + 1]
-  float* s_p = s_kv + kKeyChunk * (D + 1);    // [BQ][Sk]
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BQ;
-  const int rows = min(BQ, Sq - q0);
-  const size_t hd = (size_t)H * D;
-  const int tid = threadIdx.x;
-  const int col = tid % kKeyChunk;  // key column (phase 1) / d column (phase 4)
-  const int rg = tid / kKeyChunk;   // row group; one per pair of warps
-  const float* qb = q + ((size_t)b * Sq + q0) * hd + (size_t)h * D;
-  const float* kb = k + (size_t)b * Sk * kv_ld + (size_t)h * D;
-  const float* vb = v + (size_t)b * Sk * kv_ld + (size_t)h * D;
-  const size_t mask_row0 = (size_t)b * mask_bs + (size_t)q0 * Sk;
-
-  for (int i = tid; i < BQ * D; i += kFmaThreads) {
-    const int r = i / D, d = i % D;
-    s_q[i] = r < rows ? qb[(size_t)r * hd + d] : 0.f;
-  }
-
-  // 1. scores of the tile, rounded and masked, into s_p
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    for (int i = tid; i < kKeyChunk * D; i += kFmaThreads) {
-      const int j = i / D, d = i % D;
-      s_kv[j * (D + 1) + d] = k0 + j < Sk ? kb[(size_t)(k0 + j) * kv_ld + d] : 0.f;
-    }
-    __syncthreads();
-    float acc[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-    const float* krow = s_kv + col * (D + 1);
-    const float* qrow = s_q + rg * RPT * D;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kv = krow[d];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[r] = fmaf(qrow[r * D + d], kv, acc[r]);
-    }
-    const int kk = k0 + col;
-    if (kk < Sk) {
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int row = rg * RPT + r;
-        s_p[row * Sk + kk] = masked_score(
-            acc[r], row < rows ? mask : nullptr, mask_row0 + (size_t)row * Sk,
-            kk, scale, false);
-      }
-    }
-  }
-  __syncthreads();
-
-  softmax_rows(s_p, Sk, rows, Sk, false);
-  __syncthreads();
-  colsum_and_round<float>(
-      s_p, Sk, rows, Sk,
-      colsum_part == nullptr
-          ? nullptr
-          : colsum_part + (((size_t)b * H + h) * gridDim.x + qt) * Sk);
-
-  // 4. ctx = P . V, fp32 accumulation
-  float acc[RPT][NCOL];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) acc[r][c] = 0.f;
-  for (int k0 = 0; k0 < Sk; k0 += kKeyChunk) {
-    __syncthreads();
-    const int n = min(kKeyChunk, Sk - k0);
-    for (int i = tid; i < n * D; i += kFmaThreads) {
-      const int j = i / D, d = i % D;
-      s_kv[j * (D + 1) + d] = vb[(size_t)(k0 + j) * kv_ld + d];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* vrow = s_kv + j * (D + 1);
-      float vv[NCOL];
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c) {
-        const int d = col + c * 64;
-        vv[c] = d < D ? vrow[d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float p = s_p[(rg * RPT + r) * Sk + k0 + j];
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-      }
-    }
-  }
-  float* ob = out + ((size_t)b * Sq + q0) * hd + (size_t)h * D;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = rg * RPT + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) {
-      const int d = col + c * 64;
-      if (d < D) ob[(size_t)row * hd + d] = acc[r][c];
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // Tensor-core kernel (bf16, D a multiple of 16 up to 128): one warpgroup per
@@ -271,14 +139,6 @@ __device__ __forceinline__ float exp_sfu(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
-}
-
-// e / sum, correctly rounded, from r = 1/sum correctly rounded: one FMA
-// correction of e * r (Markstein) instead of a division per element. K1
-// and K2 both take p from it, so K2's P is K1's bit for bit.
-__device__ __forceinline__ float div_rn(float e, float sum, float r) {
-  const float q = __fmul_rn(e, r);
-  return fmaf(fmaf(-q, sum, e), r, q);
 }
 
 __device__ __forceinline__ float prob_rcp(float s, float mx, float sum, float r,
@@ -504,35 +364,38 @@ cudaError_t launch_fwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                 tv, a);
 }
 
-inline size_t fma_smem(int Sk, int D) {
-  return sizeof(float) *
-         ((size_t)kQRows * D + (size_t)kKeyChunk * (D + 1) + (size_t)kQRows * Sk);
-}
-
-// query rows per block of the tiled kernels: the colsum workspace holds
-// B * H * ceil(Sq / rows) * Sk floats
-inline int fwd_q_tile(bool is_bf16) { return is_bf16 ? sm90::kTileRows : kQRows; }
-
 // One launch of the tiled kernels over q [B, Sq, H*D] (grid: q tiles x
 // heads x batch): K rows are kv_ld elements apart starting at k, V rows too
-// starting at v + v_col0; colsum_part and stats may be null (stats: bf16
-// only). variant: FwdVariant (bf16, D = 64 only for the probe's two).
+// starting at v + v_col0; colsum_part and stats may be null. fp32 runs
+// attention_fp32.cuh's kernels and, with a mask, first sorts its tiles into
+// tile_class ([B or 1][q tiles][key tiles] bytes; the bf16 kernels ignore
+// it). variant: FwdVariant (bf16, D = 64 only for the probe's two).
 inline cudaError_t launch_fwd_tiles(const void* q, const void* k, const void* v,
                                     int v_col0, const float* mask, void* out,
-                                    float* colsum_part, float* stats, int B, int Sq,
-                                    int Sk, int H, int D, int kv_ld, size_t mask_bs,
-                                    bool is_bf16, bool sm_bf16, float scale,
+                                    float* colsum_part, float* stats, uint8_t* tile_class,
+                                    int B, int Sq, int Sk, int H, int D, int kv_ld,
+                                    size_t mask_bs, bool is_bf16, bool sm_bf16, float scale,
                                     cudaStream_t st, int variant = kProd,
                                     bool stats_only = false) {
   if (!is_bf16) {
-    if (stats != nullptr || variant != kProd || stats_only) return cudaErrorInvalidValue;
-    const size_t smem = fma_smem(Sk, D);
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    const dim3 grid((Sq + kQRows - 1) / kQRows, H, B);
-    return launch(attention_fwd_fma, grid, kFmaThreads, smem, st,
-                  static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v) + v_col0, mask, static_cast<float*>(out),
-                  colsum_part, Sq, Sk, H, D, kv_ld, mask_bs, scale);
+    if (variant != kProd || sm_bf16 || D > kMaxHeadDim) return cudaErrorInvalidValue;
+    const f32::FwdArgs a{static_cast<const float*>(q),
+                         static_cast<const float*>(k),
+                         static_cast<const float*>(v) + v_col0,
+                         mask,
+                         nullptr,
+                         static_cast<float*>(out),
+                         colsum_part,
+                         stats,
+                         Sq,
+                         Sk,
+                         H,
+                         D,
+                         kv_ld,
+                         mask_bs,
+                         scale,
+                         stats_only};
+    return f32::launch_fwd_f32(a, tile_class, B, st);
   }
   if (D % 16 != 0 || D > kMaxHeadDim) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;

@@ -69,8 +69,10 @@
 //     bf16 the wgmma kernel (64-row q tiles, two passes over TMA-staged
 //     64-key tiles, no score rows in shared memory), its K and V tensor
 //     maps both over the cache (row stride 2*H*D, values from column H*D)
-//     and one mask for the batch (mask_bs = 0); for fp32 the FMA kernel.
-//     It reads all Sk slots (kv_len does not change its result).
+//     and one mask for the batch (mask_bs = 0); for fp32 the FMA kernel of
+//     attention_fp32.cuh (the same strides; the mask's all-0 tiles, the
+//     slots past the last query row, are skipped). kv_len does not change
+//     its result.
 // The first design (commit 83510f1) ran the decode as one 8-warp block per
 // (head, batch element) over all Sk slots, scores, softmax and P.V in three
 // serial phases: 16 blocks at B=1, and a block's value rows requested only
@@ -598,12 +600,14 @@ int merlot_attention_decode_max_clusters(int Sq, int Sk, int D, int is_bf16, int
 // be 0 at every slot >= kv_len and leave every query row a slot below it
 // (Sq <= 8 reads only the live slots; Sq > 8 reads all). cluster: the
 // decode launch plan's blocks per (batch element, head), a power of two up
-// to 16 (unused when Sq > 8). Launches on `stream` and returns a
+// to 16 (unused when Sq > 8). tile_class: for the fp32 prefill (Sq > 8)
+// with a mask, (B or 1) * ceil(Sq / 64) * ceil(Sk / 64) bytes that receive
+// the mask's tile classes; else ignored. Launches on `stream` and returns a
 // cudaError_t (0 on success).
 int merlot_attention_stacked_fwd(const void* q, const void* kv, const void* mask,
-                                 void* out, int B, int Sq, int Sk, int kv_len, int H, int D,
-                                 int mask_batched, int is_bf16, int softmax_fp32,
-                                 int cluster, float scale, void* stream) {
+                                 void* out, void* tile_class, int B, int Sq, int Sk,
+                                 int kv_len, int H, int D, int mask_batched, int is_bf16,
+                                 int softmax_fp32, int cluster, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > kMaxSeq ||
       Sk > kMaxSeq || D > kMaxHeadDim || B > 65535 || H > 65535 || kv_len < 1 ||
       kv_len > Sk || (is_bf16 ? D % 16 != 0 : D % 4 != 0))
@@ -619,8 +623,9 @@ int merlot_attention_stacked_fwd(const void* q, const void* kv, const void* mask
                   : launch_decode<float>(q, kv, m, out, B, Sq, Sk, kv_len, H, D, mask_bs,
                                          scale, sm_bf16, cluster, st);
   } else {
-    err = launch_fwd_tiles(q, kv, kv, H * D, m, out, nullptr, nullptr, B, Sq, Sk, H, D,
-                           2 * H * D, mask_bs, is_bf16 != 0, sm_bf16, scale, st);
+    err = launch_fwd_tiles(q, kv, kv, H * D, m, out, nullptr, nullptr,
+                           static_cast<uint8_t*>(tile_class), B, Sq, Sk, H, D, 2 * H * D,
+                           mask_bs, is_bf16 != 0, sm_bf16, scale, st);
   }
   return (int)err;
 }

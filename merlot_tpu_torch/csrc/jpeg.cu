@@ -1,9 +1,11 @@
-// JPEG decode and encode through nvJPEG (the CUDA toolkit's library), for
-// machines without libjpeg's header: the data path's second JPEG route
+// JPEG decode and encode through nvJPEG (the CUDA toolkit's library): the
+// data path's JPEG route that callers ask for by name, and the default only
+// where neither libjpeg's header nor PIL is there
 // (merlot_tpu_torch/data/_native). Plain C interface, loaded with ctypes;
 // built by _build.py with -lnvjpeg.
 //
 //   merlot_jpeg_info(data, len, &h, &w)           size of the first component
+//                                                 (1 or 3 components only)
 //   merlot_jpeg_decode(data, len, out, h, w)      RGB interleaved into host out
 //   merlot_jpeg_encode(rgb, h, w, q, out, cap, &n) 4:2:0 baseline JPEG
 //   merlot_jpeg_error()                           the calling thread's last error
@@ -96,6 +98,8 @@ int merlot_jpeg_info(const unsigned char *data, size_t len, int *h, int *w) {
   nvjpegChromaSubsampling_t sub;
   int widths[NVJPEG_MAX_COMPONENT] = {0}, heights[NVJPEG_MAX_COMPONENT] = {0};
   NVJ(nvjpegGetImageInfo(ctx.handle, data, len, &ncomp, &sub, widths, heights));
+  // grayscale or YCbCr; the caller decodes anything else (CMYK) with PIL
+  if (ncomp != 1 && ncomp != 3) return fail("merlot_jpeg_info: not 1 or 3 components", -3);
   *h = heights[0];
   *w = widths[0];
   return 0;

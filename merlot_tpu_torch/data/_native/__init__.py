@@ -9,14 +9,22 @@ keeps the resize bit-exact with the numpy version (no FMA contraction). If
 the build fails, ``load()`` returns None and callers use their Python
 versions.
 
-JPEG has one route per machine, fixed when the libraries are built
-(``jpeg_route``):
+JPEG decodes and encodes by one route (``jpeg_route``), by default the
+first of these that the machine has:
   * ``libjpeg``: the extension above, as in the JAX package;
-  * ``nvjpeg``: without libjpeg's header, nvJPEG from the CUDA toolkit
-    (``csrc/jpeg.cu``, built by ``_build`` with ``-lnvjpeg``), which decodes
-    and encodes on the card. Its IDCT and chroma upsampling are not
-    libjpeg's, so its pixels may differ from libjpeg's by a few levels.
-With neither, decoding raises an error that names what is missing.
+  * ``pil``: without libjpeg's header, PIL (imported when first used),
+    the decoder the JAX package falls back to: the same libjpeg
+    underneath, so the same pixels;
+  * ``nvjpeg``: nvJPEG from the CUDA toolkit (``csrc/jpeg.cu``, built by
+    ``_build`` with ``-lnvjpeg``), which decodes and encodes on the card.
+    Its IDCT and chroma upsampling are not libjpeg's, so its pixels may
+    differ from libjpeg's by a few levels. It is the default only where
+    neither libjpeg nor PIL is there; ``set_jpeg_route("nvjpeg")`` asks
+    for it by name.
+A JPEG that the route's decoder refuses (a CMYK one, for instance) decodes
+with PIL, as JAX's ``decode_jpeg_u8`` does; one that PIL cannot read either
+raises. With no route at all, decoding raises an error that names what is
+missing.
 """
 
 from __future__ import annotations
@@ -137,40 +145,72 @@ def _nvjpeg_lib():
     return lib
 
 
-def jpeg_route() -> str:
-    """'libjpeg' or 'nvjpeg' (see the module docstring); raises when this
-    machine has neither."""
-    with _lock:
-        route = _state.get("route")
-    if route is not None:
-        return route
+JPEG_ROUTES = ("libjpeg", "pil", "nvjpeg")
+
+
+def _have_pil() -> bool:
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _default_route() -> str:
     module = load()
     if module is not None and hasattr(module, "decode_jpeg"):
-        route = "libjpeg"
-    elif _nvjpeg_header() is not None:
+        return "libjpeg"
+    if _have_pil():
+        return "pil"
+    if _nvjpeg_header() is not None:
         _nvjpeg_lib()
-        route = "nvjpeg"
-    else:
-        raise RuntimeError(
-            "no JPEG route on this machine: libjpeg's header (one of "
-            f"{', '.join(JPEG_HEADERS)}) is missing, and so is nvJPEG (nvjpeg.h of "
-            "the CUDA toolkit beside nvcc)"
-            + (f"; the native extension failed to build: {build_error()}"
-               if module is None else ""))
+        return "nvjpeg"
+    raise RuntimeError(
+        "no JPEG route on this machine: libjpeg's header (one of "
+        f"{', '.join(JPEG_HEADERS)}) is missing, PIL does not import, and nvJPEG "
+        "(nvjpeg.h of the CUDA toolkit beside nvcc) is missing too"
+        + (f"; the native extension failed to build: {build_error()}"
+           if module is None else ""))
+
+
+def jpeg_route() -> str:
+    """The route JPEGs take in this process: the one ``set_jpeg_route``
+    named, else this machine's default ('libjpeg', else 'pil', else
+    'nvjpeg'; see the module docstring). Raises when there is none."""
+    with _lock:
+        route = _state.get("chosen") or _state.get("route")
+    if route is not None:
+        return route
+    route = _default_route()
     with _lock:
         _state["route"] = route
     return route
 
 
-def _u8(array: np.ndarray):
-    return array.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+def set_jpeg_route(route: Optional[str]) -> None:
+    """Decode and encode JPEGs by ``route`` (one of ``JPEG_ROUTES``) from
+    now on in this process, or by the machine's default (None). Raises if
+    this machine does not have it."""
+    if route is not None and route not in JPEG_ROUTES:
+        raise ValueError(f"unknown JPEG route {route!r}; routes: {JPEG_ROUTES}")
+    if route == "libjpeg" and not hasattr(load(), "decode_jpeg"):
+        raise RuntimeError(f"no libjpeg route here: {build_error() or 'no jpeglib.h'}")
+    if route == "pil" and not _have_pil():
+        raise RuntimeError("no pil route here: PIL does not import")
+    if route == "nvjpeg":
+        _nvjpeg_lib()
+    with _lock:
+        _state["chosen"] = route
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 RGB [H, W, 3] by this machine's route."""
-    if jpeg_route() == "libjpeg":
-        h, w, rgb = load().decode_jpeg(data)
-        return np.frombuffer(rgb, np.uint8).reshape(h, w, 3)
+def _pil_decode(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), dtype=np.uint8)
+
+
+def _nvjpeg_decode(data: bytes) -> np.ndarray:
     lib = _nvjpeg_lib()
     src = np.frombuffer(data, np.uint8)
     h, w = ctypes.c_int(), ctypes.c_int()
@@ -182,14 +222,45 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     return out
 
 
+def _u8(array: np.ndarray):
+    return array.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> uint8 RGB [H, W, 3] by ``jpeg_route()``; what its
+    decoder refuses decodes with PIL."""
+    route = jpeg_route()
+    if route == "pil":
+        return _pil_decode(data)
+    try:
+        if route == "libjpeg":
+            h, w, rgb = load().decode_jpeg(data)
+            return np.frombuffer(rgb, np.uint8).reshape(h, w, 3)
+        return _nvjpeg_decode(data)
+    except ValueError as refused:
+        # an odd colourspace (CMYK, ...): PIL, as the JAX package does
+        if not _have_pil():
+            raise refused
+        return _pil_decode(data)
+
+
 def encode_jpeg(rgb: np.ndarray, quality: int = 80) -> bytes:
-    """uint8 RGB [H, W, 3] -> JPEG bytes (4:2:0) by this machine's route."""
+    """uint8 RGB [H, W, 3] -> JPEG bytes (4:2:0, baseline) by
+    ``jpeg_route()``."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"encode_jpeg takes [H, W, 3] uint8, got {rgb.shape}")
     h, w = rgb.shape[:2]
-    if jpeg_route() == "libjpeg":
+    route = jpeg_route()
+    if route == "libjpeg":
         return load().encode_jpeg(rgb.tobytes(), h, w, quality)
+    if route == "pil":
+        import io
+
+        from PIL import Image
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=quality)
+        return buf.getvalue()
     lib = _nvjpeg_lib()
     cap = h * w * 3 + 65536
     out = np.empty(cap, np.uint8)

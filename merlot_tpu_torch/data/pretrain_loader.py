@@ -39,6 +39,7 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -482,6 +483,10 @@ class PretrainLoader:
             stop.set()
 
 
+# how long closing a device_iterator waits for its worker
+WORKER_JOIN_S = 30.0
+
+
 def device_iterator(it: Iterator[Dict[str, np.ndarray]], device="cuda",
                     images_bf16: bool = True, images_u8: bool = False
                     ) -> Iterator[Dict[str, torch.Tensor]]:
@@ -500,7 +505,9 @@ def device_iterator(it: Iterator[Dict[str, np.ndarray]], device="cuda",
     while the consumer's stream may still read it; the pinned buffers come
     from torch's caching host allocator, which does not hand a block out
     again before its copy has finished. Errors of the worker (the loader's
-    included) are raised again in the consumer."""
+    included) are raised again in the consumer. Closing the iterator (or
+    dropping it) stops the worker and waits for it, up to
+    ``WORKER_JOIN_S`` seconds, then warns that it still runs."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     side = torch.cuda.Stream(dev) if cuda else None
@@ -568,4 +575,13 @@ def device_iterator(it: Iterator[Dict[str, np.ndarray]], device="cuda",
                     v.record_stream(consumer)
             yield batch
     finally:
+        # the worker may be inside torch (a pin or a copy): wait for it, so
+        # that none runs on into the interpreter's exit (a CLI that returned
+        # with it mid-copy was aborted by std::terminate on the card)
+        # (stop is read between batches: one stuck in the loader's next()
+        # is named, not waited for without end)
         stop.set()
+        t.join(WORKER_JOIN_S)
+        if t.is_alive():
+            warnings.warn(f"device_iterator: the loader's worker still runs "
+                          f"{WORKER_JOIN_S} s after close", RuntimeWarning, stacklevel=2)

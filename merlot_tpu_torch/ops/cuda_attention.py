@@ -19,6 +19,11 @@ kernel (Sq <= 8) reads only the live slots below ``kv_len``, one
 thread-block cluster per (batch element, head) whose size ``decode_plan``
 picks from the shape alone.
 
+The fp32 routes of K1 and K2 (``csrc/attention_fp32.cuh``) sort the mask's
+64 x 64 tiles into all 0, all 1 and mixed once per call (``new_tile_class``
+holds the classes) and skip the all-0 tiles wherever that changes nothing;
+the forward's classes and row max and sum go to the backward with it.
+
 ``FlashAttention`` and ``flash_attention_stacked`` launch the kernels for
 CUDA tensors and use the plain versions for CPU tensors; they never fall
 back from one to the other. ``launches``, ``bwd_launches`` and
@@ -39,6 +44,7 @@ from merlot_tpu_torch.ops.attention import (_plain_attention, attention_probs,
 
 MAX_KERNEL_SEQ = 2048
 MAX_HEAD_DIM = 128
+TILE = 64  # query rows and keys of the kernels' tiles
 
 # launches of K1, K2 and K3 since the last reset (set them to 0 to reset)
 launches = 0
@@ -71,14 +77,11 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 9 + [i] * 7 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
         var = lib.merlot_attention_fwd_variant
         var.argtypes = fn.argtypes + [i]
         var.restype = i
-        tile = lib.merlot_attention_fwd_q_tile
-        tile.argtypes = [i]
-        tile.restype = i
     return lib
 
 
@@ -88,7 +91,7 @@ def load_bwd_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_bwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i] * 8 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 10 + [i, ptr] + [i] * 7 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,7 +102,7 @@ def load_stacked_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_stacked_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i] * 10 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 5 + [i] * 10 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
         lib.merlot_attention_decode_smem.argtypes = [i] * 5
         lib.merlot_attention_decode_smem.restype = ctypes.c_long
@@ -240,17 +243,21 @@ def _ptr(t: Optional[torch.Tensor]):
 def attention_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], *, num_heads: int,
                        softmax_fp32: bool, collect_colsum: bool,
-                       stats: Optional[torch.Tensor] = None
+                       stats: Optional[torch.Tensor] = None,
+                       tile_class: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K1. q3 [B, Sq, H*D]; k3/v3 [B, Sk, H*D], contiguous CUDA
     tensors of one dtype (fp32, or bf16 with a head dim that is a multiple
-    of 16); mask [B, Sq, Sk] contiguous fp32 or None. stats: None, or (bf16
-    only) a [3, B, H, Sq] fp32 buffer (``new_stats``) whose first two planes
+    of 16); mask [B, Sq, Sk] contiguous fp32 or None. stats: None, or a
+    [3, B, H, Sq] fp32 buffer (``new_stats``) whose first two planes
     receive each row's softmax max and sum, for ``attention_bwd_cuda``.
-    Returns (ctx [B, Sq, H*D] in q3.dtype, colsum [B, Sk] fp32 or None)."""
+    tile_class: for fp32 with a mask, a ``new_tile_class`` buffer that
+    receives the mask's tile classes (for ``attention_bwd_cuda``), or None
+    (one is made). Returns (ctx [B, Sq, H*D] in q3.dtype, colsum [B, Sk]
+    fp32 or None)."""
     global launches
     out = _fwd_launch("attention_fwd_cuda", q3, k3, v3, mask, num_heads, softmax_fp32,
-                      collect_colsum, None, stats)
+                      collect_colsum, None, stats, tile_class)
     launches += 1
     return out
 
@@ -262,10 +269,36 @@ def new_stats(q3: torch.Tensor, num_heads: int) -> torch.Tensor:
     return torch.empty((3, b, num_heads, sq), dtype=torch.float32, device=q3.device)
 
 
+def tile_class_shape(mask: torch.Tensor) -> Tuple[int, int, int]:
+    """[Bm, ceil(Sq / 64), ceil(Sk / 64)]: a [Bm, Sq, Sk] mask's tiles."""
+    bm, sq, sk = mask.shape
+    return bm, -(-sq // TILE), -(-sk // TILE)
+
+
+def new_tile_class(mask: torch.Tensor) -> torch.Tensor:
+    """The uint8 buffer that receives the classes (0 all 0, 1 all 1, 2
+    mixed) of a mask's 64 x 64 tiles (``tile_class_shape``), filled by the
+    fp32 kernels."""
+    return torch.empty(tile_class_shape(mask), dtype=torch.uint8, device=mask.device)
+
+
+def _tile_class_for(name: str, tile_class, q3, mask):
+    """The tile-class buffer a launch passes: None unless fp32 with a mask;
+    a new one when none is given; else the given one, checked."""
+    if q3.dtype != torch.float32 or mask is None:
+        return None
+    if tile_class is None:
+        return new_tile_class(mask)
+    want = tile_class_shape(mask)
+    if (tile_class.dtype != torch.uint8 or tuple(tile_class.shape) != want
+            or not tile_class.is_contiguous() or tile_class.device != q3.device):
+        raise ValueError(f"{name}: tile_class must be contiguous uint8 {want} on {q3.device}, "
+                         f"got {tile_class.dtype} {tuple(tile_class.shape)}")
+    return tile_class
+
+
 def _check_stats(name: str, stats, q3, num_heads: int) -> None:
     b, sq, _ = q3.shape
-    if q3.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: saved stats are for bf16 inputs only")
     if (stats.dtype != torch.float32 or tuple(stats.shape) != (3, b, num_heads, sq)
             or not stats.is_contiguous() or stats.device != q3.device):
         raise ValueError(f"{name}: stats must be contiguous fp32 {(3, b, num_heads, sq)} "
@@ -286,22 +319,23 @@ def attention_fwd_variant_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Ten
 
 
 def _fwd_launch(name, q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
-                variant, stats=None):
+                variant, stats=None, tile_class=None):
     b, sq, sk, d = _check_inputs(name, q3, k3, v3, mask, num_heads)
     if stats is not None:
         _check_stats(name, stats, q3, num_heads)
+    tile_class = _tile_class_for(name, tile_class, q3, mask)
     lib = load_kernel()
     out = torch.empty_like(q3)
     part = colsum = None
     if collect_colsum:
-        n_tiles = -(-sq // lib.merlot_attention_fwd_q_tile(_DTYPE_CODE[q3.dtype]))
+        n_tiles = -(-sq // TILE)
         part = torch.empty((b, num_heads, n_tiles, sk), dtype=torch.float32,
                            device=q3.device)
         colsum = torch.empty((b, sk), dtype=torch.float32, device=q3.device)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     args = (_ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(out), _ptr(part),
-            _ptr(colsum), _ptr(stats), b, sq, sk, num_heads, d, _DTYPE_CODE[q3.dtype],
-            int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+            _ptr(colsum), _ptr(stats), _ptr(tile_class), b, sq, sk, num_heads, d,
+            _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
     err = (lib.merlot_attention_fwd(*args) if variant is None
            else lib.merlot_attention_fwd_variant(*args, variant))
     if err != 0:
@@ -312,13 +346,16 @@ def _fwd_launch(name, q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
 def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], g3: torch.Tensor,
                        gcol: Optional[torch.Tensor], *, num_heads: int,
-                       softmax_fp32: bool, stats: Optional[torch.Tensor] = None
+                       softmax_fp32: bool, stats: Optional[torch.Tensor] = None,
+                       tile_class: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch K2. q3/k3/v3/mask as for ``attention_fwd_cuda``; g3 the
     cotangent of ctx (like q3, contiguous); gcol the cotangent of the
     colsum [B, Sk] fp32 or None; stats the buffer K1 filled with the row max
-    and sum on the same inputs (bf16), or None: K2 then computes them first
-    with K1's stats-only pass. Returns (dq, dk, dv) in the input dtype."""
+    and sum on the same inputs, and for fp32 with a mask tile_class the
+    classes K1 wrote beside them; or None for both: K2 then computes them
+    first (K1's stats-only pass). Returns (dq, dk, dv) in the input
+    dtype."""
     global bwd_launches
     b, sq, sk, d = _check_inputs("attention_bwd_cuda", q3, k3, v3, mask, num_heads,
                                  like_q=(g3,), fp32=(gcol,))
@@ -328,15 +365,19 @@ def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     saved = stats is not None
     if saved:
         _check_stats("attention_bwd_cuda", stats, q3, num_heads)
+        if q3.dtype == torch.float32 and mask is not None and tile_class is None:
+            raise ValueError("attention_bwd_cuda: saved fp32 stats need K1's tile_class")
     else:
         stats = new_stats(q3, num_heads)
+        tile_class = None
+    tile_class = _tile_class_for("attention_bwd_cuda", tile_class, q3, mask)
     lib = load_bwd_kernel()
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     err = lib.merlot_attention_bwd(
         _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(g3), _ptr(gcol),
-        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), int(saved), b, sq, sk, num_heads, d,
-        _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+        _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), int(saved), _ptr(tile_class), b, sq, sk,
+        num_heads, d, _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel failed: cudaError_t {err}")
     bwd_launches += 1
@@ -410,9 +451,12 @@ def attention_stacked_fwd_cuda(q3: torch.Tensor, kv3: torch.Tensor,
                            else torch.cuda.current_device(),
                            sq, sk, d, is_bf16, cluster, plan["smem_bytes"])
     out = torch.empty_like(q3)
+    tile_class = (_tile_class_for("attention_stacked_fwd_cuda", None, q3, mask)
+                  if sq > DECODE_ROWS else None)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     err = lib.merlot_attention_stacked_fwd(
-        _ptr(q3), _ptr(kv3), _ptr(mask), _ptr(out), b, sq, sk, live, num_heads, d,
+        _ptr(q3), _ptr(kv3), _ptr(mask), _ptr(out), _ptr(tile_class), b, sq, sk, live,
+        num_heads, d,
         int(mask is not None and mask.shape[0] == b), is_bf16, int(softmax_fp32), cluster,
         1.0 / (d ** 0.5), stream)
     if err != 0:
@@ -537,29 +581,33 @@ class FlashAttention(torch.autograd.Function):
                 collect_colsum: bool):
         kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32,
                   collect_colsum=collect_colsum)
-        stats = None
+        stats = tile_class = None
         if q3.device.type == "cuda":
-            # K2 takes the softmax's row max and sum from K1 (bf16 kernels)
-            if q3.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]):
+            # K2 takes the softmax's row max and sum from K1, and in fp32
+            # the mask's tile classes
+            if any(ctx.needs_input_grad[:3]):
                 stats = new_stats(q3, num_heads)
-            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, stats=stats, **kw)
+                tile_class = _tile_class_for("flash_attention", None, q3, mask)
+            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, stats=stats,
+                                             tile_class=tile_class, **kw)
         elif q3.device.type == "cpu":
             out, colsum = flash_attention_plain(q3, k3, v3, mask, **kw)
         else:
             raise ValueError(f"flash_attention: no path for device {q3.device}")
-        ctx.save_for_backward(q3, k3, v3, mask, stats)
+        ctx.save_for_backward(q3, k3, v3, mask, stats, tile_class)
         ctx.num_heads, ctx.softmax_fp32 = num_heads, softmax_fp32
         ctx.set_materialize_grads(False)
         return out, colsum
 
     @staticmethod
     def backward(ctx, g_ctx, g_colsum):
-        q3, k3, v3, mask, stats = ctx.saved_tensors
+        q3, k3, v3, mask, stats, tile_class = ctx.saved_tensors
         g3 = torch.zeros_like(q3) if g_ctx is None else g_ctx.contiguous()
         gcol = None if g_colsum is None else g_colsum.float().contiguous()
         kw = dict(num_heads=ctx.num_heads, softmax_fp32=ctx.softmax_fp32)
         if q3.device.type == "cuda":
-            dq, dk, dv = attention_bwd_cuda(q3, k3, v3, mask, g3, gcol, stats=stats, **kw)
+            dq, dk, dv = attention_bwd_cuda(q3, k3, v3, mask, g3, gcol, stats=stats,
+                                            tile_class=tile_class, **kw)
         else:
             dq, dk, dv = attention_bwd_plain(q3, k3, v3, mask, g3, gcol, **kw)
         return dq, dk, dv, None, None, None, None

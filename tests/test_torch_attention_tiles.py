@@ -14,10 +14,14 @@ each warpgroup's. K3's prefill runs K1's tiles over the stacked
 
 ``emulate_fwd`` and ``emulate_bwd`` replay those tiles, ragged edges and
 rounding points in plain PyTorch (fp32 sums in torch's order, not the
-card's). They are held against the TPU kernels (``_flash_fwd``,
-``_flash_bwd_pallas``, ``flash_attention_stacked``) run in interpret mode,
-and, more tightly, against the port's plain versions. Inputs are made by
-numpy from a seed.
+card's). ``emulate_fwd_f32`` and ``emulate_bwd_f32`` replay the fp32 routes
+(csrc/attention_fp32.cuh): fp32 products on the same tiles, the mask's
+64 x 64 tiles sorted by ``tile_classes`` (all 0, all 1, mixed) and the
+all-0 tiles skipped by ``skip_zero_tiles``'s rule; with skip=False they
+visit every tile, and the two must agree bit for bit. They are held
+against the TPU kernels (``_flash_fwd``, ``_flash_bwd_pallas``,
+``flash_attention_stacked``) run in interpret mode, and, more tightly,
+against the port's plain versions. Inputs are made by numpy from a seed.
 
 Tolerances (their reasons):
   - vs the TPU kernels: those of tests/test_torch_attention.py and
@@ -252,6 +256,200 @@ def emulate_bwd(q3, k3, v3, mask, g3, gcol, stats, *, num_heads, softmax_fp32):
 
 
 # ---------------------------------------------------------------------------
+# the fp32 routes (csrc/attention_fp32.cuh): fp32 FMA products, 64 x 64
+# tiles, the mask's all-0 tiles skipped where that changes nothing
+
+
+ZERO, ONE, MIXED = 0, 1, 2
+
+
+def tile_classes(mask):
+    """The class of each 64 x 64 tile of a [Bm, Sq, Sk] mask (real elements
+    only): 0 all 0, 1 all 1, 2 anything else; [Bm, n_qt, n_kt] uint8."""
+    bm, sq, sk = mask.shape
+    n_qt, n_kt = -(-sq // TILE), -(-sk // TILE)
+    out = torch.empty((bm, n_qt, n_kt), dtype=torch.uint8)
+    for b in range(bm):
+        for qt in range(n_qt):
+            for kt in range(n_kt):
+                t = mask[b, qt * TILE:(qt + 1) * TILE, kt * TILE:(kt + 1) * TILE]
+                out[b, qt, kt] = ZERO if bool((t == 0).all()) else ONE if bool((t == 1).all()) \
+                    else MIXED
+    return out
+
+
+def zero_tile_prob(mx, total):
+    """p at a key of an all-0 tile (score exactly -1e10) for each row."""
+    return torch.exp(-PENALTY - mx) / total
+
+
+def skip_zero_tiles(cls_row, mx, total, real):
+    """The skip rule of a q tile: its all-0 tiles may be left out when p0
+    is exactly 0 on every real row (each has a key scored above -1e10)."""
+    return bool((cls_row == ZERO).any()) and not bool(
+        (zero_tile_prob(mx, total)[real] != 0).any())
+
+
+def emulate_fwd_f32(q3, k_buf, v_buf, mask, *, num_heads, collect_colsum, k_col0=0,
+                    v_col0=0, skip=True):
+    """The fp32 K1: per (64-row q tile, head, batch element) pass 1 (row max
+    and rescaled sum; an all-0 tile's real keys enter as -1e10 without a
+    product), then pass 2 (p from the stats, its column sums, ctx += p . V)
+    over the tiles that are not all 0, or over every tile in order when
+    some real row has p0 != 0. skip=False visits every tile in both passes
+    (the function the skipping must not change). Returns (ctx, colsum,
+    stats [2, B, H, Sq], tile classes)."""
+    b_, sq, hd = q3.shape
+    sk = k_buf.shape[1]
+    h_, d = num_heads, hd // num_heads
+    scale = 1.0 / math.sqrt(d)
+    n_qt, n_kt = -(-sq // TILE), -(-sk // TILE)
+    cls = None if mask is None else tile_classes(mask)
+    ctx = torch.zeros((b_, sq, hd))
+    part = torch.zeros((b_, h_, n_qt, sk))
+    stats = torch.zeros((2, b_, h_, sq))
+    for b in range(b_):
+        mb = None if mask is None else mask[b if mask.shape[0] > 1 else 0]
+        for h in range(h_):
+            for qt in range(n_qt):
+                q0 = qt * TILE
+                real = torch.arange(q0, q0 + TILE) < sq
+                qtile = _tile(q3[b], q0, h * d, d, sq)
+                crow = (torch.full((n_kt,), ONE, dtype=torch.uint8) if cls is None
+                        else cls[b if cls.shape[0] > 1 else 0, qt])
+
+                def tile_scores(kt):
+                    k0 = kt * TILE
+                    m = None if mb is None or crow[kt] == ONE else _mask_tile(mb, q0, k0, sq, sk)
+                    return _scores(qtile, _tile(k_buf[b], k0, k_col0 + h * d, d, sk), m,
+                                   k0, sk, scale, False)
+
+                zero = [kt for kt in range(n_kt) if skip and crow[kt] == ZERO]
+                n0 = sum(min(TILE, sk - kt * TILE) for kt in zero)
+                mx = torch.full((TILE,), -PENALTY if n0 else -math.inf)
+                total = torch.full((TILE,), float(n0))
+                for kt in range(n_kt):                         # pass 1
+                    if kt in zero:
+                        continue
+                    s = tile_scores(kt)
+                    new = torch.maximum(mx, s.amax(dim=1))
+                    grown = new != mx
+                    total = torch.where(grown, total * torch.exp(mx - new), total)
+                    mx = new
+                    total += torch.exp(s - mx[:, None]).sum(dim=1)
+                if skip_zero_tiles(crow, mx, total, real) if skip else False:
+                    visit = [kt for kt in range(n_kt) if crow[kt] != ZERO]
+                else:
+                    visit = range(n_kt)
+                acc = torch.zeros((TILE, d))
+                for kt in visit:                                 # pass 2
+                    k0 = kt * TILE
+                    p = torch.exp(tile_scores(kt) - mx[:, None]) / total[:, None]
+                    p = torch.where(real[:, None], p, torch.zeros_like(p))
+                    kn = min(TILE, sk - k0)
+                    part[b, h, qt, k0:k0 + kn] = p.sum(dim=0)[:kn]
+                    acc += p @ _tile(v_buf[b], k0, v_col0 + h * d, d, sk)
+                rn = min(TILE, sq - q0)
+                ctx[b, q0:q0 + rn, h * d:(h + 1) * d] = acc[:rn]
+                stats[0, b, h, q0:q0 + rn] = mx[:rn]
+                stats[1, b, h, q0:q0 + rn] = total[:rn]
+    colsum = part.sum(dim=2).sum(dim=1) / h_ if collect_colsum else None
+    return ctx, colsum, stats, cls
+
+
+def emulate_bwd_f32(q3, k3, v3, mask, g3, gcol, stats, cls, *, num_heads, skip=True):
+    """The fp32 K2 from K1's saved stats and tile classes: the rows kernel
+    (pass 1 D over the tiles not all 0, every tile when a real row has p0
+    != 0; pass 2 dS and dQ over the tiles not all 0) and the column kernel
+    (per key tile, the q tiles whose tile is not all 0 or whose rows have
+    p0 != 0: dV += P^T . dO, dK += dS^T . Q). skip=False visits every tile.
+    Returns (dq, dk, dv)."""
+    b_, sq, hd = q3.shape
+    sk = k3.shape[1]
+    h_, d = num_heads, hd // num_heads
+    scale = 1.0 / math.sqrt(d)
+    n_qt, n_kt = -(-sq // TILE), -(-sk // TILE)
+    dq, dk, dv = torch.zeros((b_, sq, hd)), torch.zeros((b_, sk, hd)), torch.zeros((b_, sk, hd))
+    row_d = torch.zeros((b_, h_, sq))
+
+    def rows_of(x, r0, fill):
+        out = torch.full((TILE,), fill)
+        n = max(0, min(TILE, sq - r0))
+        out[:n] = x[r0:r0 + n]
+        return out
+
+    def klass(b, qt, kt):
+        return ONE if cls is None else int(cls[b, qt, kt])
+
+    def p0_nonzero(b, h, qt):
+        q0 = qt * TILE
+        real = torch.arange(q0, q0 + TILE) < sq
+        p0 = zero_tile_prob(rows_of(stats[0, b, h], q0, 0.0), rows_of(stats[1, b, h], q0, 1.0))
+        return bool((p0[real] != 0).any())
+
+    def tile_grads(b, h, q0, k0, c):
+        cols = slice(h * d, (h + 1) * d)
+        qt_, dot = _tile(q3[b], q0, h * d, d, sq), _tile(g3[b], q0, h * d, d, sq)
+        kt_, vt = _tile(k3[b], k0, h * d, d, sk), _tile(v3[b], k0, h * d, d, sk)
+        m = None if mask is None or c == ONE else _mask_tile(mask[b], q0, k0, sq, sk)
+        s = _scores(qt_, kt_, m, k0, sk, scale, False)
+        real = (torch.arange(q0, q0 + TILE) < sq)[:, None]
+        p = _probs(s, rows_of(stats[0, b, h], q0, 0.0), rows_of(stats[1, b, h], q0, 1.0),
+                   False) * real
+        dp = dot @ vt.T
+        if gcol is not None:
+            g = torch.zeros(TILE)
+            kn = min(TILE, sk - k0)
+            g[:kn] = gcol[b, k0:k0 + kn] / h_
+            dp = dp + g[None]
+        return p, dp, m, qt_, dot, kt_, cols
+
+    for b in range(b_):              # rows kernel
+        for h in range(h_):
+            for qt in range(n_qt):
+                q0 = qt * TILE
+                nz = p0_nonzero(b, h, qt)
+                pass1 = [kt for kt in range(n_kt)
+                         if not skip or nz or klass(b, qt, kt) != ZERO]
+                pass2 = [kt for kt in range(n_kt) if not skip or klass(b, qt, kt) != ZERO]
+                dd = torch.zeros(TILE)
+                for kt in pass1:
+                    p, dp, *_ = tile_grads(b, h, q0, kt * TILE, klass(b, qt, kt))
+                    dd += (dp * p).sum(dim=1)
+                rn = min(TILE, sq - q0)
+                row_d[b, h, q0:q0 + rn] = dd[:rn]
+                acc = torch.zeros((TILE, d))
+                for kt in pass2:
+                    p, dp, m, _, _, ktile, cols = tile_grads(b, h, q0, kt * TILE,
+                                                             klass(b, qt, kt))
+                    ds = p * (dp - dd[:, None])
+                    if m is not None:
+                        ds = ds * m
+                    acc += (ds * scale) @ ktile
+                dq[b, q0:q0 + rn, cols] = acc[:rn]
+    for b in range(b_):              # column kernel
+        for h in range(h_):
+            nz = [p0_nonzero(b, h, qt) for qt in range(n_qt)]
+            for kt in range(n_kt):
+                k0 = kt * TILE
+                acc_v, acc_k = torch.zeros((TILE, d)), torch.zeros((TILE, d))
+                for qt in range(n_qt):
+                    if skip and klass(b, qt, kt) == ZERO and not nz[qt]:
+                        continue
+                    q0 = qt * TILE
+                    p, dp, m, qtile, dot, _, cols = tile_grads(b, h, q0, k0, klass(b, qt, kt))
+                    ds = p * (dp - rows_of(row_d[b, h], q0, 0.0)[:, None])
+                    if m is not None:
+                        ds = ds * m
+                    acc_v += p.T @ dot
+                    acc_k += (ds * scale).T @ qtile
+                kn = min(TILE, sk - k0)
+                dv[b, k0:k0 + kn, cols] = acc_v[:kn]
+                dk[b, k0:k0 + kn, cols] = acc_k[:kn]
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
 # inputs and checks
 
 
@@ -457,3 +655,126 @@ def test_split3_is_exact_on_scaled_gradients():
     hi, mid, lo = _split3(x)
     for t in (hi, mid, lo):
         assert torch.equal(t.to(torch.bfloat16).float(), t)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 routes: B 2, S 200 (ragged against 64), 2 heads, D 64 and 40,
+# four masks with all-0 tiles, the colsum and its cotangent on
+
+F32_B, F32_S, F32_H = 2, 200, 2
+F32_D = [64, 40]
+F32_MASKS = ["causal", "padded", "block_sparse", "non_binary"]
+
+
+def _f32_mask(kind, rng):
+    """[B, S, S]: causal; padded rows and keys (fully masked rows); 64 x 64
+    blocks kept on the diagonal and at random (all-0 tiles beside rows that
+    attend); those blocks times uniform values (not 0 or 1)."""
+    b, s = F32_B, F32_S
+    if kind == "causal":
+        return np.broadcast_to(np.tril(np.ones((s, s), np.float32)), (b, s, s)).copy()
+    if kind == "padded":
+        valid = np.ones((b, s), bool)
+        valid[0, s - 70:] = False
+        valid[1, 5] = False
+        return (valid[:, :, None] & valid[:, None, :]).astype(np.float32)
+    nb = -(-s // TILE)
+    keep = np.eye(nb, dtype=bool)[None] | (rng.random((b, nb, nb)) < 0.4)
+    keep[:, 0, nb - 1] = False                   # an all-0 tile off the diagonal
+    m = np.repeat(np.repeat(keep, TILE, 1), TILE, 2)[:, :s, :s].astype(np.float32)
+    if kind == "non_binary":
+        m *= rng.uniform(0.05, 1.0, m.shape).astype(np.float32)
+    return m
+
+
+def _f32_case(kind, d, seed=8):
+    rng = np.random.default_rng(seed)
+    b, s, h = F32_B, F32_S, F32_H
+    q, k, v = (rng.standard_normal((b, s, h * d)).astype(np.float32) for _ in range(3))
+    g = (0.1 * rng.standard_normal((b, s, h * d))).astype(np.float32)
+    gc = rng.standard_normal((b, s)).astype(np.float32)
+    mask = _f32_mask(kind, rng)
+    return (q, k, v, mask, g, gc), [torch.from_numpy(a) for a in (q, k, v, mask, g, gc)]
+
+
+def _f32_run(tensors, skip=True):
+    tq, tk, tv, tm, tg, tgc = tensors
+    ctx, cs, stats, cls = emulate_fwd_f32(tq, tk, tv, tm, num_heads=F32_H,
+                                          collect_colsum=True, skip=skip)
+    grads = emulate_bwd_f32(tq, tk, tv, tm, tg, tgc, stats, cls, num_heads=F32_H, skip=skip)
+    return ctx, cs, stats, cls, grads
+
+
+@pytest.mark.parametrize("kind", F32_MASKS)
+@pytest.mark.parametrize("d", F32_D)
+def test_fp32_tiles_match_pallas_interpret(kind, d):
+    arrays, tensors = _f32_case(kind, d)
+    q, k, v, mask, g, gc = arrays
+    ctx, cs, _, _, grads = _f32_run(tensors)
+    with pltpu.force_tpu_interpret_mode():
+        j_ctx, j_cs, _ = pa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask),
+                                       num_heads=F32_H, softmax_fp32=True, collect_colsum=True)
+        want = pa._flash_bwd_pallas(*(jnp.asarray(a) for a in (q, k, v, mask, g, gc)),
+                                    num_heads=F32_H, softmax_fp32=True, use_gcol=True)
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(j_ctx), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(cs.numpy(), np.asarray(j_cs), atol=2e-5, rtol=2e-5)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        _rel_close(a.numpy(), w, BWD_TOL[("float32", True)], name)
+
+
+@pytest.mark.parametrize("kind", F32_MASKS)
+@pytest.mark.parametrize("d", F32_D)
+def test_fp32_tiles_match_plain(kind, d):
+    _, tensors = _f32_case(kind, d)
+    tq, tk, tv, tm, tg, tgc = tensors
+    ctx, cs, stats, _, grads = _f32_run(tensors)
+    kw = dict(num_heads=F32_H, softmax_fp32=True)
+    ref, ref_cs = ca.flash_attention_plain(tq, tk, tv, tm, collect_colsum=True, **kw)
+    _rel_close(ctx, ref, 2e-6, "ctx")
+    torch.testing.assert_close(cs, ref_cs, atol=1e-5, rtol=1e-5)
+    ref_stats = ca.softmax_stats_plain(tq, tk, tm, **kw)
+    torch.testing.assert_close(stats[0], ref_stats[0], atol=0, rtol=2e-6)
+    torch.testing.assert_close(stats[1], ref_stats[1], atol=0, rtol=2e-6)
+    for name, a, r in zip(("dq", "dk", "dv"), grads,
+                          ca.attention_bwd_plain(tq, tk, tv, tm, tg, tgc, **kw)):
+        _rel_close(a, r, 2e-6, name)
+    dead = tm.amax(dim=-1) == 0                  # fully masked rows: dQ exactly 0
+    assert not grads[0][dead].any()
+
+
+@pytest.mark.parametrize("kind", F32_MASKS)
+def test_fp32_tile_classes_and_skip_rule(kind):
+    """The tile classes against the mask read tile by tile in numpy, and
+    the skip rule: ctx, colsum, dQ, dK and dV with the all-0 tiles skipped
+    equal them with every tile visited, bit for bit. The causal and
+    block-sparse masks skip tiles; a q tile with a fully masked row skips
+    none (its p0 = 1/Sk is not 0)."""
+    arrays, tensors = _f32_case(kind, 64)
+    mask = arrays[3]
+    skipped = _f32_run(tensors, skip=True)
+    full = _f32_run(tensors, skip=False)
+    cls = skipped[3]
+    n = -(-F32_S // TILE)
+    for b in range(F32_B):
+        for qt in range(n):
+            for kt in range(n):
+                t = mask[b, qt * TILE:(qt + 1) * TILE, kt * TILE:(kt + 1) * TILE]
+                want = ZERO if (t == 0).all() else ONE if (t == 1).all() else MIXED
+                assert cls[b, qt, kt] == want, (b, qt, kt)
+    for name, a, w in zip(("ctx", "colsum", "dq", "dk", "dv"),
+                          skipped[:2] + skipped[4], full[:2] + full[4]):
+        assert torch.equal(a, w), name
+    stats = skipped[2]
+
+    def rule(b, qt):                             # head 0's q tile qt
+        rows = slice(qt * TILE, (qt + 1) * TILE)
+        n_real = len(range(F32_S)[rows])
+        pad = lambda x, fill: torch.cat([x, torch.full((TILE - n_real,), fill)])
+        return skip_zero_tiles(cls[b, qt], pad(stats[0, b, 0, rows], 0.0),
+                               pad(stats[1, b, 0, rows], 1.0), torch.arange(TILE) < n_real)
+
+    rule = [rule(b, qt) for b in range(F32_B) for qt in range(n)]
+    if kind in ("causal", "block_sparse"):
+        assert any(rule)
+    if kind == "padded":                         # batch 0's last q tiles: fully masked rows
+        assert not rule[n - 1] and not rule[n - 2]

@@ -277,6 +277,64 @@ def test_bwd_saved_stats_and_repeatable(cuda, softmax_fp32, b, sq, sk, h, d, col
         assert torch.equal(a, o) and torch.equal(o, r)
 
 
+# the fp32 route's mask tiles: all 0 (skipped), all 1, mixed
+FP32_MASKS = ["causal", "padded", "block_sparse", "non_binary"]
+
+
+def _fp32_mask(cuda, kind, b, s):
+    """A [b, s, s] mask of one kind: causal; padded rows and keys (fully
+    masked rows); 64 x 64 blocks kept or dropped off the diagonal (all-0
+    tiles beside rows that still attend); values in [0, 1] with zero
+    blocks."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if kind == "causal":
+        return torch.tril(torch.ones((s, s), device=cuda)).expand(b, s, s).contiguous()
+    if kind == "padded":
+        valid = torch.ones((b, s), dtype=torch.bool, device=cuda)
+        valid[0, s - 70:] = False
+        valid[-1, 5] = False
+        return (valid[:, None] & valid[:, :, None]).float()
+    nb = -(-s // 64)
+    keep = torch.rand((b, nb, nb), generator=g, device=cuda) < 0.4
+    keep |= torch.eye(nb, dtype=torch.bool, device=cuda)
+    m = keep.repeat_interleave(64, 1).repeat_interleave(64, 2)[:, :s, :s].float()
+    if kind == "non_binary":
+        m = m * torch.rand((b, s, s), generator=g, device=cuda)
+    return m.contiguous()
+
+
+@pytest.mark.parametrize("kind", FP32_MASKS)
+@pytest.mark.parametrize("s,d,colsum", [(200, 64, False), (1000, 40, True)])
+def test_fp32_masked_tiles_match_plain(cuda, kind, s, d, colsum):
+    """The fp32 route on masks with all-0 tiles: ctx, colsum and grads
+    within 1e-5 of the plain versions, dQ exactly 0 on fully masked rows,
+    K2 with K1's saved stats and classes equal to K2 on its own, twice."""
+    b, h = 2, 2
+    q, k, v, _ = _inputs(cuda, b, s, s, h, d, torch.float32, False, seed=5)
+    mask = _fp32_mask(cuda, kind, b, s)
+    do, gcol = _bwd_extra(cuda, b, s, s, h, d, torch.float32, colsum)
+    kw = dict(num_heads=h, softmax_fp32=True)
+    stats, cls = cuda_attention.new_stats(q, h), cuda_attention.new_tile_class(mask)
+    ctx, cs = cuda_attention.attention_fwd_cuda(q, k, v, mask, stats=stats, tile_class=cls,
+                                                collect_colsum=colsum, **kw)
+    saved = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, stats=stats,
+                                              tile_class=cls, **kw)
+    own = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    again = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
+    torch.cuda.synchronize()
+    ref, ref_cs = cuda_attention.flash_attention_plain(q, k, v, mask, collect_colsum=colsum,
+                                                       **kw)
+    assert (ctx - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if colsum:
+        torch.testing.assert_close(cs, ref_cs, atol=1e-4, rtol=1e-3)
+    for a, r in zip(saved, cuda_attention.attention_bwd_plain(q, k, v, mask, do, gcol, **kw)):
+        assert (a - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+    for a, o, r in zip(saved, own, again):
+        assert torch.equal(a, o) and torch.equal(o, r)
+    dead = mask.amax(dim=-1) == 0
+    assert not saved[0][dead].any()
+
+
 def test_bwd_refuses_bad_stats(cuda):
     q, k, v, mask = _inputs(cuda, 1, 8, 8, 2, 16, torch.bfloat16, False)
     do, _ = _bwd_extra(cuda, 1, 8, 8, 2, 16, torch.bfloat16, False)
@@ -418,8 +476,8 @@ def test_stacked_kernel_refuses_bad_kv_len(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     for bad in (0, 65):
         err = lib.merlot_attention_stacked_fwd(
-            q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(), 2, 1, 64, bad,
-            2, 64, 0, 1, 1, 8, 0.125, stream)
+            q.data_ptr(), kv.data_ptr(), mask.data_ptr(), out.data_ptr(), None, 2, 1, 64,
+            bad, 2, 64, 0, 1, 1, 8, 0.125, stream)
         assert err != 0
 
 

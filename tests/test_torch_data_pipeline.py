@@ -4,8 +4,9 @@ CPU, at small sizes.
 
 Everything here is compared bit for bit (no tolerance): the record bytes,
 the parsed Examples, the resized, padded and augmented images with the
-same rng, the decoded JPEGs (both packages decode with libjpeg here) and
-the loader's batches for the same files, config and seed.
+same rng, the decoded JPEGs (both packages decode with libjpeg here, and
+the port's pil route gives the same pixels; CMYK JPEGs go to PIL in both)
+and the loader's batches for the same files, config and seed.
 """
 
 import io
@@ -125,9 +126,87 @@ def test_jpeg_encode_equals_pil(quality):
 def test_no_jpeg_route_names_what_is_missing(monkeypatch):
     monkeypatch.setattr(_native, "_state", {})
     monkeypatch.setattr(_native, "load", lambda: None)
+    monkeypatch.setattr(_native, "_have_pil", lambda: False)
     monkeypatch.setattr(_native, "_nvjpeg_header", lambda: None)
-    with pytest.raises(RuntimeError, match="jpeglib.h.*nvjpeg.h"):
+    with pytest.raises(RuntimeError, match="jpeglib.h.*PIL.*nvjpeg.h"):
         _native.jpeg_route()
+
+
+def _pil_jpeg(mode: str, size=(48, 64)) -> bytes:
+    """A seeded noise JPEG that PIL writes in ``mode`` (CMYK, L)."""
+    PIL = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(4)
+    rgb = rng.integers(0, 256, (*size, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    PIL.fromarray(rgb).convert(mode).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _by_route(route, fn, *args):
+    """fn(*args) with JPEGs taken by ``route``, then the default again."""
+    _native.set_jpeg_route(route)
+    try:
+        return fn(*args)
+    finally:
+        _native.set_jpeg_route(None)
+
+
+@pytest.mark.parametrize("mode", ["CMYK", "L"])
+def test_decode_jpeg_colourspaces_match_jax(mode):
+    """A CMYK JPEG (libjpeg refuses it: PIL decodes it, as JAX's
+    decode_jpeg_u8 does) and a grayscale one decode as JAX's do, bit for
+    bit, by the default route and by the pil route."""
+    data = _pil_jpeg(mode)
+    want = jax_image_ops.decode_jpeg_u8(data)
+    assert want.shape == (48, 64, 3)
+    np.testing.assert_array_equal(image_ops.decode_jpeg_u8(data), want)
+    np.testing.assert_array_equal(_by_route("pil", _native.decode_jpeg, data), want)
+    if mode == "CMYK":
+        with pytest.raises(ValueError):
+            _native.load().decode_jpeg(data)
+
+
+def test_undecodable_jpeg_still_raises():
+    with pytest.raises(Exception):
+        image_ops.decode_jpeg_u8(b"\xff\xd8 not a jpeg")
+
+
+def test_pil_route_equals_libjpeg_on_fixture():
+    """The pil route decodes the committed fixture exactly as the libjpeg
+    route does, and encodes the bytes libjpeg writes."""
+    pytest.importorskip("PIL.Image")
+    with np.load(FIXTURE) as z:
+        for i in range(3):
+            data = z[f"jpeg{i}"].tobytes()
+            np.testing.assert_array_equal(_by_route("pil", _native.decode_jpeg, data),
+                                          _by_route("libjpeg", _native.decode_jpeg, data))
+            np.testing.assert_array_equal(_by_route("pil", _native.decode_jpeg, data),
+                                          z[f"pixels{i}"])
+    frame = np.random.default_rng(2).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    assert (_by_route("pil", _native.encode_jpeg, frame, 85)
+            == _by_route("libjpeg", _native.encode_jpeg, frame, 85))
+
+
+def test_jpeg_route_without_libjpeg_is_pil_and_nvjpeg_only_by_name(monkeypatch):
+    """Without jpeglib.h the default route is pil; nvJPEG is taken only
+    when named (and the name is refused where nvJPEG cannot be built)."""
+    pytest.importorskip("PIL.Image")
+    monkeypatch.setattr(_native, "_state", {})
+    monkeypatch.setattr(_native, "have_libjpeg", lambda: False)
+    monkeypatch.setattr(_native, "load", lambda: None)
+    monkeypatch.setattr(_native, "_nvjpeg_header", lambda: Path("/nvjpeg.h"))
+    built = []
+    monkeypatch.setattr(_native, "_nvjpeg_lib", lambda: built.append(1))
+    assert _native.jpeg_route() == "pil"
+    assert not built
+    _native.set_jpeg_route("nvjpeg")
+    assert _native.jpeg_route() == "nvjpeg" and built
+    _native.set_jpeg_route(None)
+    assert _native.jpeg_route() == "pil"
+    with pytest.raises(RuntimeError, match="libjpeg"):
+        _native.set_jpeg_route("libjpeg")
+    with pytest.raises(ValueError, match="unknown"):
+        _native.set_jpeg_route("turbo")
 
 
 @pytest.mark.parametrize("method", ["bilinear", "nearest", "bicubic", "area", "random"])
@@ -311,7 +390,23 @@ def test_device_iterator_stops_its_worker_when_abandoned():
     assert [int(next(it)["i"][0]) for _ in range(3)] == [0, 1, 2]
     workers = set(threading.enumerate()) - before
     assert len(workers) == 1
-    it.close()
-    for t in workers:
-        t.join(timeout=10)
-        assert not t.is_alive()
+    it.close()                   # stops the worker and waits for it
+    assert not any(t.is_alive() for t in workers)
+
+
+def test_device_iterator_close_warns_of_a_stuck_worker(monkeypatch):
+    """A worker stuck in the loader's next() does not hold close() up past
+    WORKER_JOIN_S: close() returns and warns."""
+    release = threading.Event()
+
+    def stuck():
+        yield {"i": np.array([0])}
+        release.wait()
+        yield {"i": np.array([1])}
+
+    monkeypatch.setattr(pretrain_loader, "WORKER_JOIN_S", 0.2)
+    it = pretrain_loader.device_iterator(stuck(), "cpu")
+    assert int(next(it)["i"][0]) == 0
+    with pytest.warns(RuntimeWarning, match="still runs"):
+        it.close()
+    release.set()
