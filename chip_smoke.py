@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py [--out details.json] [--parent DIR]
 
-1. builds the kernels from csrc/ with nvcc, one process each, in
-   parallel: K1 (attention forward), K2 (backward), K3 (the stacked KV
-   cache), K4 (fused GroupNorm) and K5 (LayerNorm fused into matmuls);
+1. builds the kernels from csrc/ with nvcc, one process per source, all
+   in parallel, then links each library: K1 (attention forward), K2
+   (backward), K3 (the stacked KV cache), K4 (fused GroupNorm) and K5
+   (LayerNorm fused into matmuls); K1's tiled launch and its fp32 route are
+   sources of their own that K1's, K2's and K3's libraries share, and K2's
+   fp32 route one of its own (each compile's and link's seconds are
+   printed and kept in --out);
 2. K1 phase: holds K1 against its plain PyTorch version at the two
    zero-shot shapes (fp32 softmax), the three pretrain shapes (bf16
    softmax) and VCR's four (fp32 softmax: the ViT at 16 x 1058 and the
@@ -67,14 +71,14 @@
    peak memory; the loss falls over steps on the repeated batch (no
    warmup); one step's loss and gradients through the kernels match the
    plain attention's within a bound, and a backward with the mask dropped
-   exceeds it; then torch.profiler over two more steps gives the device
+   exceeds it; then torch.profiler over one more step gives the device
    time by kernel family and the device's idle share;
 5b. fused train phase: the train step with both fused norms on: 36 K1,
    36 K2, 54 K4 and 72 K5 launches per step, segments/s, K4 and K5 ms per
    step, peak memory, the loss falling; one step's loss and grads against
    the unfused kernel step's at its weights and masking (a K4 backward
    without the ReLU mask and a K5 backward without dgamma must exceed the
-   bounds), and torch.profiler over two steps; then the A/B: unfused and
+   bounds), and torch.profiler over one step; then the A/B: unfused and
    fused steps in turns, fresh models, 3 warm-up and 8 timed steps each,
    with the host's enqueue time per step;
 6. K3 phase: prints the decode kernels' registers and spills from ptxas,
@@ -121,12 +125,13 @@
    checkpoints at 4 and 8, two evaluation batches), between two runs of
    the synthetic-batch step; run B is pretrain.main in this process from
    A's ckpt_4 with the kernels' counters (36 K1 and 36 K2 launches per
-   step) and torch.profiler over two steps (the device's idle share). B
+   step) and torch.profiler over one step, retaken over the next if it
+   lost records (the device's idle share). B
    must resume at step 4, its losses and step-8 parameters must match A's
    and A's ckpt_8, loaded by convert.load_flax_params into a fresh model,
    must reproduce A's evaluation loss, within the tolerances at the top;
    segments/s through the CLI, checkpoint seconds and bytes are printed;
-10. zero-shot CLI phase: the port's writer makes 2 synthetic stories in
+10. zero-shot CLI phase: the port's writer makes 1 synthetic story in
    all 120 orderings (600x800 frames); a fresh pretrain_5seg-width model
    is saved as a pretrain checkpoint (rooted at merlot/); `python -m
    merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits zs.yaml`
@@ -141,7 +146,7 @@
    run A (`python -m merlot_tpu_torch.downstream.vcr.train a.yaml`,
    warm-started from a fresh pretrain_4seg-width checkpoint, 8 steps,
    checkpoints at 4 and 8), run B (in process from A's ckpt_4, with the
-   counters: 24 K1 and 24 K2 per step, and a profile of two steps) whose
+   counters: 24 K1 and 24 K2 per step, and a profile of one step) whose
    losses at steps 5-8 must equal A's; one step's loss through the
    kernels against the plain attention (the loss with the joint mask
    dropped in the forward is reported: it barely moves), and the grads of
@@ -162,7 +167,7 @@
    24 K2 per step) whose losses at steps 5-8 must equal A's; one step's
    loss and grads through the kernels against the plain attention at full
    depth and batch 2, with the causal mask dropped on the kernel side
-   failing both bounds; a profile of two more steps of B's step function;
+   failing both bounds; a profile of one more step of B's step function;
    A's ckpt_8 served by the port's
    Denoiser (fused qkv, stacked cache: K3's prefill) against the trained
    model's forward (K1); with ``--parent``, the step's forward and backward
@@ -175,6 +180,19 @@
    all be 512x288; then pretrain.main on it for 2 steps with a copy of the
    CLI phase's reduced pretrain_4seg.yaml (36 K1 and 36 K2 per step,
    finite losses). Prints the frame route, videos/s and chunks/s.
+
+14. data_parallel phase: the entry points as rank 0 of a world of one
+   (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT set, each in a
+   subprocess that joins an NCCL process group; none is left in this
+   process): the pretraining CLI with use_zero1 on the CLI phase's config
+   copy and shards for its first 4 steps (checkpoints at 2 and 4), whose
+   every metric must equal run A's at those steps and whose ckpt_4 must
+   equal A's file for file, 36 K1 and 36 K2 per step; its ZeRO-1 ckpt_2
+   restored by a run of no process group; the fault probe (the first
+   step's loss with the mask loss's denominator summed twice must differ
+   from A's); VCR with use_zero1 for 2 steps against VCR run A (24/24 per
+   step); the zero-shot CLI, whose .npz must equal the CLI phase's bit for
+   bit (24 K1 per batch). Prints segments/s beside run A's.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -390,7 +408,7 @@ LN_MEAN_TOL = 1e-5
 # the fused paths' launches: K1, K4, K5 per zero-shot batch; K1, K2, K4, K5
 # per train step
 # the A/B of the unfused and fused steps: warm-up and timed steps per run
-AB_WARMUP, AB_STEPS = 2, 5
+AB_WARMUP, AB_STEPS = 2, 3
 FUSED_LAUNCHES_PER_BATCH = (24, 54, 48)
 FUSED_LAUNCHES_PER_STEP = (36, 36, 54, 72)
 # fused vs unfused zero-shot probs: two more sums in another order in every
@@ -440,7 +458,7 @@ STACKED_SHAPES = [
 STACKED_FP32_RTOL = 3e-6
 # the Grover decode phase: bench.py's grover method
 GROVER_BATCH, GROVER_PREFIX, GROVER_GENS = 8, 1024, (32, 192)
-GROVER_REPEATS = 2
+GROVER_REPEATS = 1
 GREEDY_STEPS = 8
 # prefill + 8 argmax decode steps, K3 vs the plain attention fed the same
 # tokens: the largest |logit difference| (fp32 logits of |x| up to ~4.3,
@@ -476,7 +494,7 @@ CLI_REDUCED = {"train_batch_size": TRAIN_BATCH, "num_train_steps": CLI_STEPS,
 # run B's steps under torch.profiler, one profile per window: the idle
 # share is read from the first window whose profile holds every K1/K2
 # launch the wrappers counted in it (a profile now and then loses records)
-CLI_PROFILE_WINDOWS = ((6, 7), (8,))
+CLI_PROFILE_WINDOWS = ((6,), (7,))
 CLI_SYNTH_WARMUP, CLI_SYNTH_STEPS = 2, 2
 CLI_FEED_STEPS = 2          # timed steps of each feed run, after two
 CLI_LOADER_BATCHES = 2
@@ -504,7 +522,7 @@ RELOAD_EVAL_RTOL = 0.0
 # configs/pretrain_5seg.yaml with ZS_CLI_REDUCED's keys changed (one group
 # of 5 is one story; the model block unchanged); a fresh model from seed 0
 # saved as a pretrain checkpoint
-ZS_CLI_STORIES = 2
+ZS_CLI_STORIES = 1
 ZS_CLI_FRAME_HW = (600, 800)
 ZS_CLI_BATCH = 2
 ZS_CLI_REDUCED = {"num_chunks": CHUNKS, "val_batch_size": ZS_CLI_BATCH}
@@ -584,6 +602,25 @@ GT_GRAD_TOL = 1e-4
 # 0.63 away, must fail it
 GT_ROUNDTRIP = (2, 1024)
 GT_ROUNDTRIP_TOL = 1e-4
+
+# the data_parallel phase: the entry points launched as rank 0 of a world of
+# 1 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set), so
+# that each joins an NCCL process group and runs its data-parallel path on
+# the card (parallel/mesh.py): the pretraining CLI with use_zero1 on the CLI
+# phase's copy of pretrain_4seg.yaml for its first DP_STEPS steps,
+# checkpointed every DP_CKPT_EVERY (in the warmup the learning rate does
+# not depend on num_train_steps), VCR with use_zero1 on the VCR phase's
+# copy for DP_VCR_STEPS steps, and the zero-shot CLI on its phase's copy.
+# At world 1 a rank's shares of the global losses are the losses, computed
+# by the same operations, and the gradient all-reduce adds nothing: every
+# metric, checkpoint and prob must equal the runs without a process group
+# bit for bit (DP_RTOL). The fault probe: the pretraining rank recomputes
+# its first step's global loss from a copy of the step's generator with the
+# mask loss's denominator summed twice (an all-reduce that counts a rank's
+# tokens again), which must fail the check the run passes.
+DP_STEPS, DP_CKPT_EVERY = 4, 2
+DP_VCR_STEPS = 2
+DP_RTOL = 0.0
 
 # the corpus phase: CORPUS_VIDEOS synthetic 1280x720 videos written by cv2
 # (mp4v, CORPUS_FPS), each a 16:9 content box (CORPUS_CONTENT, smooth
@@ -1094,7 +1131,7 @@ def parent_libraries(parent_dir: Path) -> dict:
     nvcc = _build.find_nvcc()
     names = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul")
     procs = {n: subprocess.Popen(
-        [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{n}.so"),
+        [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(out / f"lib{n}.so"),
          str(parent_dir / "merlot_tpu_torch" / "csrc" / f"{n}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for n in names}
     libs = {}
@@ -1970,7 +2007,7 @@ def fused_train_phase(dev, ref) -> dict:
     GroupNorm backend on K4): timed steps, launches, peak memory, the loss
     falling, one step's loss and grads against the unfused kernel step's at
     the same weights and masking (and a GroupNorm backward without the ReLU
-    mask checked to fail that bound), and torch.profiler over two steps."""
+    mask checked to fail that bound), and torch.profiler over PROFILE_STEPS."""
     import dataclasses
     import torch
     from merlot_tpu_torch.models import merlot as merlot_mod
@@ -2162,6 +2199,20 @@ def kernel_family(name: str) -> str:
 # a kernel launched before the measured work: one that holds fewer
 # launches than the wrappers counted over the same run is taken again
 PROFILE_TRIES = 3
+# train steps under each torch.profiler window: reading a profile of the
+# pretrain step's ~34,000 launches took ~18 s a step with the CPU's
+# activity traced too and ~7 s with the card's alone (the same kernels,
+# counts and device ms; the host's tracing also stretched the step's wall
+# time, 0.94-1.19 s against 0.88-0.91, so it read a larger idle share:
+# 0.40-0.52 against 0.35-0.37; H100 80GB HBM3, 700 W). The summaries use
+# only the card's kernels, so only the card's activity is traced
+PROFILE_STEPS = 1
+
+
+def profile_activities() -> list:
+    """What every torch.profiler window here traces: the card's kernels."""
+    from torch.profiler import ProfilerActivity
+    return [ProfilerActivity.CUDA]
 
 
 def profile_summary(prof, wall_ms: float, family=kernel_family, **info) -> dict:
@@ -2191,13 +2242,13 @@ def profile_device(run, label: str, family=kernel_family, counted=None, **info) 
     kernels; the profile must hold every launch counted over its run(),
     within PROFILE_TRIES runs, and "tries" says how many it took."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     counted = counted or {}
     for tries in range(1, PROFILE_TRIES + 1):
         before = {fams: read() for fams, read in counted.items()}
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=profile_activities()) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -2223,7 +2274,7 @@ def profile_device(run, label: str, family=kernel_family, counted=None, **info) 
 def grover_profile_child(ckpt: str, train_files: str, out: str) -> int:
     """``chip_smoke.py --grover-profile CKPT --train-files GLOB --out JSON``:
     the Grover training step's checked profile in a process of its own
-    (``profile_steps``: two steps of grover_train's step function at CKPT's
+    (``profile_steps``: PROFILE_STEPS of grover_train's step function at CKPT's
     weights on the shards' first batch, already on the card, after one
     unprofiled step), written to JSON. In the Grover phase's own process,
     after the earlier phases' profiles, every such profile has lacked the
@@ -2261,15 +2312,15 @@ def grover_profile_child(ckpt: str, train_files: str, out: str) -> int:
 
 def profile_steps(dev, step, model, state, batch, label: str = "profile",
                   counted=None) -> dict:
-    """torch.profiler over two train steps."""
+    """torch.profiler over PROFILE_STEPS train steps."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(4)
 
     def run():
-        for _ in range(2):
+        for _ in range(PROFILE_STEPS):
             step(model, state, batch, g)
-    return profile_device(run, label, counted=counted, steps=2)
+    return profile_device(run, label, counted=counted, steps=PROFILE_STEPS)
 
 
 # ---------------------------------------------------------------------------
@@ -2794,23 +2845,32 @@ def server_phase(dev, log_path: Path) -> dict:
 # the pretraining CLI from tfrecords
 
 
-def config_copy(name: str, values: dict, added: tuple = (), extra: str = "") -> tuple:
-    """configs/<name> with the value of each key in ``values`` replaced
-    (each key must occur once; its comment goes), each (section, key,
-    value) of ``added`` put at the head of its section, and ``extra``
-    appended. Returns the copy's text, what changed, and both files as the
-    port's reader reads them."""
+def set_keys(text: str, values: dict, name: str) -> tuple:
+    """``text`` (a YAML file's) with the value of each key in ``values``
+    replaced (each key must occur once; its comment goes), and what
+    changed."""
     import re
-    from merlot_tpu_torch.core.config import load_yaml
 
-    src = (ROOT / "configs" / name).read_text()
-    text, reduced = src, []
+    reduced = []
     for key, value in values.items():
         pattern = re.compile(rf"^(\s*{key}:)[ \t]*([^#\n]*?)[ \t]*(#[^\n]*)?$", re.M)
         found = pattern.findall(text)
         check(len(found) == 1, f"{name}: {key} found {len(found)} times")
         reduced.append({"key": key, "yaml": found[0][1], "copy": value})
         text = pattern.sub(lambda m: f"{m.group(1)} {value}", text)
+    return text, reduced
+
+
+def config_copy(name: str, values: dict, added: tuple = (), extra: str = "") -> tuple:
+    """configs/<name> with the value of each key in ``values`` replaced
+    (each key must occur once; its comment goes), each (section, key,
+    value) of ``added`` put at the head of its section, and ``extra``
+    appended. Returns the copy's text, what changed, and both files as the
+    port's reader reads them."""
+    from merlot_tpu_torch.core.config import load_yaml
+
+    src = (ROOT / "configs" / name).read_text()
+    text, reduced = set_keys(src, values, name)
     for section, key, value in added:
         head = f"\n{section}:\n"
         check(text.count(head) == 1, f"{name}: section {section} found {text.count(head)} times")
@@ -3086,11 +3146,11 @@ def feed_rates(dev, config, files, out: Path) -> list:
     return runs
 
 
-def run_module(module: str, args, cwd: Path, log: Path) -> tuple:
+def run_module(module: str, args, cwd: Path, log: Path, env: dict = None) -> tuple:
     """``python -m module args`` (a path, or a list of arguments) in a
-    subprocess from ``cwd`` with this checkout on its path: (exit code,
-    seconds, its output)."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    subprocess from ``cwd`` with this checkout on its path and ``env``'s
+    variables added: (exit code, seconds, its output)."""
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     argv = [str(a) for a in (args if isinstance(args, (list, tuple)) else [args])]
     t0 = time.perf_counter()
@@ -3113,7 +3173,7 @@ def counting_steps(per_step: list, windows: list):
     (``window_profiles``): reading one takes seconds that would stall the
     steps after it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from merlot_tpu_torch.ops import cuda_attention as ca
 
     def counting(make):
@@ -3125,7 +3185,7 @@ def counting_steps(per_step: list, windows: list):
                 for w in CLI_PROFILE_WINDOWS:
                     if n == w[0]:
                         torch.cuda.synchronize()
-                        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        prof = profile(activities=profile_activities())
                         prof.start()
                         windows.append({"steps": w, "prof": prof, "t0": time.perf_counter()})
                 before = (ca.launches, ca.bwd_launches)
@@ -3141,38 +3201,50 @@ def counting_steps(per_step: list, windows: list):
     return counting
 
 
-def window_summaries(per_step: list, windows: list, label: str) -> list:
-    """The profiles of ``counting_steps``' windows, each with its (profiled,
+def window_summary(per_step: list, w: dict, label: str) -> dict:
+    """One ``counting_steps`` window's profile, with its (profiled,
     counted) K1/K2 launches (a K2 call launches two kernels, the rows and
     the column kernel) and whether it held them all."""
+    summary = profile_summary(w["prof"], w["wall_ms"], steps=len(w["steps"]))
+    mine = [s for s in per_step if s[0] in w["steps"]]
+    counted = {"K1 attention_fwd": sum(s[1] for s in mine),
+               "K2 attention_bwd": 2 * sum(s[2] for s in mine)}
+    summary["steps"] = list(w["steps"])
+    summary["profiled_vs_counted"] = {
+        fam: (summary["families"].get(fam, {"launches": 0})["launches"], n)
+        for fam, n in counted.items()}
+    summary["held_all"] = all(got == want for got, want
+                              in summary["profiled_vs_counted"].values())
+    print(f"[{label}] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
+          flush=True)
+    return summary
+
+
+def window_summaries(per_step: list, windows: list, label: str) -> list:
+    """The profiles of all of ``counting_steps``' windows (``window_summary``)."""
     check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
           f"[{label}] profiled {[w['steps'] for w in windows]}")
-    profiles = []
-    for w in windows:
-        summary = profile_summary(w["prof"], w["wall_ms"], steps=len(w["steps"]))
-        mine = [s for s in per_step if s[0] in w["steps"]]
-        counted = {"K1 attention_fwd": sum(s[1] for s in mine),
-                   "K2 attention_bwd": 2 * sum(s[2] for s in mine)}
-        summary["steps"] = list(w["steps"])
-        summary["profiled_vs_counted"] = {
-            fam: (summary["families"].get(fam, {"launches": 0})["launches"], n)
-            for fam, n in counted.items()}
-        summary["held_all"] = all(got == want for got, want
-                                  in summary["profiled_vs_counted"].values())
-        profiles.append(summary)
-        print(f"[{label}] {json.dumps({k: v for k, v in summary.items() if k != 'top_kernels'})}",
-              flush=True)
+    profiles = [window_summary(per_step, w, label) for w in windows]
     windows.clear()
     return profiles
 
 
 def window_profiles(per_step: list, windows: list, label: str) -> tuple:
-    """``window_summaries`` and the first that held every counted launch."""
-    profiles = window_summaries(per_step, windows, label)
-    held = [p for p in profiles if p["held_all"]]
-    check(held, f"[{label}] no profile held the K1/K2 launches counted in its window: "
-                f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
-    return profiles, held[0]
+    """The windows' profiles read in order up to the first that held every
+    counted launch (a later window is a retake, not read when not needed),
+    and that one."""
+    check([w["steps"] for w in windows] == list(CLI_PROFILE_WINDOWS),
+          f"[{label}] profiled {[w['steps'] for w in windows]}")
+    profiles = []
+    for w in windows:
+        profiles.append(window_summary(per_step, w, label))
+        if profiles[-1]["held_all"]:
+            break
+    windows.clear()
+    check(profiles[-1]["held_all"],
+          f"[{label}] no profile held the K1/K2 launches counted in its window: "
+          f"{[(p['steps'], p['profiled_vs_counted']) for p in profiles]}")
+    return profiles, profiles[-1]
 
 
 def cli_phase(dev, tmp: Path) -> dict:
@@ -3183,7 +3255,7 @@ def cli_phase(dev, tmp: Path) -> dict:
     that follow it (``feed_rates``), the loader alone, its resume skip and
     its copy to the card, then run B (pretrain.main in this
     process from A's ckpt_4: steps 5-8 with the kernels' counters and a
-    profile of two steps) against A, and A's ckpt_8 loaded into a fresh
+    profile of one step) against A, and A's ckpt_8 loaded into a fresh
     model against A's evaluation."""
     import gc
     import shutil
@@ -3262,7 +3334,7 @@ def cli_phase(dev, tmp: Path) -> dict:
     segments = TRAIN_BATCH * TRAIN_CHUNKS
 
     # run B: A's ckpt_4 in a fresh output directory, in this process, with
-    # the kernels' counters per step and torch.profiler over two steps
+    # the kernels' counters per step and torch.profiler over one step
     resume_from = CLI_CKPT_EVERY
     (tmp / "b" / "checkpoints").mkdir(parents=True)
     shutil.copytree(a_ckpt.path(resume_from), tmp / "b" / "checkpoints" / f"ckpt_{resume_from}")
@@ -3674,7 +3746,7 @@ def vcr_phase(dev, tmp: Path) -> dict:
     merlot_tpu_torch.downstream.vcr.train a.yaml` in a subprocess, warm
     started from a fresh pretrain_4seg-width checkpoint: 8 steps,
     checkpoints at 4 and 8), run B (vcr.train.main in this process from
-    A's ckpt_4, with the kernels' counters and a profile of two steps)
+    A's ckpt_4, with the kernels' counters and a profile of one step)
     against A, one step's loss and grads through the kernels against the
     plain attention, A's ckpt_8 evaluated in both modes (kernel logits
     against plain ones), and the sidecar's poll over A's checkpoints until
@@ -4193,7 +4265,7 @@ def grover_train_phase(dev, tmp: Path, old=None) -> dict:
         "a_trg_loss": {s: a_train[s]["trg_loss"] for s in sorted(a_train)},
         "resume_loss_rel_gap": loss_gap, "launches": launches, "launches_per_step": per_step,
         "peak_mem_gib": peak_gib,
-        "profile_source": "side loop in a process of its own: two steps of "
+        "profile_source": f"side loop in a process of its own: {PROFILE_STEPS} step(s) of "
                           "grover_train's step function at A's step-8 weights on one "
                           "batch already on the card, no loader",
         "side_loop_seconds": side_s,
@@ -4367,6 +4439,277 @@ def corpus_phase(dev, tmp: Path) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: the entry points as ranks of an NCCL process group
+
+
+def dp_env() -> dict:
+    """The variables torchrun gives rank 0 of a world of 1, on a free port."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def dp_probe_loss(model, batch, generator, mesh) -> float:
+    """The global loss of a step on ``batch`` from a copy of its generator,
+    with the mask loss's denominator summed twice over the ranks (a broken
+    all-reduce); the generator itself is left as it is."""
+    import torch
+    from merlot_tpu_torch.models import pretrain as mp
+    from merlot_tpu_torch.ops.attention import training_backend
+    from merlot_tpu_torch.train.train_step import global_metrics, rank_draws
+
+    gen = torch.Generator(device=generator.device)
+    gen.set_state(generator.get_state())
+    real = mp.mask_loss
+
+    class Doubled:  # adds every rank's count once more
+        def all_reduce_sum(self, t):
+            return mesh.all_reduce_sum(t) * 2
+
+    mp.mask_loss = lambda m, fwd, _mesh=None: real(m, fwd, Doubled())
+    try:
+        dev = next(model.parameters()).device
+        b = {k: v.to(dev) for k, v in batch.items()}
+        g, draws = rank_draws(model.cfg, b["input_ids"], gen, mesh)
+        loss, metrics, _ = model(b, deterministic=False, attn_backend=training_backend(dev),
+                                 generator=g, masking_draws=draws, mesh=mesh)
+        return float(global_metrics(loss.detach(), metrics, mesh)[0])
+    finally:
+        mp.mask_loss = real
+
+
+def dp_child(kind: str, config: str, out: str) -> int:
+    """One rank of the data_parallel phase (a subprocess with the rank's
+    variables set): the entry point of ``kind`` ('pretrain', 'vcr' or
+    'zero_shot') on ``config``, with the kernels' counters set to 0 just
+    before it; for the train kinds (step, K1, K2 launches) per step, and
+    for 'pretrain' the fault probe's loss (``dp_probe_loss``, before the
+    first step, outside the counters). Writes them to ``out``."""
+    from merlot_tpu_torch.downstream.sort_story import get_zero_shot_logits
+    from merlot_tpu_torch.downstream.vcr import train as vcr_train
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.train import harness, pretrain
+
+    per_step, probe = [], []
+
+    def counting(make):
+        def make_counted(*args, **kw):
+            step = make(*args, **kw)
+
+            def counted(model, opt_state, batch, generator, **kw2):
+                if kind == "pretrain" and not probe:
+                    probe.append(dp_probe_loss(model, batch, generator, kw["mesh"]))
+                before = (ca.launches, ca.bwd_launches)
+                result = step(model, opt_state, batch, generator, **kw2)
+                per_step.append((opt_state["step"], ca.launches - before[0],
+                                 ca.bwd_launches - before[1]))
+                return result
+            return counted
+        return make_counted
+
+    t0 = time.perf_counter()
+    if kind == "pretrain":
+        with wrapped(harness, "make_train_step", counting):
+            reset_counts()
+            pretrain.main([config])
+    elif kind == "vcr":
+        with wrapped(vcr_train, "make_loss_train_step", counting):
+            reset_counts()
+            vcr_train.main([config])
+    else:
+        reset_counts()
+        get_zero_shot_logits.main([config])
+    Path(out).write_text(json.dumps({
+        "kind": kind, "seconds": time.perf_counter() - t0, "per_step": per_step,
+        "launches": {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches},
+        "probe_loss": probe[0] if probe else None}))
+    return 0
+
+
+def dp_run(kind: str, config: Path, cwd: Path, d: Path) -> tuple:
+    """``dp_child`` in a subprocess as rank 0 of a world of 1: (its record,
+    seconds). The rank must report an NCCL group."""
+    rc, seconds, text = run_module(
+        "chip_smoke", ["--dp-child", kind, "--dp-config", config, "--dp-out",
+                       d / f"dp_{kind}.json"], cwd, d / f"dp_{kind}.log", env=dp_env())
+    check(rc == 0, f"the {kind} rank exited {rc}")
+    check("process group: backend nccl, world 1, rank 0" in text,
+          f"the {kind} rank did not report an NCCL group of one rank")
+    return json.loads((d / f"dp_{kind}.json").read_text()), seconds
+
+
+def with_zero1(text: str, values: dict, name: str) -> str:
+    """A YAML copy's text with ``values`` set and device.use_zero1 added."""
+    text, _ = set_keys(text, values, name)
+    check(text.count("\ndevice:\n") == 1, f"{name}: no single device section")
+    return text.replace("\ndevice:\n", "\ndevice:\n  use_zero1: true\n")
+
+
+def metrics_gap(got: dict, want: dict) -> float:
+    """The largest relative gap between two runs' logged metrics (every key
+    but the timings) at ``got``'s steps."""
+    timing = {"step", "time", "steps_per_sec", "perf/steps_per_sec"}
+    gap = 0.0
+    for s, row in got.items():
+        check(set(row) - timing == set(want[s]) - timing, f"step {s}: other metrics")
+        for k in set(row) - timing:
+            gap = max(gap, abs(row[k] - want[s][k]) / max(abs(want[s][k]), 1e-30))
+    return gap
+
+
+def npz_equal(a: Path, b: Path) -> bool:
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        return list(x.files) == list(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def data_parallel_phase(dev, cli_tmp: Path, zs_tmp: Path, vcr_tmp: Path, cli: dict,
+                        zs_cli: dict) -> dict:
+    """The data-parallel paths at world size 1 through NCCL (DP_STEPS's
+    comment): the pretraining CLI with use_zero1 against the CLI phase's
+    run A (every metric of its steps, its last checkpoint, 36 K1 and 36 K2
+    per step), its ZeRO-1 checkpoint at DP_CKPT_EVERY restored by a plain
+    run, the fault probe; VCR with use_zero1 against the VCR phase's run A
+    (24/24 per step); the zero-shot CLI's .npz against its phase's CLI run,
+    24 K1 per batch."""
+    import gc
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.convert import flax_layout, flax_path
+    from merlot_tpu_torch.core.config import NeatConfig
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.train import checkpoint as ckpt_mod
+    from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    # the pretraining CLI, ZeRO-1, as rank 0
+    check(DP_STEPS in range(CLI_CKPT_EVERY, CLI_STEPS + 1, CLI_CKPT_EVERY),
+          "the data-parallel run's last step has no checkpoint of run A's")
+    d = cli_tmp / "dp"
+    (cli_tmp / "dp.yaml").write_text(with_zero1(
+        (cli_tmp / "a.yaml").read_text(), {"output_dir": f'"{d}"', "num_train_steps": DP_STEPS,
+                                           "iterations_per_loop": DP_CKPT_EVERY}, "a.yaml"))
+    rank, seconds["pretrain"] = dp_run("pretrain", cli_tmp / "dp.yaml", ROOT, cli_tmp)
+    a_train = {x["step"]: x for x in jsonl(cli_tmp / "a" / "train_metrics.jsonl") if "loss" in x}
+    got = {x["step"]: x for x in jsonl(d / "train_metrics.jsonl") if "loss" in x}
+    check(sorted(got) == list(range(1, DP_STEPS + 1)), f"the rank logged steps {sorted(got)}")
+    gap = metrics_gap(got, a_train)
+    probe_gap = abs(rank["probe_loss"] - a_train[1]["loss"]) / abs(a_train[1]["loss"])
+    a_ckpt = Path(cli_tmp / "a" / "checkpoints" / f"ckpt_{DP_STEPS}")
+    dp_ckpt = d / "checkpoints"
+    check(sorted(p.name for p in dp_ckpt.iterdir())
+          == sorted(f"ckpt_{s}" for s in range(DP_CKPT_EVERY, DP_STEPS + 1, DP_CKPT_EVERY)),
+          f"the rank's checkpoints {sorted(p.name for p in dp_ckpt.iterdir())}")
+    ckpt_equal = all(npz_equal(dp_ckpt / f"ckpt_{DP_STEPS}" / f, a_ckpt / f)
+                     for f in (ckpt_mod.PARAMS_FILE, ckpt_mod.OPT_FILE))
+    # its ZeRO-1 checkpoint at DP_CKPT_EVERY restored by a run of no group
+    config = NeatConfig.from_yaml(str(cli_tmp / "dp.yaml"))
+    model = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=dev)
+    params = dict(model.named_parameters())
+    opt = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
+    state = opt.init(params)
+    mid = dp_ckpt / f"ckpt_{DP_CKPT_EVERY}"
+    ckpt_mod.load_checkpoint(str(mid), model, state)
+    with np.load(mid / ckpt_mod.PARAMS_FILE) as zp, np.load(mid / ckpt_mod.OPT_FILE) as zo:
+        restored = (state["step"] == DP_CKPT_EVERY and all(
+            np.array_equal(flax_layout(n, ckpt_mod._to_numpy(p)), zp[flax_path(n)])
+            and all(np.array_equal(flax_layout(n, ckpt_mod._to_numpy(state[g][n])),
+                                   zo[f"{g}/{flax_path(n)}"]) for g in ("m", "v"))
+            for n, p in params.items()))
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    segments = TRAIN_BATCH * TRAIN_CHUNKS
+    rate_steps = [st for st in sorted(got) if st >= 2 and (st - 1) % DP_CKPT_EVERY]
+    pretrain_rec = {
+        "reduced": {"num_train_steps": DP_STEPS, "iterations_per_loop": DP_CKPT_EVERY,
+                    "use_zero1": True},
+        "losses": {s: got[s]["loss"] for s in sorted(got)},
+        "run_a_losses": {s: a_train[s]["loss"] for s in sorted(got)},
+        "metrics_rel_gap": gap, "launches_per_step": rank["per_step"],
+        "last_checkpoint_equals_run_a": ckpt_equal,
+        "zero1_checkpoint_restored_plainly": bool(restored),
+        "probe_loss": rank["probe_loss"], "probe_rel_gap": probe_gap,
+        # the same steps of both runs: from 2 on, none after a checkpoint
+        # write of the rank's
+        "rate_steps": rate_steps,
+        "steps_per_sec": {k: [r[st]["perf/steps_per_sec"] for st in rate_steps]
+                          for k, r in (("rank", got), ("run_a", a_train))},
+        "segments_per_s": segments * statistics.median(
+            got[st]["perf/steps_per_sec"] for st in rate_steps),
+        "run_a_segments_per_s": segments * statistics.median(
+            a_train[st]["perf/steps_per_sec"] for st in rate_steps),
+        "seconds": seconds["pretrain"]}
+
+    # VCR, ZeRO-1, as rank 0
+    vd = vcr_tmp / "vcr"
+    (vd / "dp.yaml").write_text(with_zero1(
+        (vd / "a.yaml").read_text(), {"output_dir": f'"{vd / "dp"}"',
+                                      "num_train_steps": DP_VCR_STEPS,
+                                      "iterations_per_loop": DP_VCR_STEPS}, "VCR a.yaml"))
+    vrank, seconds["vcr"] = dp_run("vcr", vd / "dp.yaml", ROOT, vd)
+    va = {x["step"]: x for x in jsonl(vd / "a" / "train_metrics.jsonl")}
+    vgot = {x["step"]: x for x in jsonl(vd / "dp" / "train_metrics.jsonl")}
+    check(sorted(vgot) == list(range(1, DP_VCR_STEPS + 1)),
+          f"the VCR rank logged steps {sorted(vgot)}")
+    vcr_rec = {"reduced": {"num_train_steps": DP_VCR_STEPS, "use_zero1": True},
+               "losses": {s: vgot[s]["loss"] for s in sorted(vgot)},
+               "run_a_losses": {s: va[s]["loss"] for s in sorted(vgot)},
+               "metrics_rel_gap": metrics_gap(vgot, va),
+               "launches_per_step": vrank["per_step"], "seconds": seconds["vcr"]}
+
+    # the zero-shot CLI as rank 0
+    zd = zs_tmp / "zero_shot_cli"
+    (zd / "run_dp").mkdir()
+    zrank, seconds["zero_shot"] = dp_run("zero_shot", zd / "zs.yaml", zd / "run_dp", zd)
+    zs_rec = {"npz_equals_cli": npz_equal(zd / "run_dp" / "logits_val.npz",
+                                          zd / "run" / "logits_val.npz"),
+              "launches": zrank["launches"]["attention_fwd"], "batches": zs_cli["batches"],
+              "seconds": seconds["zero_shot"]}
+
+    result = {"card": card, "backend": "nccl", "world_size": 1, "pretrain_cli": pretrain_rec,
+              "vcr": vcr_rec, "zero_shot_cli": zs_rec,
+              "launches": {
+                  "attention_fwd": rank["launches"]["attention_fwd"]
+                  + vrank["launches"]["attention_fwd"] + zs_rec["launches"],
+                  "attention_bwd": rank["launches"]["attention_bwd"]
+                  + vrank["launches"]["attention_bwd"]},
+              "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[data-parallel] {json.dumps(result)}", flush=True)
+    print(f"[data-parallel] {card}: NCCL, world 1: the pretraining CLI with use_zero1 "
+          f"{pretrain_rec['segments_per_s']:.2f} segments/s (run A "
+          f"{pretrain_rec['run_a_segments_per_s']:.2f}), metrics gap {gap} over {DP_STEPS} "
+          f"steps, probe gap {probe_gap:.3g}; VCR gap {vcr_rec['metrics_rel_gap']}; zero-shot "
+          f".npz equal {zs_rec['npz_equals_cli']}; {result['phase_seconds']:.1f} s", flush=True)
+    check(gap <= DP_RTOL, f"the ZeRO-1 rank's metrics vs run A's: {gap} > {DP_RTOL}")
+    check(probe_gap > DP_RTOL, f"the fault probe (the mask denominator summed twice) passed: "
+                               f"{probe_gap}")
+    check(all(k1 == k2 == LAUNCHES_PER_STEP for _, k1, k2 in rank["per_step"])
+          and [s for s, *_ in rank["per_step"]] == list(range(1, DP_STEPS + 1)),
+          f"the rank's K1/K2 launches per step {rank['per_step']}")
+    check(ckpt_equal, f"the rank's ckpt_{DP_STEPS} differs from run A's")
+    check(restored, f"the rank's ZeRO-1 ckpt_{DP_CKPT_EVERY} did not restore plainly")
+    check(vcr_rec["metrics_rel_gap"] <= DP_RTOL,
+          f"the VCR rank's metrics vs VCR run A's: {vcr_rec['metrics_rel_gap']}")
+    check(all(k1 == k2 == VCR_LAUNCHES_PER_STEP for _, k1, k2 in vrank["per_step"])
+          and len(vrank["per_step"]) == DP_VCR_STEPS,
+          f"the VCR rank's K1/K2 launches per step {vrank['per_step']}")
+    check(zs_rec["npz_equals_cli"], "the zero-shot rank's .npz differs from the CLI's")
+    check(zs_rec["launches"] == LAUNCHES_PER_BATCH * zs_cli["batches"],
+          f"the zero-shot rank launched K1 {zs_rec['launches']} times over "
+          f"{zs_cli['batches']} batches")
+    return result
+
+
 def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict:
     """The plain version's, SDPA's and the bound's ms over a path's
     ``launches`` at each of ``shapes`` (per-call times of the kernel
@@ -4376,7 +4719,7 @@ def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -4397,7 +4740,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         + cli["launches"]["attention_fwd"] + zs_cli["launches"]
         + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values())
         + gt["launches"]["attention_fwd"] + gt["roundtrip"]["launches"]["attention_fwd"]
-        + sum(k1 for _, k1, _ in cp["launches_per_step"]),
+        + sum(k1 for _, k1, _ in cp["launches_per_step"]) + dp["launches"]["attention_fwd"],
         "launches_by_path": {"zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
                              "pretrain_cli": cli["launches"]["attention_fwd"],
@@ -4409,7 +4752,12 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                              "grover_roundtrip_forward":
                                  gt["roundtrip"]["launches"]["attention_fwd"],
                              "corpus_pretrain_cli": sum(k1 for _, k1, _ in
-                                                        cp["launches_per_step"])},
+                                                        cp["launches_per_step"]),
+                             "data_parallel_pretrain_cli": sum(
+                                 k1 for _, k1, _ in dp["pretrain_cli"]["launches_per_step"]),
+                             "data_parallel_vcr_train": sum(
+                                 k1 for _, k1, _ in dp["vcr"]["launches_per_step"]),
+                             "data_parallel_zero_shot_cli": dp["zero_shot_cli"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -4460,13 +4808,17 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "replaces": "merlot_tpu/ops/pallas_attention.py:504",
         "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
         + vcr["launches"]["attention_bwd"] + gt["launches"]["attention_bwd"]
-        + sum(k2 for _, _, k2 in cp["launches_per_step"]),
+        + sum(k2 for _, _, k2 in cp["launches_per_step"]) + dp["launches"]["attention_bwd"],
         "launches_by_path": {"train": tr["launches"]["attention_bwd"],
                              "pretrain_cli": cli["launches"]["attention_bwd"],
                              "vcr_train": vcr["launches"]["attention_bwd"],
                              "grover_train": gt["launches"]["attention_bwd"],
                              "corpus_pretrain_cli": sum(k2 for _, _, k2 in
-                                                        cp["launches_per_step"])},
+                                                        cp["launches_per_step"]),
+                             "data_parallel_pretrain_cli": sum(
+                                 k2 for _, _, k2 in dp["pretrain_cli"]["launches_per_step"]),
+                             "data_parallel_vcr_train": sum(
+                                 k2 for _, _, k2 in dp["vcr"]["launches_per_step"])},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -4532,7 +4884,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "prefill_fp32_first_design_ms": first["k3_prefill_fp32"]}
     # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
-    # on the fused path (torch.profiler over two steps, halved), "event_ms"
+    # on the fused path (torch.profiler, per step), "event_ms"
     # CUDA events around its launches on the path (median of the timed
     # steps), the others sums over the sites of the per-shape times; the
     # zero_shot_* fields the same per fused zero-shot batch (54 K4 and 48
@@ -4553,7 +4905,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "launches_by_path": {"zero_shot_fused": fsl["launches"]["groupnorm"],
                              "train_fused": ftr["launches"]["groupnorm"]},
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
-        "ms": fprof["families"]["K4 groupnorm"]["ms"] / 2, "event_ms": ftr["k4_ms"],
+        "ms": fprof["families"]["K4 groupnorm"]["ms"] / fprof["steps"],
+        "event_ms": ftr["k4_ms"],
         "plain_ms": gn_path(train_frames, "plain_ms"),
         "bound_ms": gn_path(train_frames, "bound_ms"), "bound_by": gn["stem_c64"]["bound_by"],
         "library_ms": gn_path(train_frames, "library_ms"),
@@ -4578,7 +4931,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "launches_by_path": {"zero_shot_fused": fsl["launches"]["ln_matmul"],
                              "train_fused": ftr["launches"]["ln_matmul"]},
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
-        "ms": fprof["families"]["K5 ln_matmul"]["ms"] / 2, "event_ms": ftr["k5_ms"],
+        "ms": fprof["families"]["K5 ln_matmul"]["ms"] / fprof["steps"],
+        "event_ms": ftr["k5_ms"],
         "plain_ms": ln_path("pretrain", "plain_ms"),
         "bound_ms": ln_path("pretrain", "bound_ms"),
         "bound_by": ln["pretrain_vit_qkv"]["bound_by"],
@@ -4607,6 +4961,11 @@ def main() -> int:
                     help="only the Grover training step's profile at this checkpoint "
                          "(with --train-files and --out; the Grover phase runs it)")
     ap.add_argument("--train-files", help="with --grover-profile: the LM shards' glob")
+    ap.add_argument("--dp-child", choices=("pretrain", "vcr", "zero_shot"),
+                    help="only one rank of the data_parallel phase (with --dp-config and "
+                         "--dp-out; the phase runs it with the rank's variables set)")
+    ap.add_argument("--dp-config", help="with --dp-child: the entry point's config")
+    ap.add_argument("--dp-out", help="with --dp-child: where its record goes")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4615,6 +4974,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if args.grover_profile:
         return grover_profile_child(args.grover_profile, args.train_files, args.out)
+    if args.dp_child:
+        return dp_child(args.dp_child, args.dp_config, args.dp_out)
     from merlot_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4631,7 +4992,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_libraries(libs)
     build_s = time.perf_counter() - t0
-    print(f"[build] {', '.join(libs)} in {build_s:.1f}s", flush=True)
+    print(f"[build] {', '.join(libs)} in {build_s:.1f}s; each compile and link: "
+          f"{json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})}", flush=True)
     for name in libs:
         print(_build.build_logs.get(name, ""), flush=True)
 
@@ -4680,15 +5042,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sv = server_phase(dev, Path(tmp) / "denoise_log.jsonl")
     lap("server")
-    with tempfile.TemporaryDirectory() as tmp:  # shards and ~1.7 GB checkpoints
-        cli = cli_phase(dev, Path(tmp))
-    lap("pretrain_cli")
-    with tempfile.TemporaryDirectory() as tmp:
-        zs_cli = zero_shot_cli_phase(dev, Path(tmp), sl["stories_per_s"])
-    lap("zero_shot_cli")
-    with tempfile.TemporaryDirectory() as tmp:
-        vcr = vcr_phase(dev, Path(tmp))
-    lap("vcr")
+    # shards and ~1.7 GB checkpoints; the data_parallel phase reads all three
+    with tempfile.TemporaryDirectory() as cli_tmp, tempfile.TemporaryDirectory() as zs_tmp, \
+            tempfile.TemporaryDirectory() as vcr_tmp:
+        cli = cli_phase(dev, Path(cli_tmp))
+        lap("pretrain_cli")
+        zs_cli = zero_shot_cli_phase(dev, Path(zs_tmp), sl["stories_per_s"])
+        lap("zero_shot_cli")
+        vcr = vcr_phase(dev, Path(vcr_tmp))
+        lap("vcr")
+        dp = data_parallel_phase(dev, Path(cli_tmp), Path(zs_tmp), Path(vcr_tmp), cli, zs_cli)
+        lap("data_parallel")
     with tempfile.TemporaryDirectory() as tmp:  # ~4.3 GB checkpoints
         gt = grover_train_phase(dev, Path(tmp), old)
     lap("grover_train")
@@ -4697,19 +5061,21 @@ def main() -> int:
     lap("corpus")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(
-            {"card": card, "build_s": build_s, "phase_seconds": phase_s,
+            {"card": card, "build_s": build_s, "build_seconds": _build.build_seconds,
+             "phase_seconds": phase_s,
              "kernel_shapes": k1_rows,
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
              "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
-             "vcr": vcr, "grover_train": gt, "corpus": cp, "ablation": ab_rows,
+             "vcr": vcr, "data_parallel": dp, "grover_train": gt, "corpus": cp,
+             "ablation": ab_rows,
              "first_design": fd,
              "records": records,
              "ptxas": {n: _build.build_logs.get(n, "") for n in libs}},

@@ -14,7 +14,7 @@ store the optimizer's moments in the flax layout too).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -33,16 +33,22 @@ def torch_layout(path: str, arr: np.ndarray) -> np.ndarray:
     return np.array(arr, order="C")
 
 
+def flax_axes(torch_name: str, ndim: int) -> Tuple[int, ...]:
+    """For each axis of the flax layout of parameter ``torch_name``, its
+    axis in this package's layout (kernels [in, out] <- [out, in], HWIO <-
+    OIHW; every other leaf the same)."""
+    if torch_name.split(".")[-1] == "weight":
+        if ndim == 2:
+            return (1, 0)
+        if ndim == 4:
+            return (2, 3, 1, 0)
+        raise ValueError(f"{torch_name}: weight of rank {ndim}")
+    return tuple(range(ndim))
+
+
 def flax_layout(torch_name: str, arr: np.ndarray) -> np.ndarray:
     """The inverse of ``torch_layout``, keyed by the torch name."""
-    if torch_name.split(".")[-1] == "weight":
-        if arr.ndim == 2:
-            arr = arr.T
-        elif arr.ndim == 4:
-            arr = arr.transpose(2, 3, 1, 0)
-        else:
-            raise ValueError(f"{torch_name}: weight of rank {arr.ndim}")
-    return np.array(arr, order="C")
+    return np.array(arr.transpose(flax_axes(torch_name, arr.ndim)), order="C")
 
 
 def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

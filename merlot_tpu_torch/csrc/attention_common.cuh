@@ -96,4 +96,9 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// the colsum's cotangent term of one key: g_colsum / H (K2, both routes)
+__device__ __forceinline__ float gcol_term(const float* gcol, size_t i, int H) {
+  return gcol == nullptr ? 0.f : gcol[i] / (float)H;
+}
+
 }  // namespace merlot

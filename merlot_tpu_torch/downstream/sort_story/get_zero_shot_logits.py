@@ -3,6 +3,8 @@ merlot_tpu/downstream/sort_story/get_zero_shot_logits.py):
 
     python -m merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits \
         config.yaml [--device cpu]
+    torchrun --nproc_per_node N -m \
+        merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits config.yaml
 
 Loads the latest checkpoint under ``device.output_dir/checkpoints`` (the
 port's format), runs every story of ``data.val_file`` through the temporal
@@ -19,6 +21,10 @@ A pretrain checkpoint roots its tree at ``merlot/`` (``MerlotPretrainModel``
 holds the ``MerlotModel`` there); the CLI then loads that subtree. The JAX
 package's CLI applies such a tree to a bare ``MerlotModel`` as it is and
 fails to find its parameters.
+
+Launched as N ranks (torchrun), the batches are spread over them whole
+(``run_zero_shot`` with the mesh) and rank 0 writes the ``.npz``, which
+equals one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -36,8 +42,8 @@ from merlot_tpu_torch.downstream.sort_story.dataloader import story_batches
 from merlot_tpu_torch.downstream.sort_story.zero_shot import run_zero_shot
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.merlot import MerlotModel
+from merlot_tpu_torch.parallel.mesh import join_from_env, leave
 from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
-from merlot_tpu_torch.train.train_step import _device
 
 PRETRAIN_ROOT = "merlot/"
 
@@ -59,7 +65,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     ap.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     config = NeatConfig.from_yaml(args.config_file)
-    device = _device(args.device)
+    device, mesh = join_from_env(args.device, config.device.get("model_parallelism", 1))
+    try:
+        return _run(config, device, mesh)
+    finally:
+        leave(mesh)
+
+
+def _run(config: NeatConfig, device, mesh) -> Dict[str, object]:
     num_chunks = config.data.get("num_chunks", 5)
     cfg = MerlotConfig.from_dict(config.model)
     if (cfg.num_chunks_in_group or num_chunks) != num_chunks:
@@ -81,8 +94,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     merged = {"num_chunks": num_chunks, "image_size": list(cfg.image_size)}
     out_path = f"logits_{config.data.get('split_name', 'val')}.npz"
     n = run_zero_shot(model, story_batches(files, merged, batch_size), out_path,
-                      batch_size=batch_size, num_chunks=num_chunks)
-    print(f"wrote {n} stories to {out_path}")
+                      batch_size=batch_size, num_chunks=num_chunks, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(f"wrote {n} stories to {out_path}")
     return {"path": out_path, "stories": n}
 
 

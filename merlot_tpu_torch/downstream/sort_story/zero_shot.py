@@ -27,6 +27,7 @@ import torch
 from merlot_tpu_torch.core import threefry
 from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.ops.attention import inference_backend
+from merlot_tpu_torch.parallel.mesh import Mesh
 
 DUPLICATION_FACTOR = 2
 SHUFFLE_OFFSET = 64
@@ -120,31 +121,46 @@ def make_zero_shot_fn(batch_size: int, num_chunks: int,
 
 def run_zero_shot(model: MerlotModel, batches: Iterable[Dict[str, Any]],
                   out_path: str, batch_size: int, num_chunks: int = 5, *,
-                  shuffled_idx: Optional[torch.Tensor] = None) -> int:
+                  shuffled_idx: Optional[torch.Tensor] = None,
+                  mesh: Optional[Mesh] = None) -> int:
     """Drive batches through the zero-shot fn on the model's device and
     write the per-story arrays to the ``.npz`` at ``out_path`` (the
     module's docstring has its layout); returns the number of stories
     written. story_batches yields only full batches; a story already
     written (replica padding repeats the last one, and each permutation of
-    a story repeats its id) is skipped."""
+    a story repeats its id) is skipped.
+
+    With ``mesh`` every rank reads the batches, rank i mod N runs batch i
+    whole, and rank 0 gathers the outputs and writes the file. Whole
+    batches, because a story's output depends on the other stories of its
+    batch (the duplicate-order fault above): so the file equals one
+    process's bit for bit."""
     fn = make_zero_shot_fn(batch_size, num_chunks, shuffled_idx=shuffled_idx)
     device = next(model.parameters()).device
+    metas, outs = [], {}
+    for i, batch in enumerate(batches):
+        metas.append({k: batch[k] for k in ("story_id", "permutation_identity_encode",
+                                            "sentences")})
+        if mesh is None or i % mesh.data == mesh.rank:
+            out = fn(model, torch.as_tensor(np.asarray(batch["images"])).to(device),
+                     torch.as_tensor(np.asarray(batch["sentences"])).to(device))
+            outs[i] = {k: v.cpu().numpy() for k, v in out.items()}
+    if mesh is not None:
+        outs = {i: o for part in mesh.all_gather_object(outs) for i, o in part.items()}
     arrays: Dict[str, np.ndarray] = {}
     seen = set()
-    for batch in batches:
-        out = fn(model, torch.as_tensor(np.asarray(batch["images"])).to(device),
-                 torch.as_tensor(np.asarray(batch["sentences"])).to(device))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        for i in range(batch_size):
-            sid = str(int(batch["story_id"][i]))
+    for i, batch in enumerate(metas):
+        for j in range(batch_size):
+            sid = str(int(batch["story_id"][j]))
             if sid in seen:
                 continue
             seen.add(sid)
             arrays[f"{sid}/permutation_identity_encode"] = np.int64(
-                batch["permutation_identity_encode"][i])
-            arrays[f"{sid}/sentences"] = np.asarray(batch["sentences"][i])
+                batch["permutation_identity_encode"][j])
+            arrays[f"{sid}/sentences"] = np.asarray(batch["sentences"][j])
             for name in ("lang_viz", "viz_viz"):
-                arrays[f"{sid}/{name}_probs"] = out[f"{name}_probs"][i]
-    with open(out_path, "wb") as f:
-        np.savez(f, **arrays)
+                arrays[f"{sid}/{name}_probs"] = outs[i][f"{name}_probs"][j]
+    if mesh is None or mesh.rank == 0:
+        with open(out_path, "wb") as f:
+            np.savez(f, **arrays)
     return len(seen)

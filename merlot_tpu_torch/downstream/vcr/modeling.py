@@ -35,6 +35,7 @@ from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.nn.layers import DenseTN, dropout
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import inference_backend, training_backend
+from merlot_tpu_torch.parallel.mesh import Mesh
 
 NUM_CHOICES = 4
 
@@ -128,12 +129,19 @@ class VCRModel(nn.Module):
         return head(h0, **drop).reshape(img_batch, NUM_CHOICES)
 
 
-def vcr_loss_and_metrics(logits: torch.Tensor, targets: torch.Tensor
+def vcr_loss_and_metrics(logits: torch.Tensor, targets: torch.Tensor,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Softmax cross-entropy over the 4 choices (the sum over the batch
-    divided by its size) and the accuracy."""
+    divided by its size) and the accuracy. With ``mesh`` the batch is this
+    rank's rows of the global batch (equal on every rank) and the loss and
+    accuracy are this rank's shares of the global ones: the sum over the
+    ranks' rows divided by the global size."""
     one_hot = F.one_hot(targets.long(), NUM_CHOICES).to(logits.dtype)
     per_ex = -(F.log_softmax(logits, dim=-1) * one_hot).sum(-1)
-    loss = per_ex.sum() / logits.shape[0]
+    ranks = 1 if mesh is None else mesh.data
+    loss = per_ex.sum() / (logits.shape[0] * ranks)
     acc = (logits.argmax(-1) == targets).float().mean()
+    if mesh is not None:
+        acc = acc * (1.0 / ranks)
     return loss, {"loss": loss, "accuracy": acc}

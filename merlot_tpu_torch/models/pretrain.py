@@ -4,6 +4,21 @@
 total = lang + contrastive + temporal, with metrics under ``lang/``,
 ``contr/`` and ``temporal/``. The contrastive loss is written globally,
 ``CE(lang @ viz.T / temp, arange(N))`` over the whole batch.
+
+Data parallelism (``mesh``, ``parallel.mesh.Mesh``): every term is written
+over the global batch, the ranks' batches concatenated in rank order, as
+the JAX package writes it and GSPMD partitions it. Each function then
+returns this rank's share of the global value, so that the shares (and
+their gradients) summed over the ranks give the global loss and metrics:
+  * the masked LM's and the accuracies' denominators (valid tokens, pair
+    weights) are summed over the ranks;
+  * the contrastive loss gathers every rank's features (a gather whose
+    backward sums each gradient into its owner) into the global N x N
+    logits; this rank's rows give its share of lang->viz, its columns its
+    share of viz->lang (each a mean over its rows x n / N);
+  * the temporal means are over the global pairs (n / N of the local mean).
+At world size 1 each share is computed by the same operations as without
+a mesh, so its value is the same to the bit.
 """
 
 from __future__ import annotations
@@ -16,9 +31,11 @@ from torch import nn
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.ops.losses import cross_entropy_with_logits
+from merlot_tpu_torch.parallel.mesh import Mesh
 
 
-def mask_loss(model: MerlotModel, fwd: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+def mask_loss(model: MerlotModel, fwd: Dict[str, Any],
+              mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict]:
     s = fwd["shapes"]
     B, L = s["B"], s["L"]
     hidden = fwd["encoder_hidden_states"]["lang"]          # [B, L, H] fp32
@@ -34,21 +51,33 @@ def mask_loss(model: MerlotModel, fwd: Dict[str, Any]) -> Tuple[torch.Tensor, Di
     raw = cross_entropy_with_logits(logits, targets_flat)
 
     is_valid = (targets_flat != 0).to(raw.dtype)
-    denom = is_valid.sum() + 1e-5
+    count = is_valid.sum()
+    if mesh is not None:
+        count = mesh.all_reduce_sum(count)
+    denom = count + 1e-5
     loss = (is_valid * raw).sum() / denom
     is_right = logits.argmax(-1) == targets_flat.long()
     acc = (is_valid * is_right.float()).sum() / denom
     return loss, {"loss": loss, "acc": acc}
 
 
-def contrastive_loss(model: MerlotModel, fwd: Dict[str, Any],
-                     cfg: MerlotConfig) -> Tuple[torch.Tensor, Dict]:
+def contrastive_loss(model: MerlotModel, fwd: Dict[str, Any], cfg: MerlotConfig,
+                     mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict]:
     lang_x, viz_x = model.contrastive_features(fwd["lang_trg_h"], fwd["img_trg_h"])
     n = lang_x.shape[0]
-    labels = torch.arange(n, device=lang_x.device)
-    logits = (lang_x @ viz_x.T) / cfg.contrast_temp
-    l2v = cross_entropy_with_logits(logits, labels).mean()
-    v2l = cross_entropy_with_logits(logits.T, labels).mean()
+    if mesh is None:
+        labels = torch.arange(n, device=lang_x.device)
+        logits = (lang_x @ viz_x.T) / cfg.contrast_temp
+        l2v = cross_entropy_with_logits(logits, labels).mean()
+        v2l = cross_entropy_with_logits(logits.T, labels).mean()
+    else:
+        lang_all, viz_all = mesh.all_gather_rows(lang_x), mesh.all_gather_rows(viz_x)
+        share = n / lang_all.shape[0]
+        lo = mesh.rank * n
+        labels = torch.arange(lo, lo + n, device=lang_x.device)
+        logits = (lang_all @ viz_all.T) / cfg.contrast_temp
+        l2v = cross_entropy_with_logits(logits[lo:lo + n], labels).mean() * share
+        v2l = cross_entropy_with_logits(logits[:, lo:lo + n].T, labels).mean() * share
     losses = {"lang_to_viz": l2v, "viz_to_lang": v2l}
     losses["loss_all"] = cfg.contrast_coef * (l2v + v2l) / 2.0
     return losses["loss_all"], losses
@@ -66,8 +95,8 @@ def _allpairs_temporal_labels(video_src_ids: torch.Tensor, group: int) -> torch.
 
 
 def temporal_loss(model: MerlotModel, fwd: Dict[str, Any], cfg: MerlotConfig,
-                  shuffled_idx_img: torch.Tensor,
-                  video_src_ids: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                  shuffled_idx_img: torch.Tensor, video_src_ids: torch.Tensor,
+                  mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict]:
     s = fwd["shapes"]
     B, group = s["B"], s["group"]
     h_lang = fwd["encoder_hidden_states"]["lang"].reshape(
@@ -86,9 +115,14 @@ def temporal_loss(model: MerlotModel, fwd: Dict[str, Any], cfg: MerlotConfig,
         easy_pair = is_easy[:, :, None] & is_easy[:, None]
         w = ((~easy_pair).float() * 0.99 + 0.01).reshape(-1)
         raw = cross_entropy_with_logits(logits, labels) * w
-        info[f"{name}_loss"] = raw.mean()
+        w_sum = w.sum()
+        if mesh is None:
+            info[f"{name}_loss"] = raw.mean()
+        else:  # this rank's n of the ranks' n * data pairs
+            info[f"{name}_loss"] = raw.mean() * (1.0 / mesh.data)
+            w_sum = mesh.all_reduce_sum(w_sum)
         right = logits.argmax(-1) == labels
-        info[f"{name}_acc"] = (right.float() * w).sum() / (w.sum() + 1e-5)
+        info[f"{name}_acc"] = (right.float() * w).sum() / (w_sum + 1e-5)
 
     loss = info["lang_viz_loss"]
     if cfg.image_shuffle_prob > 0:
@@ -117,7 +151,11 @@ class MerlotPretrainModel(nn.Module):
                 deterministic: bool = False,
                 attn_backend: str = "auto",
                 generator: Optional[torch.Generator] = None,
-                masking_draws: Optional[Dict[str, torch.Tensor]] = None):
+                masking_draws: Optional[Dict[str, torch.Tensor]] = None,
+                mesh: Optional[Mesh] = None):
+        """``mesh``: the batch is this rank's rows of the global batch and
+        the loss and metrics are this rank's shares of the global ones
+        (the module docstring)."""
         cfg = self.cfg
         fwd = self.merlot(
             batch["images"], batch["input_ids"], mask_input=True,
@@ -125,12 +163,12 @@ class MerlotPretrainModel(nn.Module):
             attn_backend=attn_backend, generator=generator,
             masking_draws=masking_draws)
 
-        lang_l, lang_m = mask_loss(self.merlot, fwd)
-        contr_l, contr_m = contrastive_loss(self.merlot, fwd, cfg)
+        lang_l, lang_m = mask_loss(self.merlot, fwd, mesh)
+        contr_l, contr_m = contrastive_loss(self.merlot, fwd, cfg, mesh)
         if cfg.temporal_coef > 0.0:
             temp_l, temp_m = temporal_loss(self.merlot, fwd, cfg,
                                            batch["shuffled_idx_img"],
-                                           batch["video_src_ids"])
+                                           batch["video_src_ids"], mesh)
         else:
             temp_l, temp_m = 0.0, {}
 

@@ -12,7 +12,17 @@ The model's parameters are the training state and the step updates them in
 place, so ``init_state``, ``resume_or`` and ``run`` return only the
 optimizer state. Each step draws its masking and dropout from
 ``step_generator(seed, step)``: a run resumed from a checkpoint draws what
-an uninterrupted run draws. Not here: ZeRO-1 and device meshes.
+an uninterrupted run draws.
+
+Data parallelism (``mesh``, ``parallel.mesh.make_mesh``) and ZeRO-1
+(``zero1``, with a mesh), as the JAX Trainer takes them: every rank runs
+the loop on its rows of the global batch and logs the global metrics;
+rank 0 alone writes metrics and checkpoints, and the other ranks meet it
+at a barrier after each save. A checkpoint holds whole moments (ZeRO-1's
+slices gathered from the ranks) in the one format, and a restore cuts them
+to this rank's slices: a checkpoint written at one world size restores at
+another, with or without ZeRO-1. ``evaluate`` gives the means of the global
+batches' metrics, as one process on the concatenated batches does.
 """
 
 from __future__ import annotations
@@ -25,11 +35,12 @@ import numpy as np
 import torch
 
 from merlot_tpu_torch.ops.attention import inference_backend
+from merlot_tpu_torch.parallel.mesh import Mesh
 from merlot_tpu_torch.train.checkpoint import CheckpointManager, warm_start
 from merlot_tpu_torch.train.metrics import MetricsLogger
 from merlot_tpu_torch.train.optimizer import MerlotAdamW
-from merlot_tpu_torch.train.train_step import (_device, init_train_state, make_train_step,
-                                               step_generator)
+from merlot_tpu_torch.train.train_step import (_device, global_metrics, init_train_state,
+                                               make_train_step, rank_draws, step_generator)
 
 
 class Trainer:
@@ -37,27 +48,36 @@ class Trainer:
                  log_every: int = 50, checkpoint_every: int = 1000,
                  profile_dir: Optional[str] = None,
                  profile_steps: Optional[range] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh: Optional[Mesh] = None,
+                 zero1: bool = False):
         self.device = _device(device)
         self.model = model
         self.optimizer = optimizer
+        self.mesh = mesh
+        # ZeRO-1 slices of the optimizer state over the mesh's data ranks
+        # (parallel.mesh.zero1_axes); needs a mesh, as in the JAX Trainer
+        self.zero1 = zero1 and mesh is not None
+        self.opt_mesh = mesh if self.zero1 else None
+        self.is_chief = mesh is None or mesh.rank == 0
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
         self.ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"))
-        self.logger = MetricsLogger(output_dir)
+        self.logger = MetricsLogger(output_dir) if self.is_chief else None
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
         self.seed = seed
         # step(model, opt_state, batch, generator) -> metrics; downstream
         # finetuning replaces it with make_loss_train_step(...)
-        self.step_fn = make_train_step(model, optimizer, device=self.device)
+        self.step_fn = make_train_step(model, optimizer, device=self.device, mesh=mesh,
+                                       zero1=self.zero1)
 
     # ------------------------------------------------------------------
     def init_state(self, init_checkpoint: Optional[str] = None) -> Dict[str, Any]:
         """Restore the latest checkpoint, else a fresh init from ``seed``
         (+ a warm start from ``init_checkpoint``, a checkpoint directory or
         a flax-path .npz). Returns the optimizer state."""
-        opt_state = init_train_state(self.model, self.optimizer, seed=self.seed)
+        opt_state = init_train_state(self.model, self.optimizer, seed=self.seed,
+                                     mesh=self.opt_mesh)
         if self.ckpt.latest_step() is not None:
             opt_state = self.resume_or(opt_state)
         elif init_checkpoint:
@@ -75,8 +95,24 @@ class Trainer:
         if latest is None:
             return opt_state
         print(f"restoring checkpoint at step {latest}")
-        self.ckpt.restore(latest, self.model, opt_state)
-        return opt_state
+        params = dict(self.model.named_parameters())
+        whole = self.optimizer.init(params) if self.zero1 else opt_state
+        self.ckpt.restore(latest, self.model, whole)
+        return self.optimizer.shard_state(whole, params, self.opt_mesh)
+
+    def save(self, step: int, opt_state: Dict[str, Any]) -> None:
+        """Checkpoint the model and the whole optimizer state at ``step``:
+        every rank gathers, rank 0 writes, all meet after the write."""
+        params = dict(self.model.named_parameters())
+        whole = self.optimizer.full_state(opt_state, params, self.opt_mesh)
+        if self.is_chief:
+            self.ckpt.save(step, params, whole)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _log(self, step: int, metrics: Dict[str, float], echo: bool = False) -> None:
+        if self.logger is not None:
+            self.logger.log(step, metrics, echo=echo)
 
     # ------------------------------------------------------------------
     def _profiler(self):
@@ -89,7 +125,7 @@ class Trainer:
     def _guard(self, step: int, metrics: Dict[str, Any], what: str) -> None:
         loss = float(metrics["loss"])
         if not np.isfinite(loss):
-            self.logger.log(step, {k: float(v) for k, v in metrics.items()})
+            self._log(step, {k: float(v) for k, v in metrics.items()})
             raise FloatingPointError(f"non-finite loss {loss} at step {step}{what}")
 
     def run(self, opt_state: Dict[str, Any], batches: Iterator[Dict[str, Any]],
@@ -104,7 +140,7 @@ class Trainer:
         for batch in batches:
             if step >= num_steps:
                 break
-            if (self.profile_dir and self.profile_steps
+            if (self.profile_dir and self.profile_steps and self.is_chief
                     and step == self.profile_steps.start):
                 prof = self._profiler()
                 prof.start()
@@ -128,19 +164,19 @@ class Trainer:
                 if step > tp_step:
                     host_metrics["perf/steps_per_sec"] = (step - tp_step) / (now - tp_time)
                 tp_step, tp_time = step, now
-                self.logger.log(step, host_metrics)
+                self._log(step, host_metrics)
 
             if step % self.checkpoint_every == 0 or step == num_steps:
                 # guard the write even when checkpoint_every < log_every
                 self._guard(step, metrics, "; refusing to checkpoint")
-                self.ckpt.save(step, dict(self.model.named_parameters()), opt_state)
+                self.save(step, opt_state)
             if step >= num_steps:  # no batch is fetched past the last step
                 break
         if prof is not None:
             prof.stop()
 
         dt = time.time() - t_start
-        if step > start_step:
+        if step > start_step and self.is_chief:
             print(f"trained {step - start_step} steps in {dt:.1f}s "
                   f"({(step - start_step) / dt:.3f} steps/s)")
         return opt_state
@@ -153,7 +189,8 @@ class Trainer:
         """Held-out evaluation: the mean of every scalar metric over the
         batches (the reference EVAL mode's tf.metrics.mean wrapping). A
         deterministic forward; every batch masks from the same generator,
-        seeded 0 (JAX's fixed PRNGKey(0))."""
+        seeded 0 (JAX's fixed PRNGKey(0)). With a mesh each batch is this
+        rank's rows of a global batch, and its metrics the global ones."""
         backend = inference_backend(self.device)
         sums: Dict[str, float] = {}
         n = 0
@@ -161,9 +198,14 @@ class Trainer:
             if max_batches is not None and i >= max_batches:
                 break
             batch = {k: v.to(self.device) for k, v in batch.items()}
+            gen, draws = torch.Generator(device=self.device).manual_seed(0), None
+            if self.mesh is not None:
+                gen, draws = rank_draws(self.model.cfg, batch["input_ids"], gen, self.mesh)
             loss, metrics, _ = self.model(
-                batch, deterministic=True, attn_backend=backend,
-                generator=torch.Generator(device=self.device).manual_seed(0))
+                batch, deterministic=True, attn_backend=backend, generator=gen,
+                masking_draws=draws, mesh=self.mesh)
+            if self.mesh is not None:
+                loss, metrics = global_metrics(loss, metrics, self.mesh)
             metrics = dict(metrics)
             metrics["loss"] = loss
             for k, v in metrics.items():
@@ -171,6 +213,5 @@ class Trainer:
             n += 1
         means = {k: v / max(n, 1) for k, v in sums.items()}
         if log_step is not None and n:
-            self.logger.log(log_step, {f"eval/{k}": v for k, v in means.items()},
-                            echo=True)
+            self._log(log_step, {f"eval/{k}": v for k, v in means.items()}, echo=True)
         return means

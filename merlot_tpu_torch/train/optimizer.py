@@ -18,6 +18,16 @@ state (counterpart of merlot_tpu/train/optimizer.py).
 State: {'step': int, 'm': {name: tensor}, 'v': {name: tensor}}. ``update``
 writes the new parameters and state in place (the JAX package returns new
 trees; in place, the step holds one copy of each).
+
+ZeRO-1 (``mesh`` given to ``init`` and ``update``): the moments of each
+parameter that ``parallel.mesh.zero1_axes`` splits hold only this rank's
+slice; ``update`` takes the whole gradients (summed over the ranks), keeps
+the global-norm clip and the metrics of the whole gradients, updates this
+rank's slice of the moments and of the parameter, then gathers the
+parameter's slices from the ranks. The other parameters update whole on
+every rank. Every element gets the arithmetic of the unsharded update.
+``full_state`` gathers a sharded state into whole moments (what a
+checkpoint holds) and ``shard_state`` cuts whole moments to this rank's.
 """
 
 from __future__ import annotations
@@ -26,11 +36,12 @@ import dataclasses
 import math
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from merlot_tpu_torch.convert import flax_path
+from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, zero1_axes
 
 MISSING_PRECISION = 1.00390625  # 1 + 2^-8
 GRADNORM_DEPTH = 2  # ``verbose`` groups grad norms by this many path levels
@@ -95,6 +106,8 @@ class MerlotAdamW:
         self.cfg = cfg
         self._plan_names: Tuple[str, ...] = ()
         self._plan: List[Tuple[str, str, Dict[str, float]]] = []
+        self._axes_key: Tuple = ()
+        self._axes: Dict[str, int] = {}
 
     def _resolve(self, path: str) -> Dict[str, float]:
         """Hyperparameters of the parameter at flax path ``path``."""
@@ -120,11 +133,53 @@ class MerlotAdamW:
             self._plan_names = names
         return self._plan
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    def zero1_axes(self, params: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, int]:
+        """{name: axis} of the parameters whose moments ZeRO-1 splits over
+        ``mesh``; resolved once for a set of names and shapes."""
+        key = (mesh.data, tuple((n, tuple(p.shape)) for n, p in params.items()))
+        if key != self._axes_key:
+            self._axes = zero1_axes(params, mesh.data)
+            self._axes_key = key
+        return self._axes
+
+    def init(self, params: Mapping[str, torch.Tensor],
+             mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+        """Zero moments; with ``mesh`` (ZeRO-1), this rank's slices."""
         dtype = torch.bfloat16 if self.cfg.use_bfloat16_adam else torch.float32
+        axes = self.zero1_axes(params, mesh) if mesh is not None else {}
+
+        def zeros(n, p):
+            return torch.zeros_like(shard_leaf(p, axes[n], mesh) if n in axes else p,
+                                    dtype=dtype)
+
         return {"step": 0,
-                "m": {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()},
-                "v": {n: torch.zeros_like(p, dtype=dtype) for n, p in params.items()}}
+                "m": {n: zeros(n, p) for n, p in params.items()},
+                "v": {n: zeros(n, p) for n, p in params.items()}}
+
+    def full_state(self, state: Dict[str, Any], params: Mapping[str, torch.Tensor],
+                   mesh: Optional[Mesh]) -> Dict[str, Any]:
+        """The state with whole moments: ZeRO-1's slices gathered from the
+        ranks (a collective: every rank calls it); ``state`` itself without
+        a mesh."""
+        if mesh is None:
+            return state
+        axes = self.zero1_axes(params, mesh)
+        out = {"step": state["step"]}
+        for g in ("m", "v"):
+            whole = mesh.gather_shards({n: state[g][n] for n in axes}, axes)
+            out[g] = {n: whole.get(n, t) for n, t in state[g].items()}
+        return out
+
+    def shard_state(self, full: Dict[str, Any], params: Mapping[str, torch.Tensor],
+                    mesh: Optional[Mesh]) -> Dict[str, Any]:
+        """The inverse of ``full_state``: this rank's slices of whole
+        moments (copies)."""
+        if mesh is None:
+            return full
+        axes = self.zero1_axes(params, mesh)
+        return {"step": full["step"],
+                **{g: {n: shard_leaf(t, axes[n], mesh).clone() if n in axes else t
+                       for n, t in full[g].items()} for g in ("m", "v")}}
 
     def lr_scale(self, step: int) -> float:
         """Warmup then linear decay; peak = 1.0 right after warmup."""
@@ -140,12 +195,15 @@ class MerlotAdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-               params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+               params: Mapping[str, torch.Tensor],
+               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
         """One step: writes the new params and state in place and returns
         the metrics. Frozen params (lr == 0) and their state are left as
-        they are."""
+        they are. ``mesh``: the state is ZeRO-1's (``init(params, mesh)``)
+        and ``grads`` are the whole gradients, the same on every rank."""
         c = self.cfg
         plan = self._params_plan(tuple(params))
+        axes = self.zero1_axes(params, mesh) if mesh is not None else {}
         names = [n for n, _, _ in plan]
         step = state["step"]
         scale = self.lr_scale(step)
@@ -178,11 +236,14 @@ class MerlotAdamW:
             if hp["learning_rate"] == 0.0:  # frozen
                 continue
             p, m0, v0 = params[n], state["m"][n], state["v"][n]
+            g = g_all[n]
+            if n in axes:  # this rank's slice
+                p, g = shard_leaf(p, axes[n], mesh), shard_leaf(g, axes[n], mesh)
             b1, b2, eps = hp["beta_1"], hp["beta_2"], hp["epsilon"]
             lr = hp["learning_rate"] * scale
             lr = lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)  # bias correction
 
-            g32 = g_all[n].float()
+            g32 = g.float()
             m = m0.float() if c.use_bfloat16_adam else m0
             v = decode_v(v0) if c.use_bfloat16_adam else v0
             m = b1 * m + (1.0 - b1) * g32
@@ -198,5 +259,11 @@ class MerlotAdamW:
                 m0.copy_(m)
                 v0.copy_(v)
 
+        live = [n for n, _, hp in plan if n in axes and hp["learning_rate"] != 0.0]
+        if live:
+            whole = mesh.gather_shards(
+                {n: shard_leaf(params[n], axes[n], mesh).contiguous() for n in live}, axes)
+            for n in live:
+                params[n].copy_(whole[n])
         state["step"] = step + 1
         return metrics

@@ -1,6 +1,7 @@
 """Pretraining entry point (counterpart of merlot_tpu/train/pretrain.py):
 
     python -m merlot_tpu_torch.train.pretrain config.yaml [--device cpu]
+    torchrun --nproc_per_node N -m merlot_tpu_torch.train.pretrain config.yaml
 
 The model/train.py analogue (reference: model/train.py:9-26): load the YAML
 NeatConfig, build the pretrain model and AdamW from its sections, stream
@@ -15,6 +16,19 @@ k-th batch (``PretrainLoader.batches(k)``, which passes over the first k
 without parsing them). It is the same stream for the same files, config and
 seed, so the resumed run sees the batches an uninterrupted run would have
 seen (the JAX package restarts the stream).
+
+Launched as N ranks (torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
+and MASTER_PORT), the CLI joins the process group (NCCL, one card per rank;
+gloo with ``--device cpu``) and trains data-parallel on its mesh, as the
+JAX CLI does over its devices: each rank's loader reads its own slice of
+the files (``host_id=rank, num_hosts=N``) at ``train_batch_size // N``
+examples a batch, the global batch being the ranks' batches in rank
+order; ``device.use_zero1`` splits the Adam moments over the ranks
+(ZeRO-1); rank 0 writes the metrics and checkpoints. The evaluation reads
+the whole validation stream on every rank and keeps its rows of each
+batch. Without those variables the run is one process, as before
+(``use_zero1`` then has nothing to split, as at data size 1 in JAX).
+``model_parallelism > 1`` (tensor parallelism) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,26 +41,29 @@ from merlot_tpu_torch.core.config import NeatConfig
 from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+from merlot_tpu_torch.parallel.mesh import (Mesh, join_from_env, leave,
+                                            refuse_model_parallelism, shard_batch)
 from merlot_tpu_torch.train.harness import Trainer
 from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
 from merlot_tpu_torch.train.train_step import _device
 
 
-def build_pretrain_setup(config: NeatConfig, device="cuda"):
+def build_pretrain_setup(config: NeatConfig, device="cuda", mesh: Optional[Mesh] = None):
     """(model, optimizer, loader) from a NeatConfig; the loader is None
-    when data.train_file matches no file."""
-    if config.device.get("model_parallelism", 1) != 1 or config.device.get("use_zero1"):
-        raise NotImplementedError("model_parallelism > 1 and use_zero1 need a device "
-                                  "mesh, which this package does not have yet")
+    when data.train_file matches no file. With ``mesh`` the loader is this
+    rank's: its slice of the files, ``train_batch_size // N`` a batch."""
+    refuse_model_parallelism(config.device.get("model_parallelism", 1))
     model = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=_device(device))
     optimizer = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
 
     files = config.data.get("train_file_expanded") or []
     loader = None
+    world, rank = (mesh.data, mesh.rank) if mesh is not None else (1, 0)
     if files:
         loader = PretrainLoader(
             files, config.merged_data_model(),
-            batch_size=config.device["train_batch_size"], is_training=True,
+            batch_size=config.device["train_batch_size"] // world, is_training=True,
+            host_id=rank, num_hosts=world,
             num_threads=config.data.get("num_threads", 8),
             shuffle_buffer=config.data.get("shuffle_buffer_size", 256))
     return model, optimizer, loader
@@ -62,8 +79,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     config = NeatConfig.from_yaml(args.config_file)
-    device = _device(args.device)
-    model, optimizer, loader = build_pretrain_setup(config, device)
+    device, mesh = join_from_env(args.device, config.device.get("model_parallelism", 1))
+    try:
+        return _run(config, device, mesh)
+    finally:
+        leave(mesh)
+
+
+def _run(config: NeatConfig, device, mesh: Optional[Mesh]) -> Dict[str, Any]:
+    model, optimizer, loader = build_pretrain_setup(config, device, mesh)
     if loader is None:
         raise ValueError("data.train_file matched no files")
 
@@ -71,7 +95,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         model, optimizer, output_dir=config.device["output_dir"],
         log_every=config.device.get("log_every", 50),
         checkpoint_every=config.device.get("iterations_per_loop", 1000),
-        device=device)
+        device=device, mesh=mesh, zero1=config.device.get("use_zero1", False))
     feed = dict(images_bf16=config.model.get("use_bfloat16", True),
                 # data.infeed_u8: 1 B/px copies, dequantized in the backbone
                 images_u8=config.data.get("infeed_u8", False))
@@ -90,11 +114,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             is_training=False, num_threads=config.data.get("num_threads", 8),
             shuffle_buffer=0, repeat=False)
         eval_samples = config.validate.get("eval_samples")
+        val = iter(val_loader)
+        if mesh is not None:  # every rank reads the stream and keeps its rows
+            val = (shard_batch(b, mesh) for b in val)
         means = trainer.evaluate(
-            device_iterator(iter(val_loader), device, **feed),
+            device_iterator(val, device, **feed),
             max_batches=(eval_samples // vbs) if eval_samples else None,
             log_step=int(opt_state["step"]))
-        print("eval:", {k: round(v, 4) for k, v in sorted(means.items())})
+        if trainer.is_chief:
+            print("eval:", {k: round(v, 4) for k, v in sorted(means.items())})
     return {"trainer": trainer, "opt_state": opt_state, "eval": means}
 
 
