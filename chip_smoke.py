@@ -107,9 +107,10 @@
    tokens, with a mask-less plain run checked to exceed the bound; and a
    short fp32 generation (fp32 K3);
 8. server phase: the port's DenoiseHTTPServer on 127.0.0.1 with the
-   server's defaults (grover-medium, max_len 1537, top_p 0.94, --bf16,
-   batching at max_batch 8) answers 4 concurrent POST /api/ask, coalesced
-   (/stats mean_batch > 1), with 4 JSONL records and the seconds per batch;
+   server's defaults (grover-medium, top_p 0.94, --bf16, max_batch 8) but
+   for max_len and the batching window (SERVER_MAX_LEN, SERVER_WINDOW_MS)
+   answers 4 concurrent POST /api/ask, coalesced (/stats mean_batch > 1),
+   with 4 JSONL records and the seconds per batch;
 9. CLI phase: the pretraining entry point from tfrecords at full
    pretrain_4seg width. The machine's JPEG route (libjpeg, else pil) is
    held against the committed fixture bit for bit, nvJPEG (asked for by
@@ -185,14 +186,27 @@
    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT set, each in a
    subprocess that joins an NCCL process group; none is left in this
    process): the pretraining CLI with use_zero1 on the CLI phase's config
-   copy and shards for its first 4 steps (checkpoints at 2 and 4), whose
+   copy and shards for its first 4 steps (a checkpoint at 4), whose
    every metric must equal run A's at those steps and whose ckpt_4 must
-   equal A's file for file, 36 K1 and 36 K2 per step; its ZeRO-1 ckpt_2
+   equal A's file for file, 36 K1 and 36 K2 per step; its ZeRO-1 ckpt_4
    restored by a run of no process group; the fault probe (the first
    step's loss with the mask loss's denominator summed twice must differ
    from A's); VCR with use_zero1 for 2 steps against VCR run A (24/24 per
    step); the zero-shot CLI, whose .npz must equal the CLI phase's bit for
-   bit (24 K1 per batch). Prints segments/s beside run A's.
+   bit (24 K1 per batch); the VCR and zero-shot ranks run side by side.
+   Prints segments/s beside run A's.
+15. tensor_parallel phase: the model axis at model=2 as two ranks that share
+   the card over gloo (TP_RANKS's comment; NCCL refuses two ranks on one
+   device): pretrain_4seg at full width and depth, TP_STEPS steps with
+   dropout and masking on, each loss and step 1's gathered gradients held
+   against one process at model=1 from the same seed (the train phase's
+   bounds), 36 K1 and 36 K2 per step per rank, a fault probe (a
+   row-parallel all-reduce left out) that must fail them; then the Grover
+   server at grover-medium, --tp 2, bf16 and fp32: ``Denoiser.run_batch``'s
+   prefill and decode logits against --tp 1, 24 K3 per prefill and per
+   decode step per rank. Prints segments/s and decode tokens/s beside the
+   one-process runs. The kernel phases also hold K1 and K2 at 6 heads, K3
+   at 8 and K5 at this rank's columns against their plain versions.
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -206,6 +220,7 @@ exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -408,7 +423,7 @@ LN_MEAN_TOL = 1e-5
 # the fused paths' launches: K1, K4, K5 per zero-shot batch; K1, K2, K4, K5
 # per train step
 # the A/B of the unfused and fused steps: warm-up and timed steps per run
-AB_WARMUP, AB_STEPS = 2, 3
+AB_WARMUP, AB_STEPS = 2, 2
 FUSED_LAUNCHES_PER_BATCH = (24, 54, 48)
 FUSED_LAUNCHES_PER_STEP = (36, 36, 54, 72)
 # fused vs unfused zero-shot probs: two more sums in another order in every
@@ -467,6 +482,14 @@ GREEDY_STEPS = 8
 # (prefill)
 GROVER_LOGIT_TOL = 0.15
 SERVER_REQUESTS = 4
+# the server's max_len: 1537 by default; random weights never emit the eos,
+# so each batch decodes to max_len (the decode kernel at 1537 slots is the K3
+# phase's): cut to 512 for the script's time
+SERVER_MAX_LEN = 512
+# the batching window: 15 ms by default; the 4 requests' threads start
+# within 100 ms, so they coalesce into one batch (on a slow host one of
+# them missed 15 ms and a second batch decoded to max_len)
+SERVER_WINDOW_MS = 100.0
 SERVER_TEXTS = [
     "so today were gonna make pasta with a to mate sauce from scratch",
     "the whether tomorrow is gonna be sunny in the after noon they said",
@@ -536,7 +559,7 @@ VCR_BATCH = 8
 VCR_STEPS = 8
 VCR_CKPT_EVERY = 4
 VCR_EVAL_BATCHES = 2
-VCR_EVAL_TIMEOUT_S = 10
+VCR_EVAL_TIMEOUT_S = 4
 VCR_REDUCED = {"train_batch_size": VCR_BATCH, "num_train_steps": VCR_STEPS,
                "iterations_per_loop": VCR_CKPT_EVERY, "val_batch_size": VCR_BATCH,
                "eval_samples": VCR_EVAL_BATCHES * VCR_BATCH,
@@ -618,7 +641,7 @@ GT_ROUNDTRIP_TOL = 1e-4
 # its first step's global loss from a copy of the step's generator with the
 # mask loss's denominator summed twice (an all-reduce that counts a rank's
 # tokens again), which must fail the check the run passes.
-DP_STEPS, DP_CKPT_EVERY = 4, 2
+DP_STEPS, DP_CKPT_EVERY = 4, 4
 DP_VCR_STEPS = 2
 DP_RTOL = 0.0
 
@@ -639,6 +662,67 @@ CORPUS_WORDS_PER_S = 5
 CORPUS_FRAME_HW = (288, 512)
 CORPUS_MIN_EXAMPLES = 8
 CORPUS_STEPS = 2
+
+# the tensor_parallel phase: the model axis (parallel/mesh.py, model=2) as
+# two ranks that share the one card over gloo, chosen by name (NCCL refuses
+# two ranks on one device; gloo takes CUDA tensors for the all-reduce, the
+# all-gather and the broadcasts the path needs, through the host). Not a
+# reading of tensor parallelism's speed on separate cards.
+#   * pretraining at pretrain_4seg's full width and depth (the train
+#     phase's model and optimizer blocks, dropout and masking on) on
+#     TP_BATCH examples of 16 chunks (a quarter of bench.py's batch: both
+#     ranks' steps fit in the 80 GB, and the host carries half the
+#     all-reduces of 4), TP_STEPS steps from seed 0, against the same
+#     steps of one process at model=1 from the same seed and generator: each
+#     step's loss within TRAIN_LOSS_RTOL and step 1's gradients (gathered
+#     over the model group) within TRAIN_GRAD_TOL, the train phase's
+#     kernel-vs-plain bounds. The masked positions rank the lang tower's
+#     colsum, which the model group sums in another order, so near-ties could
+#     pick others from the same draws: the ranks take one process's masking
+#     (computing their own, which is reported). 36 K1 and 36 K2 per step per
+#     rank. The fault probe: step 1's forward and backward with one
+#     row-parallel all-reduce left out (the ViT's first out_proj) must fail
+#     those bounds;
+#   * the Grover server at grover-medium, --tp 2: ``Denoiser.run_batch`` on
+#     TP_GROVER_ROWS contexts of TP_GROVER_PREFIX + TP_GROVER_DECODE tokens at
+#     max_len = prefix + 16 (the Denoiser prefills max_len - 16 tokens and
+#     force-feeds the rest from the contexts, so both runs decode the same
+#     tokens): with --bf16 as the server phase runs it, the prefill's last
+#     logits and the first TP_GROVER_CHECKED decode steps' against --tp 1
+#     within GROVER_LOGIT_TOL; in fp32 the prefill's and the first decode
+#     step's within TP_FP32_LOGIT_TOL (absolute; the same fp32 sums in another
+#     order). 24 K3 per prefill and per decode step per rank.
+TP_RANKS = 2
+TP_BATCH = 2
+TP_STEPS = 2
+TP_GROVER_ROWS, TP_GROVER_PREFIX, TP_GROVER_DECODE = 8, 512, 16
+TP_GROVER_CHECKED = 4
+TP_FP32_LOGIT_TOL = 1e-3
+TP_TIMEOUT_S = 600
+# the kernels at the model axis's shapes: K1 and K2 at the pretrain towers'
+# 6 of 12 heads (the first 6 heads of the pretrain rows' inputs: what model
+# rank 0 computes on), K3 at grover-medium's 8 of 16 (the server's decode and
+# prefill, B=8, bf16 and fp32), K5 at K=768 with this rank's columns: q|k|v
+# 3 x 384 = 1152, the MLP's 1536 of 3072
+TP_ATTN_SHAPES = [
+    ("tp_pretrain_vit", 128, 266, False, False, False, 6, "bf16"),
+    ("tp_pretrain_joint", 32, 396, True, False, False, 6, "bf16"),
+    ("tp_pretrain_lang", 8, 512, True, True, False, 6, "bf16"),
+]
+TP_STACKED_SHAPES = [
+    ("tp_decode_b8_bf16", 8, 1, 1537, 1100, "bf16", 8),
+    ("tp_decode_b8_fp32", 8, 1, 1537, 1100, "fp32", 8),
+    ("tp_prefill_b8_bf16", 8, 1024, 1537, 0, "bf16", 8),
+    ("tp_prefill_b8_fp32", 8, 1024, 1537, 0, "fp32", 8),
+]
+TP_LN_SHAPES = [
+    ("tp_pretrain_vit_qkv", 34048, 3, 384),
+    ("tp_pretrain_vit_mlp", 34048, 1, 1536),
+    ("tp_pretrain_joint_qkv", 12672, 3, 384),
+    ("tp_pretrain_joint_mlp", 12672, 1, 1536),
+    ("tp_pretrain_lang_qkv", 4096, 3, 384),
+    ("tp_pretrain_lang_mlp", 4096, 1, 1536),
+]
 
 # configs/pretrain_5seg.yaml, model block (init_checkpoint left out: the
 # weights are random, drawn from a seed)
@@ -833,14 +917,29 @@ def sdpa_args(q3, k3, v3, mask, heads: int = HEADS):
     return views, bias
 
 
-def kernel_shape(dev, g, spec) -> dict:
-    """K1 and its plain version at one shape: errors and times."""
+def first_heads(inputs: tuple, heads: int, d: int) -> tuple:
+    """A shape's inputs cut to their first ``heads`` heads (contiguous): what
+    model rank 0 of the model axis computes on; masks and cotangents over
+    keys as they are."""
+    return tuple(t[..., :heads * d].contiguous() if i < 3 else t
+                 for i, t in enumerate(inputs))
+
+
+def kernel_shape(dev, g, spec, drawn: dict = None) -> dict:
+    """K1 and its plain version at one shape: errors and times. ``drawn``:
+    each shape's inputs by name; a tensor-parallel shape (``tp_`` + the
+    name of one drawn before it) takes the first heads of that shape's."""
     import torch
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
     name, b, s, masked, colsum, sm32, heads, dtype, d = spec_parts(spec)
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
+    drawn = {} if drawn is None else drawn
+    if name.startswith("tp_"):
+        q, k, v, mask, valid = first_heads(drawn[name[len("tp_"):]], heads, d)
+    else:
+        q, k, v, mask, valid = drawn[name] = attn_inputs(dev, g, b, s, masked, heads,
+                                                         dtype, d)
     kw = dict(num_heads=heads, collect_colsum=colsum)
     # K1 saves the row max and sum for K2, and in fp32 the mask's tile classes
     stats = ca.new_stats(q, heads)
@@ -935,9 +1034,11 @@ def kernel_phase(dev) -> list[dict]:
     import torch
 
     g = torch.Generator(device=dev).manual_seed(0)
-    rows = []
-    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES:
-        row = kernel_shape(dev, g, spec)
+    rows, drawn = [], {}
+    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES:
+        row = kernel_shape(dev, g, spec, drawn)
+        if not spec[0].startswith("pretrain"):  # kept for the tensor-parallel rows
+            drawn.pop(spec[0], None)
         print(f"[kernel] {json.dumps(row)}", flush=True)
         check_kernel_row(row)
         rows.append(row)
@@ -959,16 +1060,23 @@ def grad_errors(got, ref, dtype: str = "bf16") -> dict:
     return out
 
 
-def bwd_kernel_shape(dev, g, spec) -> dict:
-    """K2 and its plain version at one shape: errors, fault probes, times."""
+def bwd_kernel_shape(dev, g, spec, drawn: dict = None) -> dict:
+    """K2 and its plain version at one shape: errors, fault probes, times.
+    ``drawn``: as for ``kernel_shape`` (dO cut with q, k and v)."""
     import torch
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
     name, b, s, masked, colsum, sm32, heads, dtype, d = spec_parts(spec)
-    q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
-    do = (0.1 * torch.randn((b, s, heads * d), generator=g, device=dev)).to(q.dtype)
-    gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
+    drawn = {} if drawn is None else drawn
+    if name.startswith("tp_"):
+        q, k, v, mask, valid, do, gcol = first_heads(drawn[name[len("tp_"):]], heads, d)
+        do = do[..., :heads * d].contiguous()
+    else:
+        q, k, v, mask, valid = attn_inputs(dev, g, b, s, masked, heads, dtype, d)
+        do = (0.1 * torch.randn((b, s, heads * d), generator=g, device=dev)).to(q.dtype)
+        gcol = torch.randn((b, s), generator=g, device=dev) if colsum else None
+        drawn[name] = (q, k, v, mask, valid, do, gcol)
     kw = dict(num_heads=heads, softmax_fp32=sm32)
     got = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
     again = ca.attention_bwd_cuda(q, k, v, mask, do, gcol, **kw)
@@ -1059,9 +1167,11 @@ def bwd_kernel_phase(dev) -> list[dict]:
     import torch
 
     g = torch.Generator(device=dev).manual_seed(1)
-    rows = []
-    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES:
-        row = bwd_kernel_shape(dev, g, spec)
+    rows, drawn = [], {}
+    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES:
+        row = bwd_kernel_shape(dev, g, spec, drawn)
+        if not spec[0].startswith("pretrain"):  # kept for the tensor-parallel rows
+            drawn.pop(spec[0], None)
         print(f"[kernel2] {json.dumps(row)}", flush=True)
         check_bwd_row(row)
         rows.append(row)
@@ -1580,12 +1690,13 @@ def check_ln_row(row: dict) -> None:
 
 
 def ln_kernel_phase(dev) -> list[dict]:
-    """K5 against its plain version at the ten LayerNorm+matmul shapes."""
+    """K5 against its plain version at the ten LayerNorm+matmul shapes and
+    the six of the towers at model=2."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(6)
     rows = []
-    for spec in LN_SHAPES:
+    for spec in LN_SHAPES + TP_LN_SHAPES:
         row = ln_shape(dev, g, spec)
         print(f"[kernel5] {json.dumps(row)}", flush=True)
         check_ln_row(row)
@@ -1818,26 +1929,27 @@ def fused_slice_phase(dev, model, warm, batches, outs) -> dict:
     return result
 
 
-def pretrain_batch(cfg, dev) -> dict:
-    """__graft_entry__._make_batch (numpy seed 0) at bench.py's batch, with
-    each chunk's tail padded with id 0 from a second seed: the towers then
-    see padded rows, which the draws 100..50356 alone never give."""
+def pretrain_batch(cfg, dev, examples: int = TRAIN_BATCH) -> dict:
+    """__graft_entry__._make_batch (numpy seed 0) at bench.py's batch (or
+    ``examples`` examples of as many chunks), with each chunk's tail padded
+    with id 0 from a second seed: the towers then see padded rows, which the
+    draws 100..50356 alone never give."""
     import numpy as np
     import torch
     rng = np.random.default_rng(0)
     h, w = cfg.image_size
     group = cfg.num_chunks_in_group
-    n_img = TRAIN_BATCH * TRAIN_CHUNKS
+    n_img = examples * TRAIN_CHUNKS
     images = rng.uniform(0, 1, (n_img, h, w, 3)).astype(np.float32)
-    ids = rng.integers(100, 50357, (TRAIN_BATCH, TRAIN_CHUNKS, TRAIN_TOKENS))
+    ids = rng.integers(100, 50357, (examples, TRAIN_CHUNKS, TRAIN_TOKENS))
     pad = np.random.default_rng(1)
-    for b in range(TRAIN_BATCH):
+    for b in range(examples):
         for n in range(TRAIN_CHUNKS):
             ids[b, n, pad.integers(8, TRAIN_TOKENS + 1):] = 0
     batch = {"images": images, "input_ids": ids,
              "shuffled_idx_img": np.tile(np.arange(group), n_img // group),
              "video_src_ids": np.repeat(np.arange(n_img // group), group)
-             .reshape(TRAIN_BATCH, TRAIN_CHUNKS)}
+             .reshape(examples, TRAIN_CHUNKS)}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
 
@@ -2327,12 +2439,12 @@ def profile_steps(dev, step, model, state, batch, label: str = "profile",
 # K3 and Grover serving
 
 
-def stacked_inputs(dev, g, b, sq, sk, pos0, dtype):
+def stacked_inputs(dev, g, b, sq, sk, pos0, dtype, heads: int = GROVER_HEADS):
     """q, kv ~ N(0, 1) with the cache rows past the last query zero, and the
     causal mask over cache positions [1, Sq, Sk] (one for the batch, as the
     model builds it)."""
     import torch
-    hd = GROVER_HEADS * GROVER_D
+    hd = heads * GROVER_D
     q = torch.randn((b, sq, hd), generator=g, device=dev).to(dtype)
     kv = torch.randn((b, sk, 2 * hd), generator=g, device=dev).to(dtype)
     kv[:, pos0 + sq:] = 0
@@ -2341,7 +2453,8 @@ def stacked_inputs(dev, g, b, sq, sk, pos0, dtype):
     return q, kv, mask
 
 
-def stacked_bound(b, sq, sk, pos0, dtype, live: bool = True) -> tuple:
+def stacked_bound(b, sq, sk, pos0, dtype, live: bool = True,
+                  heads: int = GROVER_HEADS) -> tuple:
     """K3's bound over what the inputs need: with ``live``, the slots below
     kv_len = pos0 + sq (past them the mask is 0 and the probs exactly 0),
     else all Sk slots. Query row r attends to pos0 + r + 1 keys (all Sk
@@ -2349,11 +2462,11 @@ def stacked_bound(b, sq, sk, pos0, dtype, live: bool = True) -> tuple:
     type; the cache's rows, q and ctx once each in that type and the shared
     mask's columns in fp32."""
     import torch
-    hd = GROVER_HEADS * GROVER_D
+    hd = heads * GROVER_D
     elem = 2 if dtype == torch.bfloat16 else 4
     slots = pos0 + sq if live else sk
     keys = sum(pos0 + r + 1 for r in range(sq)) if live else sq * sk
-    flops = 4 * b * GROVER_HEADS * keys * GROVER_D
+    flops = 4 * b * heads * keys * GROVER_D
     nbytes = elem * (b * slots * 2 * hd + 2 * b * sq * hd) + 4 * sq * slots
     return bound(flops, nbytes, PEAK_BF16_FLOPS if elem == 2 else PEAK_FP32_FLOPS)
 
@@ -2419,12 +2532,13 @@ def stacked_shape(dev, g, spec) -> dict:
     import torch.nn.functional as F
     from merlot_tpu_torch.ops import cuda_attention as ca
 
-    name, b, sq, sk, pos0, dt = spec
+    name, b, sq, sk, pos0, dt, *rest = spec
+    heads = rest[0] if rest else GROVER_HEADS
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-    q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype)
-    hd = GROVER_HEADS * GROVER_D
+    q, kv, mask = stacked_inputs(dev, g, b, sq, sk, pos0, dtype, heads)
+    hd = heads * GROVER_D
     live = pos0 + sq
-    kw = dict(num_heads=GROVER_HEADS, softmax_fp32=True)
+    kw = dict(num_heads=heads, softmax_fp32=True)
     ctx = ca.attention_stacked_fwd_cuda(q, kv, mask, kv_len=live, **kw)
     torch.cuda.synchronize()
     ref = ca.flash_attention_stacked_plain(q, kv, mask, kv_len=live, **kw)
@@ -2434,13 +2548,12 @@ def stacked_shape(dev, g, spec) -> dict:
         return d.max().item(), d.mean().item()
 
     ref_max = ref.float().abs().max().item()
-    row = {"shape": name, "batch": b, "sq": sq, "sk": sk, "first_query_pos": pos0,
-           "kv_len": live, "dtype": dt, "ref_max_abs": ref_max,
+    row = {"shape": name, "batch": b, "sq": sq, "sk": sk, "heads": heads,
+           "first_query_pos": pos0, "kv_len": live, "dtype": dt, "ref_max_abs": ref_max,
            "max_abs_err_bound": (CTX_ULPS * bf16_ulp(ref_max) if dt == "bf16"
                                  else STACKED_FP32_RTOL * ref_max)}
     if sq <= ca.DECODE_ROWS:
-        row["decode_plan"] = ca.decode_plan(b, GROVER_HEADS, sq, sk, GROVER_D,
-                                            q.element_size())
+        row["decode_plan"] = ca.decode_plan(b, heads, sq, sk, GROVER_D, q.element_size())
     row["max_abs_err"], row["mean_abs_err"] = errs(ctx)
     # fault probes: the zero slots join the softmax; the values come from
     # the key half of the buffer
@@ -2474,15 +2587,16 @@ def stacked_shape(dev, g, spec) -> dict:
     # additive -1e10 bias in the input dtype; over the whole cache (the
     # same inputs) and over the live slots' views
     def sdpa(q3, kv3, m, slots=sk):
-        heads = lambda t, s: t.view(b, s, GROVER_HEADS, GROVER_D).transpose(1, 2)
+        split = lambda t, s: t.view(b, s, heads, GROVER_D).transpose(1, 2)
         kv3 = kv3[:, :slots]
         bias = ((m[..., :slots] - 1.0) * 1e10).to(dtype)[:, None]
-        return F.scaled_dot_product_attention(heads(q3, sq), heads(kv3[..., :hd], slots),
-                                              heads(kv3[..., hd:], slots), attn_mask=bias)
+        return F.scaled_dot_product_attention(split(q3, sq), split(kv3[..., :hd], slots),
+                                              split(kv3[..., hd:], slots), attn_mask=bias)
     row["library_ms"] = rotating_ms(sdpa, copies)
     row["library_live_ms"] = rotating_ms(lambda *a: sdpa(*a, slots=live), copies)
-    row["bound_ms"], row["bound_by"] = stacked_bound(b, sq, sk, pos0, dtype)
-    row["bound_whole_cache_ms"], _ = stacked_bound(b, sq, sk, pos0, dtype, live=False)
+    row["bound_ms"], row["bound_by"] = stacked_bound(b, sq, sk, pos0, dtype, heads=heads)
+    row["bound_whole_cache_ms"], _ = stacked_bound(b, sq, sk, pos0, dtype, live=False,
+                                                   heads=heads)
     del copies
     return row
 
@@ -2527,7 +2641,8 @@ def decode_ptxas(log: str) -> list:
 
 
 def stacked_phase(dev) -> list[dict]:
-    """K3 against its plain version at the six shapes."""
+    """K3 against its plain version at the six shapes, and at grover-medium's
+    8 of 16 heads (model=2)."""
     import torch
     from merlot_tpu_torch import _build
 
@@ -2535,7 +2650,7 @@ def stacked_phase(dev) -> list[dict]:
         print(f"[kernel3] ptxas {json.dumps(k)}", flush=True)
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    for spec in STACKED_SHAPES:
+    for spec in STACKED_SHAPES + TP_STACKED_SHAPES:
         row = stacked_shape(dev, g, spec)
         print(f"[kernel3] {json.dumps(row)}", flush=True)
         check_stacked_row(row)
@@ -2770,8 +2885,9 @@ def server_phase(dev, log_path: Path) -> dict:
                                                        make_handler)
 
     t0 = time.perf_counter()
-    den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), None, max_len=1537,
-                   top_p=0.94, bf16=True, max_batch=8, device=dev)
+    den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), None, max_len=SERVER_MAX_LEN,
+                   top_p=0.94, bf16=True, max_batch=8, batch_window_ms=SERVER_WINDOW_MS,
+                   device=dev)
     init_s = time.perf_counter() - t0
     batch_s, batch_sizes = [], []
     run_batch = den.run_batch
@@ -4650,13 +4766,20 @@ def data_parallel_phase(dev, cli_tmp: Path, zs_tmp: Path, vcr_tmp: Path, cli: di
             a_train[st]["perf/steps_per_sec"] for st in rate_steps),
         "seconds": seconds["pretrain"]}
 
-    # VCR, ZeRO-1, as rank 0
+    # VCR with ZeRO-1 and the zero-shot CLI, each as rank 0 of its own
+    # world, side by side on the card (their checks are bit for bit and
+    # launch counts; neither reads a rate)
     vd = vcr_tmp / "vcr"
     (vd / "dp.yaml").write_text(with_zero1(
         (vd / "a.yaml").read_text(), {"output_dir": f'"{vd / "dp"}"',
                                       "num_train_steps": DP_VCR_STEPS,
                                       "iterations_per_loop": DP_VCR_STEPS}, "VCR a.yaml"))
-    vrank, seconds["vcr"] = dp_run("vcr", vd / "dp.yaml", ROOT, vd)
+    zd = zs_tmp / "zero_shot_cli"
+    (zd / "run_dp").mkdir()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        vjob = pool.submit(dp_run, "vcr", vd / "dp.yaml", ROOT, vd)
+        zjob = pool.submit(dp_run, "zero_shot", zd / "zs.yaml", zd / "run_dp", zd)
+        (vrank, seconds["vcr"]), (zrank, seconds["zero_shot"]) = vjob.result(), zjob.result()
     va = {x["step"]: x for x in jsonl(vd / "a" / "train_metrics.jsonl")}
     vgot = {x["step"]: x for x in jsonl(vd / "dp" / "train_metrics.jsonl")}
     check(sorted(vgot) == list(range(1, DP_VCR_STEPS + 1)),
@@ -4667,10 +4790,7 @@ def data_parallel_phase(dev, cli_tmp: Path, zs_tmp: Path, vcr_tmp: Path, cli: di
                "metrics_rel_gap": metrics_gap(vgot, va),
                "launches_per_step": vrank["per_step"], "seconds": seconds["vcr"]}
 
-    # the zero-shot CLI as rank 0
-    zd = zs_tmp / "zero_shot_cli"
-    (zd / "run_dp").mkdir()
-    zrank, seconds["zero_shot"] = dp_run("zero_shot", zd / "zs.yaml", zd / "run_dp", zd)
+    # the zero-shot CLI's rank
     zs_rec = {"npz_equals_cli": npz_equal(zd / "run_dp" / "logits_val.npz",
                                           zd / "run" / "logits_val.npz"),
               "launches": zrank["launches"]["attention_fwd"], "batches": zs_cli["batches"],
@@ -4710,6 +4830,332 @@ def data_parallel_phase(dev, cli_tmp: Path, zs_tmp: Path, vcr_tmp: Path, cli: di
     return result
 
 
+def tp_masking_pinned(masking: list, seen: list):
+    """attention_guided_span_mask computed as it is (its draws advance the
+    generator as they would) but answered by one process's masking of the
+    same call, in order; ``seen`` gets whether the two agreed."""
+    import torch
+
+    def wrap(real):
+        def pinned(*a, **kw):
+            got = real(*a, **kw)
+            want = masking[len(seen)]
+            seen.append(all(torch.equal(x, y) for x, y in zip(got, want)))
+            return want
+        return pinned
+    return wrap
+
+
+def tp_pretrain_parts(dev):
+    """pretrain_4seg's config, optimizer config and the phase's batch."""
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.train.optimizer import AdamWConfig
+    cfg = MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL)
+    return cfg, AdamWConfig.from_config(PRETRAIN_4SEG_OPTIMIZER), pretrain_batch(
+        cfg, dev, TP_BATCH)
+
+
+def tp_pretrain_run(dev, d: Path, mesh=None) -> dict:
+    """TP_STEPS train steps from seed 0 (generator seeded 1): one process
+    (``mesh`` None: records its masking and step 1's gradients under ``d``)
+    or this rank of the model group (takes that masking; step 1's gradients
+    gathered over the model group, which global rank 0 holds against one
+    process's; first the fault probe)."""
+    import torch
+    from merlot_tpu_torch.models import merlot as merlot_mod
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.parallel import tensor_parallel as tpm
+    from merlot_tpu_torch.nn import transformer as tr_mod
+    from merlot_tpu_torch.train.optimizer import MerlotAdamW
+    from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    cfg, opt_cfg, batch = tp_pretrain_parts(dev)
+    model = MerlotPretrainModel(cfg, device=dev)
+    opt = MerlotAdamW(opt_cfg)
+    state = init_train_state(model, opt, seed=0, tp=mesh)
+    step = make_train_step(model, opt, device=dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "seconds": [], "launches_per_step": []}
+    masking, seen = [], []
+    if mesh is None:
+        record = lambda f: lambda *a, **kw: masking.append(f(*a, **kw)) or masking[-1]
+        hook = wrapped(merlot_mod, "attention_guided_span_mask", record)
+    else:
+        masking = torch.load(d / "tp_masking.pt", map_location=dev)
+        hook = wrapped(merlot_mod, "attention_guided_span_mask",
+                       tp_masking_pinned(masking, seen))
+        # the fault probe: step 1's loss and gradients with the ViT's first
+        # out_proj summed over no rank (each rank keeps its partial sum), from
+        # a copy of the step's generator; no update
+        probe_gen = torch.Generator(device=dev)
+        probe_gen.set_state(gen.get_state())
+        calls = []
+
+        def broken(dense, x, m):
+            calls.append(1)
+            if len(calls) > 1:
+                return tpm.row_parallel(dense, x, m)
+            y = tpm._PartialProduct.apply(x.to(dense.dtype), dense.weight.to(dense.dtype))
+            return y.to(dense.dtype) + dense.bias.to(dense.dtype)
+
+        probe_seen = []
+        with wrapped(merlot_mod, "attention_guided_span_mask",
+                     tp_masking_pinned(masking, probe_seen)), \
+                wrapped(tr_mod, "row_parallel", lambda f: broken):
+            loss, _, _ = model({k: v for k, v in batch.items()}, deterministic=False,
+                               attn_backend="cuda", generator=probe_gen, mesh=mesh)
+            loss.backward()
+        out["probe_loss"] = loss.item()
+        probe_grads = mesh.gather_model({n: p.grad.detach().float()
+                                         for n, p in model.named_parameters()})
+        for p in model.parameters():
+            p.grad = None
+        if mesh.is_chief:
+            ref_grads = torch.load(d / "tp_ref_grads.pt", map_location=dev)
+            out["probe_grad_gap"] = grad_gap(probe_grads, ref_grads)
+        del probe_grads
+    ca.launches = ca.bwd_launches = 0
+    with hook:
+        for i in range(TP_STEPS):
+            before = (ca.launches, ca.bwd_launches)
+            t0 = time.perf_counter()
+            metrics = step(model, state, batch, gen)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["launches_per_step"].append((ca.launches - before[0],
+                                             ca.bwd_launches - before[1]))
+            out["losses"].append(metrics["loss"].item())
+            if i:
+                continue
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().float()
+                     for n, p in model.named_parameters()}
+            if mesh is None:
+                torch.save({n: g.cpu() for n, g in grads.items()}, d / "tp_ref_grads.pt")
+            else:
+                grads = mesh.gather_model(grads)
+                if mesh.is_chief:
+                    out["grad_gap"] = grad_gap(grads, ref_grads)
+                    del ref_grads
+            del grads
+    if mesh is None:
+        torch.save(masking, d / "tp_masking.pt")
+    out["own_masking_equal"] = seen
+    out["launches"] = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # the last step's: the first one warms up
+    out["segments_per_s"] = TP_BATCH * TRAIN_CHUNKS / out["seconds"][-1]
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_grover_contexts() -> list:
+    """TP_GROVER_ROWS contexts of prefix + decode tokens (ids below the
+    special ones at the top of the vocabulary: none is an eos)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    n = TP_GROVER_PREFIX + TP_GROVER_DECODE
+    return [list(rng.integers(10, 50000, n)) for _ in range(TP_GROVER_ROWS)]
+
+
+def tp_grover_run(dev, bf16: bool, mesh=None) -> dict:
+    """``Denoiser.run_batch`` at grover-medium (seed 0's weights), --tp 1
+    without ``mesh``, else this rank of a --tp 2 server (rank 0 runs the
+    batch, the other follows): the logits of the prefill's last position
+    and of each decode step [B, V] fp32 on the host, the K3 launches before
+    each, and the host's clock at each."""
+    import torch
+    from merlot_tpu_torch.models import grover as grover_mod
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.tools.denoise_server import Denoiser
+
+    t0 = time.perf_counter()
+    den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), None,
+                   max_len=TP_GROVER_PREFIX + TP_GROVER_DECODE, bf16=bf16,
+                   batch_window_ms=0.0, device=dev, tp=1 if mesh is None else mesh.model,
+                   mesh=mesh)
+    init_s = time.perf_counter() - t0
+    logits, launches, clock = [], [], []
+
+    def record(f):
+        def recorded(word_embed, cfg, h):
+            out = f(word_embed, cfg, h)
+            if h.dim() == 2 or h.shape[1] == 1:  # not the prefill's probability chunks
+                logits.append(out.reshape(out.shape[0], -1).float().cpu())
+                launches.append(ca.stacked_launches)
+                clock.append(time.perf_counter())
+            return out
+        return recorded
+
+    ca.stacked_launches = 0
+    with wrapped(grover_mod, "lm_logits_for_hidden", record):
+        t0 = time.perf_counter()
+        if mesh is None or mesh.model_rank == 0:
+            den.run_batch(tp_grover_contexts(), den.tok.end_article)
+            if mesh is not None:
+                den.stop()
+        else:
+            den.follow()
+        seconds = time.perf_counter() - t0
+    del den
+    torch.cuda.empty_cache()
+    steps = len(logits) - 1
+    return {"logits": logits, "launches": launches, "init_s": init_s, "seconds": seconds,
+            "decode_steps": steps,
+            "decode_tokens_per_s": TP_GROVER_ROWS * (steps - 1) / (clock[-1] - clock[1]),
+            "total_launches": ca.stacked_launches}
+
+
+def tp_launch_steps(launches: list) -> list:
+    """K3 launches of the prefill and of each decode step."""
+    return [b - a for a, b in zip([0] + launches[:-1], launches)]
+
+
+def tp_child(rank: int, port: str, d: str) -> int:
+    """One rank of the tensor_parallel phase: two ranks on cuda:0 over gloo
+    (LOCAL_RANK 0 for both), one model group; the pretraining run, then the
+    Grover server's in bf16 and in fp32. Writes its record under ``d``."""
+    import torch
+    from merlot_tpu_torch.parallel import mesh as pm
+
+    d = Path(d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = pm.init_multihost(init_method=f"tcp://127.0.0.1:{port}", world_size=TP_RANKS,
+                            rank=rank, device="cuda", backend="gloo")
+    mesh = pm.make_mesh(model=TP_RANKS)
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "data": mesh.data, "model": mesh.model, "model_rank": mesh.model_rank}
+    out["pretrain"] = tp_pretrain_run(dev, d, mesh)
+    for name, bf16 in (("grover_bf16", True), ("grover_fp32", False)):
+        run = tp_grover_run(dev, bf16, mesh)
+        ref = torch.load(d / f"tp_ref_{name}.pt")
+        n = TP_GROVER_CHECKED + 1 if bf16 else 2
+        run["logits_max_abs_diff"] = max((a - b).abs().max().item() for a, b in
+                                         zip(run["logits"][:n], ref["logits"][:n]))
+        run["logits_compared"] = n
+        run["launches_per_step"] = tp_launch_steps(run.pop("launches"))
+        run.pop("logits")
+        out[name] = run
+    pm.leave(mesh)
+    (d / f"tp_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def tensor_parallel_phase(dev) -> dict:
+    """The model axis at model=2 as two ranks sharing the card over gloo
+    (TP_RANKS's comment): the references in this process, then the ranks."""
+    import socket
+    import torch
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        ref = {"pretrain": tp_pretrain_run(dev, d)}
+        for name, bf16 in (("grover_bf16", True), ("grover_fp32", False)):
+            run = tp_grover_run(dev, bf16)
+            torch.save({"logits": run["logits"]}, d / f"tp_ref_{name}.pt")
+            run["launches_per_step"] = tp_launch_steps(run.pop("launches"))
+            run.pop("logits")
+            ref[name] = run
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, LOCAL_RANK="0", PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                           if p]))
+        procs = []
+        for r in range(TP_RANKS):
+            with open(d / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-child", str(r),
+                     "--tp-port", str(port), "--tp-dir", str(d)], cwd=ROOT, env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, TP_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            text = (d / f"rank{r}.log").read_text()
+            print(f"[tensor-parallel] rank {r} output (last 3000 characters):\n"
+                  f"{text[-3000:]}", flush=True)
+            check(p.returncode == 0, f"tensor-parallel rank {r} exited {p.returncode}")
+        ranks = [json.loads((d / f"tp_rank{r}.json").read_text()) for r in range(TP_RANKS)]
+    rp = ranks[0]["pretrain"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(rp["losses"], ref["pretrain"]["losses"])]
+    probe_loss_rel = abs(rp["probe_loss"] - ref["pretrain"]["losses"][0]) / abs(
+        ref["pretrain"]["losses"][0])
+    result = {
+        "card": card, "backend": ranks[0]["backend"], "ranks": TP_RANKS,
+        "mesh": {"data": ranks[0]["data"], "model": ranks[0]["model"]},
+        "note": "two ranks sharing one card over gloo: not a reading of tensor "
+                "parallelism's speed on separate cards",
+        "reduced": {"batch": f"{TP_BATCH} examples x {TRAIN_CHUNKS} chunks (bench.py: "
+                             f"{TRAIN_BATCH})", "steps": TP_STEPS,
+                    "grover_max_len": TP_GROVER_PREFIX + TP_GROVER_DECODE},
+        "pretrain": {"model_1": ref["pretrain"], "ranks": [r["pretrain"] for r in ranks],
+                     "loss_rel_diff": loss_rel, "grad_gap": rp["grad_gap"],
+                     "probe_loss_rel_diff": probe_loss_rel,
+                     "probe_grad_gap": rp["probe_grad_gap"]},
+        "grover_bf16": {"tp_1": ref["grover_bf16"],
+                        "ranks": [r["grover_bf16"] for r in ranks]},
+        "grover_fp32": {"tp_1": ref["grover_fp32"],
+                        "ranks": [r["grover_fp32"] for r in ranks]},
+        "launches": {"attention_fwd": sum(r["pretrain"]["launches"]["attention_fwd"]
+                                          for r in ranks),
+                     "attention_bwd": sum(r["pretrain"]["launches"]["attention_bwd"]
+                                          for r in ranks),
+                     "attention_stacked": sum(r[g]["total_launches"] for r in ranks
+                                              for g in ("grover_bf16", "grover_fp32"))},
+        "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[tensor-parallel] {json.dumps(result)}", flush=True)
+    print(f"[tensor-parallel] {card}: model=2, two ranks sharing the card over gloo: "
+          f"pretrain_4seg {min(r['pretrain']['segments_per_s'] for r in ranks):.2f}"
+          f" segments/s (one process at model=1: "
+          f"{ref['pretrain']['segments_per_s']:.2f}), loss gaps {loss_rel}, grad gap "
+          f"{rp['grad_gap']['max_rel']:.4g}; probe loss gap {probe_loss_rel:.4g}, grad gap "
+          f"{rp['probe_grad_gap']['max_rel']:.4g}; grover-medium --tp 2 decode "
+          f"{ranks[0]['grover_bf16']['decode_tokens_per_s']:.2f} tokens/s bf16 (--tp 1: "
+          f"{ref['grover_bf16']['decode_tokens_per_s']:.2f}), logits gaps "
+          f"{ranks[0]['grover_bf16']['logits_max_abs_diff']:.4g} bf16, "
+          f"{ranks[0]['grover_fp32']['logits_max_abs_diff']:.4g} fp32; "
+          f"{result['phase_seconds']:.1f} s", flush=True)
+    check(all(x <= TRAIN_LOSS_RTOL for x in loss_rel),
+          f"tensor-parallel losses vs model=1: {loss_rel} > {TRAIN_LOSS_RTOL}")
+    check(rp["grad_gap"]["max_rel"] <= TRAIN_GRAD_TOL,
+          f"tensor-parallel step-1 grads vs model=1: {rp['grad_gap']} > {TRAIN_GRAD_TOL}")
+    check(probe_loss_rel > TRAIN_LOSS_RTOL or rp["probe_grad_gap"]["max_rel"] > TRAIN_GRAD_TOL,
+          f"the probe (a row-parallel all-reduce left out) passes the bounds: loss "
+          f"{probe_loss_rel}, grads {rp['probe_grad_gap']}")
+    for r in ranks:
+        check(r["pretrain"]["launches_per_step"]
+              == [[LAUNCHES_PER_STEP, LAUNCHES_PER_STEP]] * TP_STEPS,
+              f"rank {r['rank']}: K1/K2 launches per step {r['pretrain']['launches_per_step']}")
+        for g, tol in (("grover_bf16", GROVER_LOGIT_TOL), ("grover_fp32", TP_FP32_LOGIT_TOL)):
+            run = r[g]
+            check(run["decode_steps"] == TP_GROVER_DECODE - 1
+                  and run["launches_per_step"] == [24] * TP_GROVER_DECODE,
+                  f"rank {r['rank']} {g}: K3 launches per prefill and decode step "
+                  f"{run['launches_per_step']}")
+            if r["rank"] == 0:
+                check(run["logits_max_abs_diff"] <= tol,
+                      f"{g}: --tp 2 logits vs --tp 1: {run['logits_max_abs_diff']} > {tol}")
+    check(ref["pretrain"]["launches_per_step"] == [(LAUNCHES_PER_STEP, LAUNCHES_PER_STEP)]
+          * TP_STEPS, f"model=1: K1/K2 launches per step {ref['pretrain']['launches_per_step']}")
+    return result
+
+
 def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict:
     """The plain version's, SDPA's and the bound's ms over a path's
     ``launches`` at each of ``shapes`` (per-call times of the kernel
@@ -4719,7 +5165,7 @@ def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -4740,7 +5186,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         + cli["launches"]["attention_fwd"] + zs_cli["launches"]
         + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values())
         + gt["launches"]["attention_fwd"] + gt["roundtrip"]["launches"]["attention_fwd"]
-        + sum(k1 for _, k1, _ in cp["launches_per_step"]) + dp["launches"]["attention_fwd"],
+        + sum(k1 for _, k1, _ in cp["launches_per_step"]) + dp["launches"]["attention_fwd"]
+        + tp["launches"]["attention_fwd"],
         "launches_by_path": {"zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
                              "pretrain_cli": cli["launches"]["attention_fwd"],
@@ -4757,7 +5204,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                                  k1 for _, k1, _ in dp["pretrain_cli"]["launches_per_step"]),
                              "data_parallel_vcr_train": sum(
                                  k1 for _, k1, _ in dp["vcr"]["launches_per_step"]),
-                             "data_parallel_zero_shot_cli": dp["zero_shot_cli"]["launches"]},
+                             "data_parallel_zero_shot_cli": dp["zero_shot_cli"]["launches"],
+                             "tensor_parallel_pretrain_both_ranks":
+                                 tp["launches"]["attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -4798,7 +5247,14 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "grover_train_ms_per_step": gt["k1_ms_per_step"],
         "grover_train_shape_sum_ms": 24 * zs["grover_train"]["ms"],
         "grover_train_first_design_ms": first["k1_grover_step"],
-        **per_path("grover_train", zs, ("grover_train",), 24)}
+        **per_path("grover_train", zs, ("grover_train",), 24),
+        # per train step of one rank at model=2 (12 launches at each tower's
+        # shape at 6 heads): the per-call times; SDPA at the ViT and joint
+        # shapes (lang has no single call)
+        **{f"tp_train_{k}": 12 * sum(zs[n[0]][k] for n in TP_ATTN_SHAPES)
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "tp_train_library_ms": 12 * (zs["tp_pretrain_vit"]["library_ms"]
+                                     + zs["tp_pretrain_joint"]["library_ms"])}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
     train_shapes = ("pretrain_vit", "pretrain_joint", "pretrain_lang")
@@ -4808,7 +5264,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "replaces": "merlot_tpu/ops/pallas_attention.py:504",
         "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
         + vcr["launches"]["attention_bwd"] + gt["launches"]["attention_bwd"]
-        + sum(k2 for _, _, k2 in cp["launches_per_step"]) + dp["launches"]["attention_bwd"],
+        + sum(k2 for _, _, k2 in cp["launches_per_step"]) + dp["launches"]["attention_bwd"]
+        + tp["launches"]["attention_bwd"],
         "launches_by_path": {"train": tr["launches"]["attention_bwd"],
                              "pretrain_cli": cli["launches"]["attention_bwd"],
                              "vcr_train": vcr["launches"]["attention_bwd"],
@@ -4818,7 +5275,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                              "data_parallel_pretrain_cli": sum(
                                  k2 for _, _, k2 in dp["pretrain_cli"]["launches_per_step"]),
                              "data_parallel_vcr_train": sum(
-                                 k2 for _, _, k2 in dp["vcr"]["launches_per_step"])},
+                                 k2 for _, _, k2 in dp["vcr"]["launches_per_step"]),
+                             "tensor_parallel_pretrain_both_ranks":
+                                 tp["launches"]["attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -4838,14 +5297,17 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "grover_train_ms_per_step": gt["k2_ms_per_step"],
         "grover_train_shape_sum_ms": 24 * tb["grover_train"]["ms"],
         "grover_train_first_design_ms": first["k2_grover_step"],
-        **per_path("grover_train", tb, ("grover_train",), 24)}
+        **per_path("grover_train", tb, ("grover_train",), 24),
+        **{f"tp_train_{k}": 12 * sum(tb[n[0]][k] for n in TP_ATTN_SHAPES)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
     # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
     # bound (live slots) all from the K3 phase's timing of that shape (the
     # path's own CUDA-event spans include the host's gaps between launches);
     # K3's device time on the path, from the profile of the 32-token
     # generation, beside the bound of that generation's own decode steps
-    k3 = {r["shape"]: r for r in k3_rows}["decode_b8_bf16_bench"]
+    tk = {r["shape"]: r for r in k3_rows}
+    k3 = tk["decode_b8_bf16_bench"]
     pre = {r["shape"]: r for r in k3_rows}["prefill_b8_bf16"]
     pre32 = {r["shape"]: r for r in k3_rows}["prefill_b2_fp32"]
     k3_record = {
@@ -4854,11 +5316,14 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "replaces": "merlot_tpu/ops/pallas_attention.py:656",
         "launches": gv["launches"]["attention_stacked"]
         + sv["launches"]["attention_stacked"]
-        + gt["roundtrip"]["launches"]["attention_stacked"],
+        + gt["roundtrip"]["launches"]["attention_stacked"]
+        + tp["launches"]["attention_stacked"],
         "launches_by_path": {"grover_decode": gv["launches"]["attention_stacked"],
                              "server": sv["launches"]["attention_stacked"],
                              "grover_train_roundtrip_prefill":
-                                 gt["roundtrip"]["launches"]["attention_stacked"]},
+                                 gt["roundtrip"]["launches"]["attention_stacked"],
+                             "tensor_parallel_server_both_ranks":
+                                 tp["launches"]["attention_stacked"]},
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": 24 * k3["ms"], "plain_ms": 24 * k3["plain_ms"],
         "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
@@ -4881,7 +5346,12 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "prefill_fp32_ms": 24 * pre32["ms"], "prefill_fp32_plain_ms": 24 * pre32["plain_ms"],
         "prefill_fp32_library_ms": 24 * pre32["library_ms"],
         "prefill_fp32_bound_ms": 24 * pre32["bound_ms"],
-        "prefill_fp32_first_design_ms": first["k3_prefill_fp32"]}
+        "prefill_fp32_first_design_ms": first["k3_prefill_fp32"],
+        # one rank at model=2 (8 of 16 heads), from the K3 phase's timing:
+        # 24 launches per decode step (B=8, Sk=1537, kv_len 1101) and per
+        # prefill (B=8, Sq=1024), bf16 and fp32
+        **{f"{n}_{k}": 24 * tk[n][k] for n in tk if n.startswith("tp_")
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
     # on the fused path (torch.profiler, per step), "event_ms"
@@ -4921,7 +5391,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "library_note": "F.group_norm on the NCHW view, + add, ReLU: not the same rounding",
         "unit": "per train step: 54 launches over 13 shapes, 128 frames, bf16"}
     ln = {r["shape"]: r for r in k5_rows}
-    ln_path = lambda prefix, key: 12 * sum(ln[spec[0]][key] for spec in LN_SHAPES
+    ln_path = lambda prefix, key: 12 * sum(ln[spec[0]][key] for spec in LN_SHAPES + TP_LN_SHAPES
                                            if spec[0].startswith(prefix))
     k5_record = {
         "name": "ln_matmul", "route": "cuda",
@@ -4947,7 +5417,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "zero_shot_library_ms": ln_path("zeroshot", "library_ms"),
         "library_note": "F.layer_norm then one F.linear over the J weights: two calls, "
                         "not the same rounding",
-        "unit": "per train step: 72 launches, 12 layers x (q/k/v, MLP) x 3 towers, K=768, bf16"}
+        "unit": "per train step: 72 launches, 12 layers x (q/k/v, MLP) x 3 towers, K=768, bf16",
+        # a fused step's sites at model=2 (this rank's columns), summed over
+        # the sites from the per-shape times
+        **{f"tp_train_{k}": ln_path("tp_pretrain", k)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     return [k1_record, k2_record, k3_record, k4_record, k5_record]
 
 
@@ -4966,6 +5440,11 @@ def main() -> int:
                          "--dp-out; the phase runs it with the rank's variables set)")
     ap.add_argument("--dp-config", help="with --dp-child: the entry point's config")
     ap.add_argument("--dp-out", help="with --dp-child: where its record goes")
+    ap.add_argument("--tp-child", type=int, metavar="RANK",
+                    help="only one rank of the tensor_parallel phase (with --tp-port and "
+                         "--tp-dir; the phase starts both)")
+    ap.add_argument("--tp-port", help="with --tp-child: the process group's port")
+    ap.add_argument("--tp-dir", help="with --tp-child: the phase's directory")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4976,6 +5455,8 @@ def main() -> int:
         return grover_profile_child(args.grover_profile, args.train_files, args.out)
     if args.dp_child:
         return dp_child(args.dp_child, args.dp_config, args.dp_out)
+    if args.tp_child is not None:
+        return tp_child(args.tp_child, args.tp_port, args.tp_dir)
     from merlot_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5059,9 +5540,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cp = corpus_phase(dev, Path(tmp))
     lap("corpus")
+    tp = tensor_parallel_phase(dev)
+    lap("tensor_parallel")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5075,6 +5558,7 @@ def main() -> int:
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
              "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
              "vcr": vcr, "data_parallel": dp, "grover_train": gt, "corpus": cp,
+             "tensor_parallel": tp,
              "ablation": ab_rows,
              "first_design": fd,
              "records": records,

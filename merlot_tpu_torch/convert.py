@@ -75,10 +75,16 @@ def flax_path(torch_name: str) -> str:
     return "/".join(parts)
 
 
-def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray],
+                     mesh=None) -> None:
     """Load flax leaves into ``model``. Raises if a leaf has no home in the
-    model, if a model parameter is left unset, or on a shape mismatch."""
+    model, if a model parameter is left unset, or on a shape mismatch.
+    With ``mesh`` (``parallel.mesh.Mesh``, a model cut by its
+    ``shard_params``), the leaves are whole and each rank loads its model
+    rank's slice (``Mesh.local_slice``)."""
     sd = params_from_flax(flat)
+    if mesh is not None:
+        sd = {k: mesh.local_slice(k, t) for k, t in sd.items()}
     own = model.state_dict()
     unused = sorted(set(sd) - set(own))
     unset = sorted(set(own) - set(sd))

@@ -42,7 +42,7 @@ from merlot_tpu_torch.downstream.sort_story.dataloader import story_batches
 from merlot_tpu_torch.downstream.sort_story.zero_shot import run_zero_shot
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.merlot import MerlotModel
-from merlot_tpu_torch.parallel.mesh import join_from_env, leave
+from merlot_tpu_torch.parallel.mesh import join_from_env, leave, refuse_model_axis
 from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
 
 PRETRAIN_ROOT = "merlot/"
@@ -65,7 +65,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     ap.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     config = NeatConfig.from_yaml(args.config_file)
-    device, mesh = join_from_env(args.device, config.device.get("model_parallelism", 1))
+    refuse_model_axis(config.device.get("model_parallelism", 1), "zero-shot CLI",
+                      "merlot_tpu/downstream/sort_story/zero_shot.py:118")
+    device, mesh = join_from_env(args.device)
     try:
         return _run(config, device, mesh)
     finally:

@@ -25,7 +25,8 @@ no per-host slice, so every rank reads the same global stream of
 every batch); the loss is written over the global batch
 (``vcr_loss_and_metrics`` with the mesh) and ``device.use_zero1`` splits
 the Adam moments over the ranks. The world-N run trains on the batches of
-the one-process run. ``model_parallelism > 1`` is not ported yet.
+the one-process run. ``model_parallelism > 1`` raises: JAX's VCR CLI runs
+at model=1 whatever its config says (no tensor parallelism).
 """
 
 from __future__ import annotations
@@ -40,17 +41,22 @@ from merlot_tpu_torch.downstream.vcr.dataloader import vcr_joint_batches
 from merlot_tpu_torch.downstream.vcr.modeling import VCRModel, vcr_loss_and_metrics
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.parallel.mesh import (Mesh, join_from_env, leave,
-                                            refuse_model_parallelism, shard_batch)
+                                            refuse_model_axis, shard_batch)
 from merlot_tpu_torch.train.harness import Trainer
 from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
 from merlot_tpu_torch.train.train_step import _device, make_loss_train_step
+
+
+def _refuse_model_axis(config: NeatConfig) -> None:
+    refuse_model_axis(config.device.get("model_parallelism", 1), "VCR CLI",
+                      "merlot_tpu/downstream/vcr/train.py:42")
 
 
 def build_vcr_train(config: NeatConfig, device="cuda", mesh: Optional[Mesh] = None):
     """(model, optimizer, loss_fn) from a NeatConfig; ``loss_fn(model,
     batch, generator)`` is the training forward with dropout drawn from
     ``generator`` (this rank's share of the global loss with ``mesh``)."""
-    refuse_model_parallelism(config.device.get("model_parallelism", 1))
+    _refuse_model_axis(config)
     model = VCRModel(MerlotConfig.from_dict(config.model), device=_device(device))
     optimizer = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
 
@@ -71,7 +77,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     config = NeatConfig.from_yaml(args.config_file)
-    device, mesh = join_from_env(args.device, config.device.get("model_parallelism", 1))
+    _refuse_model_axis(config)
+    device, mesh = join_from_env(args.device)
     try:
         return _run(config, device, mesh)
     finally:

@@ -37,7 +37,7 @@ from merlot_tpu_torch.core.config import NeatConfig
 from merlot_tpu_torch.downstream.vcr.dataloader import vcr_eval_batches
 from merlot_tpu_torch.downstream.vcr.modeling import VCRModel
 from merlot_tpu_torch.models.config import MerlotConfig
-from merlot_tpu_torch.parallel.mesh import Mesh, join_from_env, leave
+from merlot_tpu_torch.parallel.mesh import Mesh, join_from_env, leave, refuse_model_axis
 from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
 from merlot_tpu_torch.train.metrics import MetricsLogger
 from merlot_tpu_torch.train.train_step import _device
@@ -158,7 +158,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[int, float]:
     ap.add_argument("--device", default="cuda", help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(sys.argv[1:] if argv is None else list(argv))
     config = NeatConfig.from_yaml(args.config_file)
-    device, mesh = join_from_env(args.device, config.device.get("model_parallelism", 1))
+    refuse_model_axis(config.device.get("model_parallelism", 1), "VCR validation",
+                      "merlot_tpu/downstream/vcr/validate.py:53")
+    device, mesh = join_from_env(args.device)
     try:
         return watch_and_validate(config, device=device, mesh=mesh)
     finally:

@@ -38,6 +38,17 @@ Sampling (``top_p_sample``, ``top_k_sample``, ``make_seq2seq_sampler``)
 draws from an explicit ``torch.Generator``: the same distributions as the
 JAX package, not the same streams. The pipeline-parallel helpers
 (``stack_grover_params``, ``grover_pipeline_forward``) are not ported.
+
+Tensor parallelism (``parallel.mesh.shard_params`` sets ``tp`` on each
+layer and the LM): q/k/v and ``intermediate`` are column-parallel (this
+model rank's heads and hidden columns), ``out_proj`` and ``output``
+row-parallel with their biases added once after the model group's sum;
+``word_embed``, the LM head and the norms stay replicated (the JAX rules
+leave ``word_embed`` whole: 50270 = 2 * 5 * 11 * 457). The KV cache, flat
+or stacked, holds this rank's heads, and the fused qkv product is this
+rank's q | k | v columns, so K3 runs at the local head count. Every rank
+of the model group computes the same logits: the last sum's bytes are the
+same on each.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ from merlot_tpu_torch.ops import cuda_attention
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import attention_core, training_backend
 from merlot_tpu_torch.ops.sampling import gumbel_noise, top_k_indices
+from merlot_tpu_torch.parallel.tensor_parallel import row_parallel
 
 MASK_PENALTY = 1e10
 
@@ -113,6 +125,12 @@ class GroverLayer(nn.Module):
         self.intermediate = dense(hs, c.intermediate_size)
         self.output = dense(c.intermediate_size, hs)
         self.mlp_ln1 = LayerNorm(hs, device=device)
+        self.tp = None  # the mesh, once shard_params has cut the heads
+
+    def check_tp(self, model: int) -> None:
+        if self.cfg.num_attention_heads % model:
+            raise ValueError(f"tensor parallelism: {self.cfg.num_attention_heads} heads "
+                             f"do not split over model={model}")
 
     def forward(self, h: torch.Tensor, mask: torch.Tensor, kv_write_pos: int = 0,
                 cache_k: Optional[torch.Tensor] = None,
@@ -126,17 +144,20 @@ class GroverLayer(nn.Module):
         ``kv_write_pos``, in place. Without a cache the attention runs on
         ``attn_backend``; the hidden dropout draws from ``generator``
         unless ``deterministic``."""
-        c = self.cfg
+        c, tp = self.cfg, self.tp
         b, s, _ = h.shape
-        hs, nh, d = c.hidden_size, c.num_attention_heads, c.d_head
+        m = 1 if tp is None else tp.model
+        # this model rank's heads and their columns
+        hs, nh, d = c.hidden_size // m, c.num_attention_heads // m, c.d_head
+        h_in = h if tp is None else tp.copy_to_model(h)
         if c.fused_qkv:
-            qkv = self.qkv(h)
+            qkv = self.qkv(h_in)
             q = qkv[..., :hs].reshape(b, s, nh, d)
             kv_flat = qkv[..., hs:]     # the k‖v columns: the stacked cache's rows
             k_flat, v_flat = kv_flat[..., :hs], kv_flat[..., hs:]
         else:
-            q = self.query(h).reshape(b, s, nh, d)
-            k_flat, v_flat = self.key(h), self.value(h)
+            q = self.query(h_in).reshape(b, s, nh, d)
+            k_flat, v_flat = self.key(h_in), self.value(h_in)
             kv_flat = None
 
         end = kv_write_pos + s
@@ -159,12 +180,15 @@ class GroverLayer(nn.Module):
                                     v_flat.reshape(b, s, nh, d), mask,
                                     backend=attn_backend, softmax_fp32=True)
         drop = dict(deterministic=deterministic, generator=generator)
-        attn_out = dropout(self.out_proj(ctx.to(q.dtype).reshape(b, s, hs)),
-                           c.hidden_dropout_prob, **drop)
-        x = h + attn_out
-        mlp = dropout(self.output(gelu(self.intermediate(self.mlp_ln0(x)))),
-                      c.hidden_dropout_prob, **drop)
-        return self.mlp_ln1(x + mlp)
+        ctx = ctx.to(q.dtype).reshape(b, s, hs)
+        attn = self.out_proj(ctx) if tp is None else row_parallel(self.out_proj, ctx, tp)
+        x = h + dropout(attn, c.hidden_dropout_prob, **drop)
+        y = self.mlp_ln0(x)
+        if tp is None:
+            y = self.output(gelu(self.intermediate(y)))
+        else:
+            y = row_parallel(self.output, gelu(self.intermediate(tp.copy_to_model(y))), tp)
+        return self.mlp_ln1(x + dropout(y, c.hidden_dropout_prob, **drop))
 
 
 class GroverLM(nn.Module):
@@ -179,6 +203,7 @@ class GroverLM(nn.Module):
         self.embed_norm = LayerNorm(c.hidden_size, device=device)
         for i in range(c.num_hidden_layers):
             setattr(self, f"layer{i:02d}", GroverLayer(c, device=device))
+        self.tp = None  # the mesh, once shard_params has cut the layers
 
     def init_weights(self, gen: torch.Generator) -> None:
         trunc_normal_(self.word_embed, self.cfg.initializer_range, gen)
@@ -239,15 +264,18 @@ class GroverLM(nn.Module):
     def empty_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
         """Per-layer zeroed KV buffers in the model dtype, on the model's
         device: {'k00','v00',...} [B, max_len, H, D], or with
-        ``cfg.stacked_kv`` {'kv00',...} [B, max_len, 2H] (keys ‖ values)."""
+        ``cfg.stacked_kv`` {'kv00',...} [B, max_len, 2H] (keys ‖ values);
+        under tensor parallelism this model rank's heads (H / model)."""
         c = self.cfg
+        m = 1 if self.tp is None else self.tp.model
         kw = dict(dtype=c.dtype, device=self.word_embed.device)
         out: Dict[str, torch.Tensor] = {}
         for i in range(c.num_hidden_layers):
             if c.stacked_kv:
-                out[f"kv{i:02d}"] = torch.zeros((batch_size, max_len, 2 * c.hidden_size), **kw)
+                out[f"kv{i:02d}"] = torch.zeros((batch_size, max_len, 2 * c.hidden_size // m),
+                                                **kw)
             else:
-                shape = (batch_size, max_len, c.num_attention_heads, c.d_head)
+                shape = (batch_size, max_len, c.num_attention_heads // m, c.d_head)
                 out[f"k{i:02d}"] = torch.zeros(shape, **kw)
                 out[f"v{i:02d}"] = torch.zeros(shape, **kw)
         return out

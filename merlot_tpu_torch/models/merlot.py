@@ -16,6 +16,13 @@ Per forward:
 Hidden dropout runs unless ``deterministic``, from ``generator``, which also
 makes the masking draws unless ``masking_draws`` gives them. The parameter
 tree mirrors the flax one name for name (see convert.py).
+
+Tensor parallelism (``parallel.mesh.shard_params`` sets ``tp``): the
+towers' attention and MLPs are cut over the model axis
+(nn/transformer.py), ``word_embeddings`` and ``lm_output_bias`` over the
+vocabulary: the lookup sums the model ranks' rows and ``lm_logits`` gives
+this rank's [..., V / model] slice. The lang-only tower's colsum is the
+global one, so every model rank of one data index masks the same tokens.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from merlot_tpu_torch.nn.transformer import TransformerEncoder, TransformerHPara
 from merlot_tpu_torch.nn.vit import PositionEmbedder2D, VisionBackbone
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.masking import attention_guided_span_mask
+from merlot_tpu_torch.parallel.tensor_parallel import vocab_parallel_embedding
 
 
 def _l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -147,6 +155,7 @@ class MerlotModel(nn.Module):
             initializer_range=c.initializer_range, device=device)
         self.lang_viz_temporal = TemporalHead(h, c.initializer_range, device=device)
         self.viz_viz_temporal = TemporalHead(h, c.initializer_range, device=device)
+        self.tp = None  # the mesh, once shard_params has cut the vocabulary
 
     def init_weights(self, gen: torch.Generator):
         """This module's own tables; submodules initialise themselves."""
@@ -167,7 +176,10 @@ class MerlotModel(nn.Module):
         L = ids_2d.shape[1]
         if L > self.cfg.max_position_embeddings:
             raise ValueError(f"{L} tokens > {self.cfg.max_position_embeddings}")
-        word = self.word_embeddings[ids_2d.long()]
+        if self.tp is None:
+            word = self.word_embeddings[ids_2d.long()]
+        else:
+            word = vocab_parallel_embedding(self.word_embeddings, ids_2d, self.tp)
         if which == "joint":
             normed = self.embed_norm(word + self.position_embeddings[:L][None])
         else:
@@ -366,11 +378,14 @@ class MerlotModel(nn.Module):
     # heads
     # ------------------------------------------------------------------
     def lm_logits(self, hidden_state: torch.Tensor) -> torch.Tensor:
-        """Tied-embedding LM head (fp32)."""
+        """Tied-embedding LM head (fp32); under tensor parallelism this model
+        rank's slice of the vocabulary, [..., V / model]."""
         c = self.cfg
         h = hidden_state.float()
         if c.do_projection:
             h = self.lm_projection_ln(gelu(self.lm_projection(h)))
+        if self.tp is not None:
+            h = self.tp.copy_to_model(h)
         logits = h @ self.word_embeddings.T
         if c.do_bias:
             logits = logits + self.lm_output_bias

@@ -19,6 +19,11 @@ their gradients) summed over the ranks give the global loss and metrics:
   * the temporal means are over the global pairs (n / N of the local mean).
 At world size 1 each share is computed by the same operations as without
 a mesh, so its value is the same to the bit.
+
+Tensor parallelism (the model's ``tp``): the masked LM's logits are this
+model rank's slice of the vocabulary, so its cross-entropy and argmax are
+the vocab-parallel ones (``parallel/tensor_parallel.py``); every other
+term is replicated over the model ranks and sums over the data axis only.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.ops.losses import cross_entropy_with_logits
 from merlot_tpu_torch.parallel.mesh import Mesh
+from merlot_tpu_torch.parallel.tensor_parallel import (vocab_parallel_argmax,
+                                                       vocab_parallel_cross_entropy)
 
 
 def mask_loss(model: MerlotModel, fwd: Dict[str, Any],
@@ -48,7 +55,11 @@ def mask_loss(model: MerlotModel, fwd: Dict[str, Any],
 
     logits = model.lm_logits(pooled.reshape(-1, hidden.shape[-1]))
     targets_flat = targets.reshape(-1)
-    raw = cross_entropy_with_logits(logits, targets_flat)
+    tp = model.tp
+    if tp is None:
+        raw = cross_entropy_with_logits(logits, targets_flat)
+    else:
+        raw = vocab_parallel_cross_entropy(logits, targets_flat, tp)
 
     is_valid = (targets_flat != 0).to(raw.dtype)
     count = is_valid.sum()
@@ -56,7 +67,8 @@ def mask_loss(model: MerlotModel, fwd: Dict[str, Any],
         count = mesh.all_reduce_sum(count)
     denom = count + 1e-5
     loss = (is_valid * raw).sum() / denom
-    is_right = logits.argmax(-1) == targets_flat.long()
+    best = logits.argmax(-1) if tp is None else vocab_parallel_argmax(logits, tp)
+    is_right = best == targets_flat.long()
     acc = (is_valid * is_right.float()).sum() / denom
     return loss, {"loss": loss, "acc": acc}
 

@@ -14,6 +14,17 @@ With ``fuse_ln_matmul`` each pre-LN is fused into its consumer products
 q/k/v and the MLP LN into the intermediate product, over the same
 parameters.
 
+Tensor parallelism (``parallel.mesh.shard_params`` sets ``tp``, the
+mesh, on ``SelfAttention`` and ``MlpBlock``): q/k/v and the MLP's
+intermediate product are column-parallel (this model rank's heads and
+hidden columns; the fused LayerNorm's K5 on those columns), ``out_proj``
+and the MLP's output row-parallel, their biases added once after the
+model group's sum. The attention runs on the rank's ``num_heads / model``
+heads; a head-meaned colsum (or probs) is the model group's sum over
+``model``, so its cotangent reaches each rank divided by ``model``. The
+hidden dropout acts on the replicated sums, and every model rank of one
+data index draws the same masks from the same generator state.
+
 Not ported: attention-prob dropout (0 in every config), scan over layers,
 remat, the KV cache, cross-attention and the fused q/k/v forms.
 """
@@ -30,6 +41,7 @@ from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import attention_core
 from merlot_tpu_torch.ops.cuda_ln_matmul import ln_matmul
+from merlot_tpu_torch.parallel.tensor_parallel import row_parallel
 
 
 @dataclass(frozen=True)
@@ -57,6 +69,12 @@ class SelfAttention(nn.Module):
             self.add_module(name, DenseTN(h, h, dtype=hp.dtype,
                                           initializer_range=hp.initializer_range,
                                           device=device))
+        self.tp = None  # the mesh, once shard_params has cut the heads
+
+    def check_tp(self, model: int) -> None:
+        if self.hp.num_heads % model:
+            raise ValueError(f"tensor parallelism: {self.hp.num_heads} heads do not "
+                             f"split over model={model}")
 
     def forward(self, x_norm: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect: str = "none", attn_backend: str = "auto",
@@ -70,6 +88,12 @@ class SelfAttention(nn.Module):
             raise NotImplementedError("attention-prob dropout is not ported")
         b, s, h = x_norm.shape
         d_head = h // hp.num_heads
+        tp = self.tp
+        heads = hp.num_heads if tp is None else hp.num_heads // tp.model
+        if tp is not None:  # this rank's heads read the replicated input
+            x_norm = tp.copy_to_model(x_norm)
+            if ln_params is not None:
+                ln_params = tuple(tp.copy_to_model(t) for t in ln_params)
         names = ("query", "key", "value")
         if ln_params is not None:
             dense = [getattr(self, n) for n in names]
@@ -77,11 +101,16 @@ class SelfAttention(nn.Module):
                             [d.bias for d in dense])
         else:
             qkv = [getattr(self, n)(x_norm) for n in names]
-        q, k, v = (t.reshape(b, s, hp.num_heads, d_head) for t in qkv)
+        q, k, v = (t.reshape(b, s, heads, d_head) for t in qkv)
         ctx, extra = attention_core(q, k, v, mask, collect=collect,
                                     backend=attn_backend,
                                     softmax_fp32=hp.softmax_fp32)
-        out = self.out_proj(ctx.reshape(b, s, h))
+        if tp is None:
+            out = self.out_proj(ctx.reshape(b, s, h))
+        else:
+            out = row_parallel(self.out_proj, ctx.reshape(b, s, heads * d_head), tp)
+            if extra is not None:  # the mean over the local heads -> over all
+                extra = tp.reduce_from_model(extra) / tp.model
         return dropout(out, hp.hidden_dropout_prob, deterministic=deterministic,
                        generator=generator), extra
 
@@ -94,6 +123,7 @@ class MlpBlock(nn.Module):
                   device=device)
         self.intermediate = DenseTN(hp.hidden_size, hp.intermediate_size, **kw)
         self.output = DenseTN(hp.intermediate_size, hp.hidden_size, **kw)
+        self.tp = None  # the mesh, once shard_params has cut the hidden columns
 
     def forward(self, x_norm: torch.Tensor, *, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
@@ -101,13 +131,18 @@ class MlpBlock(nn.Module):
         """ln_params: the fp32 (gamma, beta) of the pre-MLP LN; when given,
         ``x_norm`` is the raw residual stream and the LN is fused into the
         intermediate product."""
-        inter = self.intermediate
+        inter, tp = self.intermediate, self.tp
+        if tp is not None:  # this rank's hidden columns read the replicated input
+            x_norm = tp.copy_to_model(x_norm)
+            if ln_params is not None:
+                ln_params = tuple(tp.copy_to_model(t) for t in ln_params)
         if ln_params is not None:
             (h0,) = ln_matmul(x_norm.to(self.hp.dtype), *ln_params, [inter.weight],
                               [inter.bias])
         else:
             h0 = inter(x_norm)
-        out = self.output(gelu(h0))
+        out = (self.output(gelu(h0)) if tp is None
+               else row_parallel(self.output, gelu(h0), tp))
         return dropout(out, self.hp.hidden_dropout_prob,
                        deterministic=deterministic, generator=generator)
 

@@ -166,7 +166,7 @@ def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in fp32: the exact products of the operands summed in fp32."""
     if a.dtype == torch.bfloat16 and a.device.type == "cuda":
         return torch.mm(a, b, out_dtype=torch.float32)
@@ -222,10 +222,10 @@ def ln_matmul_bwd(dy: torch.Tensor, x: torch.Tensor, gamma: torch.Tensor,
     # the forward's z (two-term form + beta), recomputed
     z = (xf * scale - mean * scale + beta.float()).to(cdtype)
     dy2 = dy.reshape(j, -1, n)
-    dws = torch.stack([_mm_f32(dy2[i].t(), z) for i in range(j)])
+    dws = torch.stack([mm_f32(dy2[i].t(), z) for i in range(j)])
     dbs = dy2.float().sum(dim=1)
     # dz summed over the consumers, then the LayerNorm backward
-    dz = _mm_f32(dy2.permute(1, 0, 2).reshape(-1, j * n), ws.to(cdtype).reshape(j * n, k))
+    dz = mm_f32(dy2.permute(1, 0, 2).reshape(-1, j * n), ws.to(cdtype).reshape(j * n, k))
     x_hat = (xf - mean) * rstd
     dgamma = (dz * x_hat).sum(dim=0)
     dbeta = dz.sum(dim=0)

@@ -18,6 +18,20 @@ It runs on CUDA unless ``--device cpu`` is given. ``--ckpt`` takes a .npz
 of numpy leaves keyed by '/'-joined flax path (with or without a leading
 ``params/``); a pipeline-parallel checkpoint's ``stages`` leaves are
 unstacked. Without it the weights are random, from seed 0.
+
+Tensor-parallel serving, one process per device:
+
+    torchrun --nproc_per_node N -m merlot_tpu_torch.tools.denoise_server \
+        --config configs/grover_medium.json --bf16 --tp N
+
+The N ranks form one model group (``parallel.mesh.make_mesh(model=N)``;
+NCCL, or gloo with ``--device cpu``) and each holds its slice of every
+layer (``shard_params``: its heads, its MLP columns, its part of the
+fused q | k | v and of the cache). Global rank 0 serves HTTP and runs the
+batching engine; each sampler call's padded contexts, prefix length,
+``eos`` and sampler seed go to the other ranks by ``broadcast_object``,
+and every rank runs the same prefill and decode steps. ``--tp 1``
+without torchrun is the one-process server.
 """
 
 from __future__ import annotations
@@ -45,6 +59,8 @@ from merlot_tpu_torch.models.grover import (GroverConfig, GroverLM,
                                             make_seq2seq_sampler,
                                             unstack_grover_params)
 from merlot_tpu_torch.nn.layers import init_params
+from merlot_tpu_torch.parallel.mesh import (Mesh, join_from_env, launched_distributed, leave,
+                                            shard_params)
 
 
 def _ceil_pow2(n: int) -> int:
@@ -92,10 +108,15 @@ class Denoiser:
                  k_prefilter: int = 128, tp: int = 1,
                  fuse_qkv: bool = True,
                  batch_window_ms: float = 15.0, max_batch: int = 8,
-                 device="cuda"):
-        if tp > 1:
-            raise ValueError("tensor-parallel serving (tp > 1) is not ported: "
-                             "the port serves on one card (ROADMAP M7)")
+                 device="cuda", mesh: Optional[Mesh] = None):
+        """``tp > 1`` needs ``mesh``, a model group of ``tp`` ranks (data 1),
+        whose every rank builds a Denoiser: rank 0 calls ``run_batch``,
+        the others ``follow``."""
+        if tp > 1 and (mesh is None or mesh.model != tp or mesh.data != 1):
+            raise ValueError(f"tensor-parallel serving (tp={tp}) needs a mesh of one data "
+                             f"index and {tp} model ranks (torchrun --nproc_per_node "
+                             f"{tp}), not {mesh}")
+        self.mesh = mesh if tp > 1 else None
         self.device = _device(device)
         self.tok = get_grover_tokenizer()
         self.cfg = GroverConfig.from_json_file(config_path)
@@ -121,6 +142,8 @@ class Denoiser:
             init_params(self.model, torch.Generator(device=self.device).manual_seed(0))
         if bf16:
             cast_params_for_serving(self.model)
+        # this model rank's slices of the whole weights loaded above
+        shard_params(self.model, self.mesh)
         self._gen = torch.Generator(device=self.device).manual_seed(int(time.time()))
         # one sampler run at a time: the card runs them in turn anyway, and
         # the generator is not thread-safe
@@ -155,13 +178,42 @@ class Denoiser:
         for i, c in enumerate(ctxs):
             padded[i, :len(c)] = c
 
+        with self._lock:
+            gen = self._gen
+            if self.mesh is not None:
+                # the ranks sample with one seed: their logits are the same
+                # bytes, so they pick the same tokens and run the same steps
+                seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen,
+                                         device=self._gen.device))
+                self.mesh.broadcast_object((padded, prefix_len, eos, seed))
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+            tokens, probs = self._sample(padded, prefix_len, eos, gen)
+        return [(tokens[i], probs[i]) for i in range(len(ctxs))]
+
+    def _sample(self, padded: np.ndarray, prefix_len: int, eos: int,
+                gen: torch.Generator) -> Tuple[np.ndarray, np.ndarray]:
         sampler = make_seq2seq_sampler(
             self.model, max_len=self.max_len, prefix_len=prefix_len,
             p_for_topp=self.top_p, eos_token=eos, k_prefilter=self.k_prefilter)
-        with self._lock:
-            tokens, probs = sampler(padded, self._gen)
-            tokens, probs = tokens.cpu().numpy(), probs.cpu().numpy()
-        return [(tokens[i], probs[i]) for i in range(len(ctxs))]
+        tokens, probs = sampler(padded, gen)
+        return tokens.cpu().numpy(), probs.cpu().numpy()
+
+    def follow(self) -> None:
+        """A tensor-parallel rank other than 0: run each sampler call rank 0
+        broadcasts, with its seed, until ``stop``."""
+        while True:
+            job = self.mesh.broadcast_object(None)
+            if job is None:
+                return
+            padded, prefix_len, eos, seed = job
+            self._sample(padded, prefix_len, eos,
+                         torch.Generator(device=self.device).manual_seed(seed))
+
+    def stop(self) -> None:
+        """Rank 0 of a tensor-parallel server: release the other ranks."""
+        if self.mesh is not None:
+            with self._lock:
+                self.mesh.broadcast_object(None)
 
     def denoise(self, noisyasr: str, target: str = "cleanasr"):
         tok = self.tok
@@ -307,7 +359,8 @@ def main(argv=None):
                     help="top-p sort prefilter (0 = full-vocab sort); rows whose "
                          "nucleus exceeds it climb the top-k ladder")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: only 1 is ported")
+                    help="tensor-parallel degree: > 1 runs as that many ranks under "
+                         "torchrun --nproc_per_node N, one per device")
     ap.add_argument("--no_fuse_qkv", action="store_true",
                     help="keep the three q/k/v projections and the flat cache")
     ap.add_argument("--batch_window", type=float, default=15.0,
@@ -317,15 +370,34 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--log", default="denoise_log.jsonl")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        ap.error("--tp > 1 is not ported: tensor-parallel serving is ROADMAP M7")
+    if args.tp > 1 and not launched_distributed():
+        ap.error(f"--tp {args.tp} runs as {args.tp} ranks, one per device: torchrun "
+                 f"--nproc_per_node {args.tp} -m merlot_tpu_torch.tools.denoise_server ...")
+    device, mesh = join_from_env(args.device, model=args.tp)
+    if mesh is not None and mesh.data != 1:
+        ap.error(f"the server runs one model group: launch --tp ({args.tp}) ranks, "
+                 f"not {mesh.data * mesh.model}")
+    try:
+        denoiser = Denoiser(args.config, args.ckpt, max_len=args.max_len,
+                            top_p=args.top_p, bf16=args.bf16,
+                            k_prefilter=args.k_prefilter, tp=args.tp,
+                            fuse_qkv=not args.no_fuse_qkv,
+                            batch_window_ms=args.batch_window,
+                            max_batch=args.max_batch, device=device, mesh=mesh)
+        if denoiser.mesh is not None and denoiser.mesh.model_rank != 0:
+            # rank 0 drains its requests on SIGTERM/SIGINT, then releases us
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            denoiser.follow()
+        else:
+            serve(args, denoiser)
+    finally:
+        leave(mesh)
 
-    denoiser = Denoiser(args.config, args.ckpt, max_len=args.max_len,
-                        top_p=args.top_p, bf16=args.bf16,
-                        k_prefilter=args.k_prefilter,
-                        fuse_qkv=not args.no_fuse_qkv,
-                        batch_window_ms=args.batch_window,
-                        max_batch=args.max_batch, device=args.device)
+
+def serve(args, denoiser: Denoiser) -> None:
+    """Serve HTTP until SIGTERM or SIGINT, then drain the accepted requests
+    (and release the other tensor-parallel ranks)."""
     server = DenoiseHTTPServer(("0.0.0.0", args.port),
                                make_handler(denoiser, args.log))
 
@@ -342,6 +414,7 @@ def main(argv=None):
           f"(backlog {server.request_queue_size})", flush=True)
     server.serve_forever()
     server.server_close()
+    denoiser.stop()
     print("[denoise-server] drained, exiting", flush=True)
 
 

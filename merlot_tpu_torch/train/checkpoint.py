@@ -28,6 +28,10 @@ and a source (a checkpoint directory or a flax-path ``.npz``), with a shape
 check, like the reference's name-intersection warm start
 (utils/model_utils.py:388-413). Nothing is ever deleted
 (``keep_checkpoint_max=None``).
+
+A checkpoint always holds whole leaves. Under tensor parallelism (a
+``mesh`` with a model axis) ``load_checkpoint`` and ``warm_start`` cut each
+to this model rank's slice (``Mesh.local_slice``) before they load it.
 """
 
 from __future__ import annotations
@@ -122,13 +126,14 @@ def load_params(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any]) -> None:
+def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any],
+                    mesh=None) -> None:
     """Restore a checkpoint directory into ``model``'s parameters and the
     AdamW state ``opt_state`` (whose tensors keep their dtype and device),
-    in place."""
+    in place; with ``mesh``, this model rank's slices of them."""
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
-    load_flax_params(model, load_params(path))
+    load_flax_params(model, load_params(path), mesh)
     with np.load(os.path.join(path, OPT_FILE)) as z:
         for g in ("m", "v"):
             stored = meta["dtypes"][g]
@@ -140,6 +145,8 @@ def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any]) -> N
                 src = torch.from_numpy(arr)
                 if stored == "bfloat16":
                     src = src.view(torch.int16).view(torch.bfloat16)
+                if mesh is not None:
+                    src = mesh.local_slice(n, src)
                 if src.shape != t.shape or src.dtype != t.dtype:
                     raise ValueError(f"{key}: {tuple(src.shape)} {src.dtype} in the "
                                      f"checkpoint, {tuple(t.shape)} {t.dtype} in the state")
@@ -162,8 +169,9 @@ class CheckpointManager:
              opt_state: Dict[str, Any]) -> None:
         save_checkpoint(self.path(step), params, opt_state)
 
-    def restore(self, step: int, model: nn.Module, opt_state: Dict[str, Any]) -> None:
-        load_checkpoint(self.path(step), model, opt_state)
+    def restore(self, step: int, model: nn.Module, opt_state: Dict[str, Any],
+                mesh=None) -> None:
+        load_checkpoint(self.path(step), model, opt_state, mesh)
 
     def all_steps(self) -> List[int]:
         steps = []
@@ -180,12 +188,13 @@ class CheckpointManager:
 
 def warm_start(model: nn.Module, source: Union[str, Mapping[str, np.ndarray]],
                name_transform: Optional[Callable[[str], str]] = None,
-               verbose: bool = True) -> List[str]:
+               verbose: bool = True, mesh=None) -> List[str]:
     """Graft every parameter whose flax path is in both ``model`` and
     ``source`` (a checkpoint directory, a flax-path ``.npz`` file, or such
-    a mapping), in place. Shape mismatches are skipped with a warning, as
-    the TF1 warm start loads whatever intersects. Returns the flax paths
-    that were initialized."""
+    a mapping), in place; with ``mesh``, this model rank's slice of each
+    whole leaf. Shape mismatches are skipped with a warning, as the TF1
+    warm start loads whatever intersects. Returns the flax paths that were
+    initialized."""
     if isinstance(source, str):
         if os.path.isdir(source):
             source = load_params(source)
@@ -201,7 +210,12 @@ def warm_start(model: nn.Module, source: Union[str, Mapping[str, np.ndarray]],
         if np.ndim(leaf) != target[path].dim():
             tensor = None
         else:
-            (tensor,) = params_from_flax({path: leaf}).values()
+            ((name, tensor),) = params_from_flax({path: leaf}).items()
+            if mesh is not None:
+                try:
+                    tensor = mesh.local_slice(name, tensor)
+                except ValueError:  # does not cut: a leaf of another shape
+                    tensor = None
         if tensor is None or tuple(tensor.shape) != tuple(target[path].shape):
             if verbose:
                 print(f"warm_start: shape mismatch at {path}: {np.shape(leaf)} vs "

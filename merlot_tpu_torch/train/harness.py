@@ -23,6 +23,14 @@ slices gathered from the ranks) in the one format, and a restore cuts them
 to this rank's slices: a checkpoint written at one world size restores at
 another, with or without ZeRO-1. ``evaluate`` gives the means of the global
 batches' metrics, as one process on the concatenated batches does.
+
+Tensor parallelism (a mesh with a model axis): ``init_state`` initialises
+the whole model from the seed and cuts it (``shard_params``), so a run at
+any model size starts from the weights of a one-process run; a checkpoint
+holds whole leaves, gathered over the model group (and over the data group
+for ZeRO-1's moments), in the same format, and a restore or a warm start
+cuts them again: a checkpoint written at any (data, model) restores at any
+other. Global rank 0 writes.
 """
 
 from __future__ import annotations
@@ -58,7 +66,9 @@ class Trainer:
         # (parallel.mesh.zero1_axes); needs a mesh, as in the JAX Trainer
         self.zero1 = zero1 and mesh is not None
         self.opt_mesh = mesh if self.zero1 else None
-        self.is_chief = mesh is None or mesh.rank == 0
+        # the model axis the parameters are cut over, if any
+        self.tp = mesh if mesh is not None and mesh.model > 1 else None
+        self.is_chief = mesh is None or mesh.is_chief
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
         self.ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"))
@@ -77,12 +87,12 @@ class Trainer:
         (+ a warm start from ``init_checkpoint``, a checkpoint directory or
         a flax-path .npz). Returns the optimizer state."""
         opt_state = init_train_state(self.model, self.optimizer, seed=self.seed,
-                                     mesh=self.opt_mesh)
+                                     mesh=self.opt_mesh, tp=self.tp)
         if self.ckpt.latest_step() is not None:
             opt_state = self.resume_or(opt_state)
         elif init_checkpoint:
             print(f"warm starting from {init_checkpoint}")
-            warm_start(self.model, init_checkpoint)
+            warm_start(self.model, init_checkpoint, mesh=self.tp)
         return opt_state
 
     def resume_or(self, opt_state: Dict[str, Any]) -> Dict[str, Any]:
@@ -97,7 +107,7 @@ class Trainer:
         print(f"restoring checkpoint at step {latest}")
         params = dict(self.model.named_parameters())
         whole = self.optimizer.init(params) if self.zero1 else opt_state
-        self.ckpt.restore(latest, self.model, whole)
+        self.ckpt.restore(latest, self.model, whole, mesh=self.tp)
         return self.optimizer.shard_state(whole, params, self.opt_mesh)
 
     def save(self, step: int, opt_state: Dict[str, Any]) -> None:
@@ -105,6 +115,10 @@ class Trainer:
         every rank gathers, rank 0 writes, all meet after the write."""
         params = dict(self.model.named_parameters())
         whole = self.optimizer.full_state(opt_state, params, self.opt_mesh)
+        if self.tp is not None:  # whole leaves from the model ranks' slices
+            params = self.tp.gather_model(params)
+            whole = {"step": whole["step"],
+                     **{g: self.tp.gather_model(whole[g]) for g in ("m", "v")}}
         if self.is_chief:
             self.ckpt.save(step, params, whole)
         if self.mesh is not None:

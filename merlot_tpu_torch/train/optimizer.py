@@ -28,6 +28,15 @@ parameter's slices from the ranks. The other parameters update whole on
 every rank. Every element gets the arithmetic of the unsharded update.
 ``full_state`` gathers a sharded state into whole moments (what a
 checkpoint holds) and ``shard_state`` cuts whole moments to this rank's.
+
+Tensor parallelism (``tp``, a mesh with a model axis, given to
+``update``): the parameters, gradients and moments are this model rank's
+slices (``parallel.mesh.shard_params``), and each element is updated as a
+whole one would be. The global-norm clip and the ``gradnorms/*`` and
+``weight_decay_loss`` metrics count each cut leaf's squares summed over
+the model group and each replicated leaf's once (every model rank holds
+the same copy of it). ZeRO-1 then splits this model rank's slice over the
+data group.
 """
 
 from __future__ import annotations
@@ -36,12 +45,12 @@ import dataclasses
 import math
 import re
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from merlot_tpu_torch.convert import flax_path
-from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, zero1_axes
+from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, tp_layout, zero1_axes
 
 MISSING_PRECISION = 1.00390625  # 1 + 2^-8
 GRADNORM_DEPTH = 2  # ``verbose`` groups grad norms by this many path levels
@@ -97,6 +106,19 @@ def _path_key(name: str) -> Tuple[str, ...]:
     """The order the JAX package visits leaves in (sorted dict keys, level
     by level)."""
     return tuple(flax_path(name).split("/"))
+
+
+def _tp_totals(groups: Sequence[Sequence[str]], sq: Mapping[str, torch.Tensor],
+               params: Mapping[str, torch.Tensor], tp: Mesh) -> List[torch.Tensor]:
+    """For each group of parameter names, the sum of ``sq`` over the whole
+    leaves: the cut leaves' parts summed over the model group (one
+    all-reduce for every group), the replicated leaves' counted once."""
+    cut = {n for g in groups for n in g if tp_layout(n, params[n].dim()) is not None}
+    zero = next(iter(sq.values())).new_zeros(())
+    part = tp.model_all_reduce(torch.stack([sum((sq[n] for n in g if n in cut), zero)
+                                            for g in groups]))
+    return [part[i] + sum((sq[n] for n in g if n not in cut), zero)
+            for i, g in enumerate(groups)]
 
 
 class MerlotAdamW:
@@ -196,11 +218,13 @@ class MerlotAdamW:
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                params: Mapping[str, torch.Tensor],
-               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+               mesh: Optional[Mesh] = None, tp: Optional[Mesh] = None) -> Dict[str, Any]:
         """One step: writes the new params and state in place and returns
         the metrics. Frozen params (lr == 0) and their state are left as
         they are. ``mesh``: the state is ZeRO-1's (``init(params, mesh)``)
-        and ``grads`` are the whole gradients, the same on every rank."""
+        and ``grads`` are the whole gradients (of this model rank's
+        slices), the same on every data index. ``tp``: the parameters are
+        cut over its model axis (the module docstring)."""
         c = self.cfg
         plan = self._params_plan(tuple(params))
         axes = self.zero1_axes(params, mesh) if mesh is not None else {}
@@ -209,7 +233,12 @@ class MerlotAdamW:
         scale = self.lr_scale(step)
 
         # global-norm clip
-        global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
+        if tp is None:
+            global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
+        else:
+            (sq,) = _tp_totals([names], {n: grads[n].float().square().sum() for n in names},
+                               params, tp)
+            global_norm = torch.sqrt(sq)
         g_all = {n: grads[n] for n in names}
         if c.clip_norm > 0.0:
             clip = torch.clamp(c.clip_norm / torch.clamp(global_norm, min=1e-12), max=1.0)
@@ -222,11 +251,23 @@ class MerlotAdamW:
             # of the parameters before this step
             groups: Dict[str, Any] = {}
             wd_loss = 0.0
-            for n, path, hp in plan:
-                scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
-                groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
-                wd = hp["weight_decay_rate"]
-                wd_loss = wd_loss + wd * 0.5 * params[n].float().square().sum()
+            if tp is None:
+                for n, path, hp in plan:
+                    scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
+                    groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
+                    wd = hp["weight_decay_rate"]
+                    wd_loss = wd_loss + wd * 0.5 * params[n].float().square().sum()
+            else:
+                scopes: Dict[str, List[str]] = {}
+                for n, path, _ in plan:
+                    scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]), []).append(n)
+                sq = _tp_totals(list(scopes.values()),
+                                {n: g_all[n].float().square().sum() for n in names},
+                                params, tp)
+                groups = dict(zip(scopes, sq))
+                (wd_loss,) = _tp_totals(
+                    [names], {n: hp["weight_decay_rate"] * 0.5 * params[n].float().square().sum()
+                              for n, _, hp in plan}, params, tp)
             for scope, sq in groups.items():
                 metrics[f"gradnorms/{scope}"] = torch.sqrt(sq)
             metrics["weight_decay_loss"] = wd_loss

@@ -19,16 +19,28 @@ seen (the JAX package restarts the stream).
 
 Launched as N ranks (torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
 and MASTER_PORT), the CLI joins the process group (NCCL, one card per rank;
-gloo with ``--device cpu``) and trains data-parallel on its mesh, as the
-JAX CLI does over its devices: each rank's loader reads its own slice of
-the files (``host_id=rank, num_hosts=N``) at ``train_batch_size // N``
-examples a batch, the global batch being the ranks' batches in rank
-order; ``device.use_zero1`` splits the Adam moments over the ranks
-(ZeRO-1); rank 0 writes the metrics and checkpoints. The evaluation reads
-the whole validation stream on every rank and keeps its rows of each
-batch. Without those variables the run is one process, as before
-(``use_zero1`` then has nothing to split, as at data size 1 in JAX).
-``model_parallelism > 1`` (tensor parallelism) is not ported yet.
+gloo with ``--device cpu``) and lays the ranks out as the JAX CLI's mesh,
+``make_mesh(data=N // M, model=M)`` with M = ``device.model_parallelism``:
+  * the data axis: each data index's loader reads its own slice of the
+    files (``host_id`` the data index, ``num_hosts`` the data size) at
+    ``train_batch_size // (N // M)`` examples a batch, the global batch
+    being the indices' batches in order; the M model ranks of one index
+    read the same rows;
+  * the model axis (tensor parallelism): the attention heads, the MLP's
+    hidden columns and MERLOT's vocabulary are cut over the M ranks
+    (``parallel.mesh.shard_params``), after the seeded init of the whole
+    model. The JAX CLI cuts the parameters by these rules only with
+    ``use_zero1`` (``merlot_tpu/train/harness.py``); without it its model
+    axis holds replicas that compute the same function. Here they are cut
+    whenever M > 1: the numbers are the same;
+  * ``device.use_zero1`` splits the Adam moments of each model rank's
+    slices over the data axis (ZeRO-1);
+  * global rank 0 writes the metrics and checkpoints (whole leaves: a
+    checkpoint restores at any other (data, model)).
+The evaluation reads the whole validation stream on every rank and keeps
+its data index's rows of each batch. Without those variables the run is
+one process, as before (``use_zero1`` then has nothing to split, as at
+data size 1 in JAX; ``model_parallelism > 1`` raises).
 """
 
 from __future__ import annotations
@@ -41,8 +53,7 @@ from merlot_tpu_torch.core.config import NeatConfig
 from merlot_tpu_torch.data.pretrain_loader import PretrainLoader, device_iterator
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
-from merlot_tpu_torch.parallel.mesh import (Mesh, join_from_env, leave,
-                                            refuse_model_parallelism, shard_batch)
+from merlot_tpu_torch.parallel.mesh import Mesh, join_from_env, leave, shard_batch
 from merlot_tpu_torch.train.harness import Trainer
 from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
 from merlot_tpu_torch.train.train_step import _device
@@ -51,8 +62,9 @@ from merlot_tpu_torch.train.train_step import _device
 def build_pretrain_setup(config: NeatConfig, device="cuda", mesh: Optional[Mesh] = None):
     """(model, optimizer, loader) from a NeatConfig; the loader is None
     when data.train_file matches no file. With ``mesh`` the loader is this
-    rank's: its slice of the files, ``train_batch_size // N`` a batch."""
-    refuse_model_parallelism(config.device.get("model_parallelism", 1))
+    data index's: its slice of the files, ``train_batch_size // data`` a
+    batch. The model is whole: the Trainer's ``init_state`` cuts it over
+    the mesh's model axis."""
     model = MerlotPretrainModel(MerlotConfig.from_dict(config.model), device=_device(device))
     optimizer = MerlotAdamW(AdamWConfig.from_config(config.optimizer))
 

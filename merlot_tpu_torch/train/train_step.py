@@ -32,6 +32,16 @@ from the step's; so with dropout off a world-N step is a one-process step
 on the concatenated batch. At world size 1 the step draws as without a
 mesh. ``zero1=True`` keeps the optimizer state in ZeRO-1's slices
 (``MerlotAdamW.init(params, mesh)``).
+
+Tensor parallelism (a mesh with a model axis; the model cut by
+``parallel.mesh.shard_params``, as ``init_train_state`` does after the
+seeded init of the whole model): "rank" above means the data index, so the
+model ranks of one data index take the same rows, the same masking draws
+and the same dropout generator. The gradients and metrics are summed over
+the data group only: a cut leaf's gradient is this model rank's slice, and
+a replicated one's is the same on every model rank by construction (the
+model axis's collectives sit inside the forward and backward). The
+update's clip and norms count the cut leaves over the model group.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
 from merlot_tpu_torch.nn.layers import init_params
 from merlot_tpu_torch.ops.attention import training_backend
 from merlot_tpu_torch.ops.masking import masking_draws as draw_masking
-from merlot_tpu_torch.parallel.mesh import Mesh
+from merlot_tpu_torch.parallel.mesh import Mesh, shard_params
 from merlot_tpu_torch.train.optimizer import MerlotAdamW
 
 
@@ -126,19 +136,23 @@ def _apply_update(optimizer: MerlotAdamW, opt_state: Dict[str, Any],
         mesh.all_reduce_(list(grads.values()))
         loss, metrics = global_metrics(loss, metrics, mesh)
     opt_metrics = optimizer.update(grads, opt_state, params,
-                                   mesh=mesh if zero1 else None)
+                                   mesh=mesh if zero1 else None,
+                                   tp=mesh if mesh is not None and mesh.model > 1 else None)
     metrics.update(opt_metrics)
     metrics["loss"] = loss
     return metrics
 
 
 def init_train_state(model: MerlotPretrainModel, optimizer: MerlotAdamW,
-                     seed: int = 0, mesh: Optional[Mesh] = None) -> Dict[str, Any]:
-    """Initialise the model's parameters from ``seed`` (on the device they
-    live on; the same on every rank) and return a fresh optimizer state
-    (ZeRO-1's slices with ``mesh``)."""
+                     seed: int = 0, mesh: Optional[Mesh] = None,
+                     tp: Optional[Mesh] = None) -> Dict[str, Any]:
+    """Initialise the model's whole parameters from ``seed`` (on the device
+    they live on; the same on every rank), cut them over ``tp``'s model
+    axis (``shard_params``: a one-process run's weights, sliced), and
+    return a fresh optimizer state (ZeRO-1's slices with ``mesh``)."""
     dev = next(model.parameters()).device
     init_params(model, torch.Generator(device=dev).manual_seed(seed))
+    shard_params(model, tp)
     return optimizer.init(dict(model.named_parameters()), mesh)
 
 

@@ -82,6 +82,11 @@ CASES = [(dt, sm, *shape) for dt, sm in [
 # the config's fp32 softmax
 VCR_SHAPES = [(16, 1058, 1058, 12, 64, False, False), (64, 449, 449, 12, 64, True, False)]
 CASES += [(torch.bfloat16, True, *shape) for shape in VCR_SHAPES]
+# pretrain_4seg's towers at model=2 (tensor parallelism): 6 of 12 heads of
+# 64 per rank, the bf16 softmax; the lang tower collects the colsum
+TP_SHAPES = [(128, 266, 266, 6, 64, False, False), (32, 396, 396, 6, 64, True, False),
+             (8, 512, 512, 6, 64, True, True)]
+CASES += [(torch.bfloat16, False, *shape) for shape in TP_SHAPES]
 
 
 def _bf16_bound(ref):
@@ -355,6 +360,8 @@ STACKED_SHAPES = [  # b, sq, sk, h, d, shared mask
     (1, 17, 2048, 2, 128, False),
     (2, 1024, 1537, 16, 64, True),   # Grover's prefill at the server's max_len
     (1, 65, 63, 2, 16, False),       # one row and one key past a tile
+    (8, 1, 1537, 8, 64, True),       # grover-medium at model=2: 8 of 16 heads
+    (8, 1024, 1537, 8, 64, True),
 ]
 STACKED_CASES = [(dt, sm, *shape) for dt, sm in [
     (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
@@ -579,6 +586,8 @@ LN_SHAPES = [  # m, k, n, j
     (127, 1024, 768, 3),             # K = 1024: 64 rows per block
     (300, 832, 200, 2),
     (129, 64, 3072, 1),              # one k block
+    (12672, 768, 384, 3),            # the joint tower at model=2: q|k|v N 1152
+    (12672, 768, 1536, 1),           # and its MLP's half of 3072 columns
 ]
 
 

@@ -791,10 +791,14 @@ def test_cuda_rank_without_a_card_raises(monkeypatch):
 
 
 def test_model_parallelism_raises_naming_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    """A model axis needs ranks: one process without torchrun refuses it,
+    as do the entry points whose JAX twins have none (VCR, zero-shot)."""
+    with pytest.raises(RuntimeError, match="process group"):
         pm.make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="tensor parallelism"):
         pm.join_from_env("cpu", model=2)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        pm.refuse_model_axis(2, "VCR CLI", "merlot_tpu/downstream/vcr/train.py:42")
 
 
 if __name__ == "__main__":
