@@ -207,6 +207,21 @@
    decode step per rank. Prints segments/s and decode tokens/s beside the
    one-process runs. The kernel phases also hold K1 and K2 at 6 heads, K3
    at 8 and K5 at this rank's columns against their plain versions.
+16. pipeline_parallel phase: the stage axis at pp=2 as two ranks that share
+   the card over gloo (PP_STAGES's comment): grover-medium at full width
+   and depth, fp32, 8 x 1536 in 8 microbatches of 1 row (96 K1 and 96 K2
+   per step per rank, the fp32 routes under the causal mask); with dropout
+   off PP_STEPS steps against one process at --pp 1 from the same seed
+   (each loss within GT_LOSS_RTOL, step 1's gathered gradients within
+   GT_GRAD_TOL, the Grover phase's bounds), a probe (the tied word_embed's
+   gradient not summed over the end stages) that must fail them; then
+   ``grover_train --pp 2`` as torchrun starts it (dropout on, 3 steps, a
+   checkpoint at 2), resumed from ckpt_2 to step 3 bit for bit, the
+   checkpoint in JAX's stages/ form [2, 12, ...], served by the Denoiser
+   through K3 against the trained ranks' forward. Prints tokens/s of the
+   slower rank beside one process, peak memory per rank, the hops' time
+   and the bubble's share. The kernel phases hold K1 and K2 at the
+   microbatch's shape (1 x 1536, 16 heads, fp32, causal).
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
@@ -699,6 +714,35 @@ TP_GROVER_ROWS, TP_GROVER_PREFIX, TP_GROVER_DECODE = 8, 512, 16
 TP_GROVER_CHECKED = 4
 TP_FP32_LOGIT_TOL = 1e-3
 TP_TIMEOUT_S = 600
+# the pipeline_parallel phase: the stage axis (parallel/pipeline.py, pp=2) as
+# two ranks that share the one card over gloo, chosen by name (NCCL refuses
+# two ranks on one device; each hop moves through a pinned host buffer).
+# Not a reading of pipeline parallelism's speed on separate cards.
+#   * grover-medium uncut (configs/grover_medium.json: 24 x 1024 x 16 heads,
+#     fp32) at grover_train's defaults, 8 x 1536 in PP_MICROBATCHES = 4 pp
+#     microbatches of 1 row: 12 layers x 8 microbatches = 96 K1 and 96 K2
+#     per step per rank;
+#   * with hidden_dropout_prob 0.1 -> 0 (the compared runs draw nothing),
+#     PP_STEPS steps (warmup 0, so step 2 sees step 1's update) against the
+#     same steps of one process at --pp 1 from seed 0: each loss within
+#     GT_LOSS_RTOL relative and step 1's gradients gathered over the stage
+#     group onto stage 0 within GT_GRAD_TOL (grad_gap), the Grover phase's bounds. The
+#     probe: the same step's gradients with the tied word_embed's left
+#     unsummed over the end stages (stage 0's lookup part alone), which
+#     must fail the gradient bound;
+#   * the CLI as torchrun starts it (RANK, WORLD_SIZE, LOCAL_RANK 0, MASTER_*
+#     set; --dist_backend gloo), the config as it is (dropout on), --pp 2,
+#     PP_CLI_STEPS steps with a checkpoint at PP_CLI_CKPT_EVERY; the
+#     straight run's ckpt_2 resumed in a fresh directory must give step 3's
+#     loss bit for bit; the checkpoint's stages/ leaves [2, 12, ...]; the
+#     Denoiser serving it (K3 prefill, GT_ROUNDTRIP rows x tokens) within
+#     GT_ROUNDTRIP_TOL of the trained ranks' own pipeline forward (K1).
+PP_STAGES = 2
+PP_MICROBATCHES = 4 * PP_STAGES
+PP_STEPS = 2
+PP_CLI_STEPS, PP_CLI_CKPT_EVERY = 3, 2
+PP_LAUNCHES_PER_STEP = 24 // PP_STAGES * PP_MICROBATCHES
+PP_TIMEOUT_S = 420
 # the kernels at the model axis's shapes: K1 and K2 at the pretrain towers'
 # 6 of 12 heads (the first 6 heads of the pretrain rows' inputs: what model
 # rank 0 computes on), K3 at grover-medium's 8 of 16 (the server's decode and
@@ -709,6 +753,10 @@ TP_ATTN_SHAPES = [
     ("tp_pretrain_joint", 32, 396, True, False, False, 6, "bf16"),
     ("tp_pretrain_lang", 8, 512, True, True, False, 6, "bf16"),
 ]
+# the pipeline_parallel phase's microbatch: one row of grover_train's 8 x
+# 1536 at M = 8 microbatches, 16 heads, fp32, causal (K1's and K2's fp32
+# routes)
+PP_ATTN_SHAPES = [("pp_grover_mb1", 1, 1536, "causal", False, True, 16, "fp32")]
 TP_STACKED_SHAPES = [
     ("tp_decode_b8_bf16", 8, 1, 1537, 1100, "bf16", 8),
     ("tp_decode_b8_fp32", 8, 1, 1537, 1100, "fp32", 8),
@@ -1035,7 +1083,8 @@ def kernel_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(0)
     rows, drawn = [], {}
-    for spec in ATTN_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES:
+    for spec in (ATTN_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES
+                 + PP_ATTN_SHAPES):
         row = kernel_shape(dev, g, spec, drawn)
         if not spec[0].startswith("pretrain"):  # kept for the tensor-parallel rows
             drawn.pop(spec[0], None)
@@ -1168,7 +1217,8 @@ def bwd_kernel_phase(dev) -> list[dict]:
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows, drawn = [], {}
-    for spec in BWD_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES:
+    for spec in (BWD_SHAPES + GROVER_TRAIN_SHAPES + FP32_PROBE_SHAPES + TP_ATTN_SHAPES
+                 + PP_ATTN_SHAPES):
         row = bwd_kernel_shape(dev, g, spec, drawn)
         if not spec[0].startswith("pretrain"):  # kept for the tensor-parallel rows
             drawn.pop(spec[0], None)
@@ -3453,7 +3503,8 @@ def cli_phase(dev, tmp: Path) -> dict:
     # the kernels' counters per step and torch.profiler over one step
     resume_from = CLI_CKPT_EVERY
     (tmp / "b" / "checkpoints").mkdir(parents=True)
-    shutil.copytree(a_ckpt.path(resume_from), tmp / "b" / "checkpoints" / f"ckpt_{resume_from}")
+    shutil.copytree(a_ckpt.path(resume_from), tmp / "b" / "checkpoints" / f"ckpt_{resume_from}",
+                    copy_function=os.link)  # hard links: no file is rewritten
     per_step, windows, ckpt_s = [], [], []
     counting = counting_steps(per_step, windows)
 
@@ -3922,7 +3973,8 @@ def vcr_phase(dev, tmp: Path) -> dict:
 
     # run B: A's ckpt_4 in a fresh output directory, in this process
     (d / "b" / "checkpoints").mkdir(parents=True)
-    shutil.copytree(a_ckpt.path(VCR_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{VCR_CKPT_EVERY}")
+    shutil.copytree(a_ckpt.path(VCR_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{VCR_CKPT_EVERY}",
+                    copy_function=os.link)  # hard links: no file is rewritten
     per_step, windows = [], []
     gc.collect()
     torch.cuda.empty_cache()
@@ -4257,7 +4309,8 @@ def grover_train_phase(dev, tmp: Path, old=None) -> dict:
 
     # run B: A's ckpt_4 in a fresh output directory, in this process
     (d / "b" / "checkpoints").mkdir(parents=True)
-    shutil.copytree(a_ckpt.path(GT_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{GT_CKPT_EVERY}")
+    shutil.copytree(a_ckpt.path(GT_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{GT_CKPT_EVERY}",
+                    copy_function=os.link)  # hard links: no file is rewritten
     per_step, windows = [], []
     gc.collect()
     torch.cuda.empty_cache()
@@ -5156,6 +5209,407 @@ def tensor_parallel_phase(dev) -> dict:
     return result
 
 
+def pp_config():
+    """grover-medium as configs/grover_medium.json gives it, and with the
+    hidden dropout off (the compared steps)."""
+    import dataclasses
+    from merlot_tpu_torch.models.grover import GroverConfig
+    cfg = GroverConfig.from_json_file(str(ROOT / "configs" / "grover_medium.json"))
+    return cfg, dataclasses.replace(cfg, hidden_dropout_prob=0.0)
+
+
+def pp_batches(d: Path) -> list:
+    """The compared steps' batches: the first PP_STEPS of the phase's shards."""
+    import itertools
+    from merlot_tpu_torch.tools.grover_data import lm_batches
+    files = sorted(str(p) for p in (d / "shards").glob("lm-*.tfrecord"))
+    return list(itertools.islice(lm_batches(files, GT_SEQ, GT_BATCH), PP_STEPS))
+
+
+def pp_reference(dev, d: Path) -> dict:
+    """PP_STEPS steps of one process at --pp 1 (grover_train's loss and
+    AdamW block, warmup 0, dropout off) from seed 0: losses, seconds, and
+    step 1's gradients saved under ``d`` for the ranks."""
+    import gc
+    import torch
+    from merlot_tpu_torch.models.grover import GroverLM
+    from merlot_tpu_torch.tools import grover_train
+    from merlot_tpu_torch.train.train_step import (init_train_state, make_loss_train_step,
+                                                   step_generator)
+
+    _, cfg0 = pp_config()
+    model = GroverLM(cfg0, device=dev)
+    opt = grover_train.grover_optimizer(1e-5, 80000, 0)
+    state = init_train_state(model, opt, seed=0)
+    step = make_loss_train_step(grover_train.make_grover_loss(cfg0, 4.0), opt, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "seconds": []}
+    for i, batch in enumerate(pp_batches(d)):
+        t0 = time.perf_counter()
+        metrics = step(model, state, {k: torch.from_numpy(v) for k, v in batch.items()},
+                       step_generator(0, i, dev))
+        out["losses"].append(metrics["loss"].item())
+        out["seconds"].append(time.perf_counter() - t0)
+        if i == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                       d / "pp_ref_grads.pt")
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["tokens_per_s"] = GT_BATCH * GT_SEQ / out["seconds"][-1]
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_whole_names(stacked: dict, per: int) -> dict:
+    """Gathered stage tensors (``stages.<leaf>`` [pp, L/pp, ...]) -> GroverLM
+    names (``layer{i:02d}.<leaf>``); the replicated ones as they are."""
+    out = {}
+    for n, t in stacked.items():
+        if not n.startswith("stages."):
+            out[n] = t
+            continue
+        flat = t.reshape((-1,) + tuple(t.shape[2:]))
+        for i in range(flat.shape[0]):
+            out[f"layer{i:02d}.{n[len('stages.'):]}"] = flat[i]
+    return out
+
+
+def pp_steps(dev, d: Path, mesh) -> dict:
+    """This rank's PP_STEPS compared steps (the phase's comment): losses,
+    seconds, K1/K2 launches and hop seconds and bytes per step; on the
+    chief, step 1's gathered gradients and the probe's against one
+    process."""
+    import gc
+    import torch
+    from merlot_tpu_torch.models.grover import GroverStage
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.parallel import mesh as pm
+    from merlot_tpu_torch.tools import grover_train
+    from merlot_tpu_torch.train.train_step import (init_train_state,
+                                                   make_pipeline_loss_train_step,
+                                                   step_generator)
+
+    _, cfg0 = pp_config()
+    stage = GroverStage(cfg0, mesh.stage, mesh.stage_rank, device=dev)
+    opt = grover_train.grover_optimizer(1e-5, 80000, 0)
+    state = init_train_state(stage, opt, seed=0)
+    loss_fn = grover_train.make_grover_pipeline_loss(cfg0, 4.0, mesh, PP_MICROBATCHES)
+    pipes, unsummed = [], []
+
+    def kept(stage_, batch, gen):
+        loss, metrics, pipe = loss_fn(stage_, batch, gen)
+        pipes.append(pipe)
+        return loss, metrics, pipe
+
+    def keep_unsummed(real):
+        def summed(m, grads):
+            if not unsummed:  # the probe's word_embed gradient: this stage's part
+                unsummed.append(stage.word_embed.grad.detach().clone())
+            return real(m, grads)
+        return summed
+
+    step = make_pipeline_loss_train_step(kept, opt, mesh=mesh, device=dev)
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in pp_batches(d)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "seconds": [], "launches_per_step": [], "hop_seconds": [],
+           "hop_copy_seconds": [], "hop_bytes": []}
+    # the main path: counts set to 0 just before, read just after
+    ca.launches = ca.bwd_launches = 0
+    for i, batch in enumerate(batches):
+        before = (ca.launches, ca.bwd_launches)
+        torch.cuda.synchronize()
+        mesh.barrier()  # both stages start the timed step together
+        t0 = time.perf_counter()
+        with wrapped(pm.Mesh, "stage_all_reduce_", keep_unsummed):
+            metrics = step(stage, state, batch, step_generator(0, i, dev))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["launches_per_step"].append((ca.launches - before[0], ca.bwd_launches - before[1]))
+        out["losses"].append(metrics["loss"].item())
+        hops = pipes[-1].hops
+        out["hop_seconds"].append(hops.seconds)
+        out["hop_copy_seconds"].append(hops.copy_seconds)
+        out["hop_bytes"].append(hops.bytes)
+        if i:
+            continue
+        grads = mesh.gather_stages({n: p.grad.detach() for n, p in stage.named_parameters()})
+        if mesh.is_chief:
+            ref = {n: g.to(dev) for n, g in torch.load(d / "pp_ref_grads.pt").items()}
+            per = cfg0.num_hidden_layers // mesh.stage
+            whole = pp_whole_names(grads, per)
+            out["grad_gap"] = grad_gap(whole, ref)
+            whole["word_embed"] = unsummed[0]
+            out["probe_grad_gap"] = grad_gap(whole, ref)
+            out["probe_word_embed_rel"] = ((unsummed[0] - ref["word_embed"]).abs().max()
+                                           / ref["word_embed"].abs().max()).item()
+            del ref, whole
+        del grads
+    out["launches"] = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["tokens_per_s"] = GT_BATCH * GT_SEQ / out["seconds"][-1]
+    del stage, state, step, pipes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_cli(rank: int, d: Path, out_dir: Path, port: int) -> dict:
+    """grover_train --pp 2 as torchrun starts this rank (LOCAL_RANK 0: the
+    ranks share the card over gloo)."""
+    from merlot_tpu_torch.tools import grover_train
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PP_STAGES), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        return grover_train.main([
+            "--config", str(ROOT / "configs" / "grover_medium.json"),
+            "--train_files", f"{d}/shards/lm-*.tfrecord", "--output_dir", str(out_dir),
+            "--seq_length", str(GT_SEQ), "--batch_size", str(GT_BATCH),
+            "--num_train_steps", str(PP_CLI_STEPS), "--num_warmup_steps", "2",
+            "--checkpoint_every", str(PP_CLI_CKPT_EVERY), "--log_every", "1",
+            "--pp", str(PP_STAGES), "--dist_backend", "gloo"])
+    finally:  # LOCAL_RANK stays 0: the phase set it for both ranks
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+
+def pp_child(rank: int, ports: str, d: str) -> int:
+    """One rank of the pipeline_parallel phase: two ranks on cuda:0 over gloo
+    (LOCAL_RANK 0 for both); the compared steps, the CLI run and its resume,
+    then the trained ranks' forward and (the last stage) the Denoiser on the
+    checkpoint. Writes its record under ``d``."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from merlot_tpu_torch.models.grover import grover_pipeline_forward
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.parallel import mesh as pm
+    from merlot_tpu_torch.tools.denoise_server import Denoiser
+
+    import faulthandler
+    d = Path(d)
+    ports = [int(p) for p in ports.split(",")]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # a rank that hangs prints every thread's stack before the phase kills it
+    faulthandler.dump_traceback_later(PP_TIMEOUT_S - 60, exit=False)
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"[pp-child {rank}] {time.perf_counter() - t_start:.1f}s {what}", flush=True)
+
+    dev = pm.init_multihost(init_method=f"tcp://127.0.0.1:{ports[0]}", world_size=PP_STAGES,
+                            rank=rank, device="cuda", backend="gloo")
+    mesh = pm.make_mesh(stage=PP_STAGES)
+    out = {"rank": rank, "device": str(dev), "backend": mesh.backend,
+           "stage": mesh.stage, "stage_rank": mesh.stage_rank,
+           "steps": pp_steps(dev, d, mesh)}
+    pm.leave(mesh)
+    out["steps_done_s"] = time.perf_counter() - t_start
+    mark(f"compared steps done: {out['steps']['seconds']} s a step")
+
+    # the CLI, on the main path too: counts set to 0 just before
+    ca.launches = ca.bwd_launches = 0
+    t0 = time.perf_counter()
+    run = pp_cli(rank, d, d / "cli_a", ports[1])
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli_a_s"] = time.perf_counter() - t0
+    mark("CLI run A done")
+    if rank == 0:  # the straight run's ckpt_2 in a fresh directory (the other
+        # rank waits in the CLI's rendezvous); hard links: no file is rewritten
+        shutil.copytree(d / "cli_a" / "checkpoints" / f"ckpt_{PP_CLI_CKPT_EVERY}",
+                        d / "cli_b" / "checkpoints" / f"ckpt_{PP_CLI_CKPT_EVERY}",
+                        copy_function=os.link)
+    t0 = time.perf_counter()
+    trained = pp_cli(rank, d, d / "cli_b", ports[2])["trainer"].model.eval()
+    out["cli_b_s"] = time.perf_counter() - t0
+    out["cli_launches"] = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    mark("CLI run B (resumed) done")
+
+    # the trained ranks' forward (K1) and the Denoiser on the checkpoint (K3)
+    dev = pm.init_multihost(init_method=f"tcp://127.0.0.1:{ports[3]}", world_size=PP_STAGES,
+                            rank=rank, device="cuda", backend="gloo")
+    mesh = pm.make_mesh(stage=PP_STAGES)
+    rows, tokens = GT_ROUNDTRIP
+    first = pp_batches(d)[0]
+    ctx = torch.from_numpy(first["input_ids"][:rows, :tokens]).long().to(dev)
+    ca.launches = 0
+    with torch.no_grad():
+        want, _ = grover_pipeline_forward(trained, ctx, mesh=mesh, num_microbatches=rows)
+    torch.cuda.synchronize()
+    out["forward_launches"] = ca.launches
+    mark("the trained forward done")
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.is_last_stage:
+        ckpt = d / "cli_b" / "checkpoints" / f"ckpt_{PP_CLI_STEPS}"
+        with np.load(ckpt / "params.npz") as z:
+            out["ckpt_stage_shapes"] = {k: list(z[k].shape) for k in z.files
+                                        if k.startswith("stages/")}
+        den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), str(ckpt / "params.npz"),
+                       batch_window_ms=0, device=dev)
+        ca.stacked_launches = 0
+        with torch.no_grad():
+            served, _ = den.model(ctx, cache=den.model.empty_cache(rows, tokens))
+        torch.cuda.synchronize()
+        out["roundtrip"] = {"rows": rows, "tokens": tokens,
+                            "max_abs_diff": (served - want).abs().max().item(),
+                            "launches": {"attention_stacked": ca.stacked_launches}}
+        del den, served
+        mark("the Denoiser done")
+    pm.leave(mesh)
+    faulthandler.cancel_dump_traceback_later()
+    out["seconds"] = time.perf_counter() - t_start
+    (d / f"pp_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def pipeline_parallel_phase(dev) -> dict:
+    """The stage axis at pp=2 as two ranks sharing the card over gloo
+    (PP_STAGES's comment): the shards and the one-process reference in this
+    process, then the ranks."""
+    import socket
+    import torch
+    from merlot_tpu_torch.tools.grover_data import write_lm_shard
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "shards").mkdir()
+        rows, targets = grover_lm_rows(12)
+        for i in range(2):
+            write_lm_shard(str(d / "shards" / f"lm-{i:02d}.tfrecord"), rows[i::2], GT_SEQ,
+                           is_target=targets[i::2])
+        ref = pp_reference(dev, d)
+        print(f"[pipeline-parallel] the one-process reference: {json.dumps(ref)}; "
+              f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+        ports = []
+        for _ in range(4):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                ports.append(str(sock.getsockname()[1]))
+        env = dict(os.environ, LOCAL_RANK="0", PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                           if p]))
+        procs = []
+        for r in range(PP_STAGES):
+            with open(d / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--pp-child", str(r),
+                     "--pp-ports", ",".join(ports), "--pp-dir", str(d)], cwd=ROOT, env=env,
+                    stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, PP_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r in range(PP_STAGES):
+            text = (d / f"rank{r}.log").read_text()
+            print(f"[pipeline-parallel] rank {r} output (last 6000 characters):\n"
+                  f"{text[-6000:]}", flush=True)
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"pipeline-parallel rank {r} exited {p.returncode}")
+        ranks = [json.loads((d / f"pp_rank{r}.json").read_text()) for r in range(PP_STAGES)]
+        a_train = {x["step"]: x for x in jsonl(d / "cli_a" / "train_metrics.jsonl")}
+        b_train = {x["step"]: x for x in jsonl(d / "cli_b" / "train_metrics.jsonl")}
+    chief, last = ranks[0], ranks[-1]
+    st = chief["steps"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(st["losses"], ref["losses"])]
+    slower = max(r["steps"]["seconds"][-1] for r in ranks)
+    bubble = (PP_STAGES - 1) / (PP_MICROBATCHES + PP_STAGES - 1)
+    result = {
+        "card": card, "backend": chief["backend"], "stages": PP_STAGES,
+        "microbatches": PP_MICROBATCHES,
+        "note": "two ranks sharing one card over gloo (hops through pinned host "
+                "memory): not a reading of pipeline parallelism's speed on separate cards",
+        "reduced": [{"key": "hidden_dropout_prob (compared steps)", "default": 0.1, "run": 0.0},
+                    {"key": "num_warmup_steps (compared steps)", "default": 1000, "run": 0},
+                    {"key": "num_train_steps", "default": 80000,
+                     "run": f"{PP_STEPS} compared, {PP_CLI_STEPS} CLI"},
+                    {"key": "num_warmup_steps (CLI)", "default": 1000, "run": 2},
+                    {"key": "checkpoint_every", "default": 5000, "run": PP_CLI_CKPT_EVERY}],
+        "model_1": ref, "ranks": [r["steps"] for r in ranks],
+        "loss_rel_diff": loss_rel, "grad_gap": st["grad_gap"],
+        "probe_grad_gap": st["probe_grad_gap"],
+        "probe_word_embed_rel": st["probe_word_embed_rel"],
+        "tokens_per_s_slower_rank": GT_BATCH * GT_SEQ / slower,
+        "tokens_per_s_one_process": ref["tokens_per_s"],
+        "peak_mem_gib_per_rank": [r["steps"]["peak_mem_gib"] for r in ranks],
+        "hop_seconds_per_step": [r["steps"]["hop_seconds"] for r in ranks],
+        "hop_bytes_per_step": [r["steps"]["hop_bytes"] for r in ranks],
+        "bubble_share": bubble,
+        "cli": {"a_losses": {s: a_train[s]["loss"] for s in sorted(a_train)},
+                "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
+                "seconds": [[r["cli_a_s"], r["cli_b_s"]] for r in ranks],
+                "launches": [r["cli_launches"] for r in ranks]},
+        "ckpt_stage_shapes": last["ckpt_stage_shapes"], "roundtrip": last["roundtrip"],
+        "forward_launches": [r["forward_launches"] for r in ranks],
+        "rank_seconds": [r["seconds"] for r in ranks],
+        "launches": {"attention_fwd": sum(r["steps"]["launches"]["attention_fwd"]
+                                          + r["cli_launches"]["attention_fwd"]
+                                          + r["forward_launches"] for r in ranks),
+                     "attention_bwd": sum(r["steps"]["launches"]["attention_bwd"]
+                                          + r["cli_launches"]["attention_bwd"] for r in ranks),
+                     "attention_stacked": last["roundtrip"]["launches"]["attention_stacked"]},
+        "phase_seconds": time.perf_counter() - t_phase}
+    print(f"[pipeline-parallel] {json.dumps(result)}", flush=True)
+    print(f"[pipeline-parallel] {card}: pp=2, two ranks sharing the card over gloo: "
+          f"grover-medium {result['tokens_per_s_slower_rank']:.1f} tokens/s (the slower "
+          f"rank's step 2; one process: {ref['tokens_per_s']:.1f}), loss gaps {loss_rel}, "
+          f"grad gap {st['grad_gap']['max_rel']:.4g}, probe grad gap "
+          f"{st['probe_grad_gap']['max_rel']:.4g}; peak "
+          f"{result['peak_mem_gib_per_rank']} GiB per rank (one process "
+          f"{ref['peak_mem_gib']:.2f}); hops {result['hop_seconds_per_step']} s per step; "
+          f"bubble {bubble:.4f}; round trip {last['roundtrip']['max_abs_diff']:.3g}; "
+          f"{result['phase_seconds']:.1f} s", flush=True)
+    check(all(x <= GT_LOSS_RTOL for x in loss_rel),
+          f"pipeline-parallel losses vs one process: {loss_rel} > {GT_LOSS_RTOL}")
+    check(st["grad_gap"]["max_rel"] <= GT_GRAD_TOL,
+          f"pipeline-parallel step-1 grads vs one process: {st['grad_gap']} > {GT_GRAD_TOL}")
+    check(st["probe_grad_gap"]["max_rel"] > GT_GRAD_TOL,
+          f"the probe (word_embed's gradient not summed over the stages) passes the bound: "
+          f"{st['probe_grad_gap']}")
+    for r in ranks:
+        check(r["steps"]["launches_per_step"]
+              == [[PP_LAUNCHES_PER_STEP, PP_LAUNCHES_PER_STEP]] * PP_STEPS,
+              f"rank {r['rank']}: K1/K2 launches per step {r['steps']['launches_per_step']}, "
+              f"want {PP_LAUNCHES_PER_STEP} each")
+        check(r["cli_launches"] == {"attention_fwd": PP_LAUNCHES_PER_STEP * (PP_CLI_STEPS + 1),
+                                    "attention_bwd": PP_LAUNCHES_PER_STEP * (PP_CLI_STEPS + 1)},
+              f"rank {r['rank']}: the CLI runs' K1/K2 launches {r['cli_launches']}")
+        check(r["forward_launches"] == 24 // PP_STAGES * GT_ROUNDTRIP[0],
+              f"rank {r['rank']}: the trained forward's K1 launches {r['forward_launches']}")
+    check(sorted(a_train) == list(range(1, PP_CLI_STEPS + 1))
+          and sorted(b_train) == [PP_CLI_STEPS],
+          f"the CLI runs logged steps {sorted(a_train)} and {sorted(b_train)}")
+    for x in a_train.values():
+        bad = {k: v for k, v in x.items() if not math.isfinite(v)}
+        check(not bad, f"the --pp 2 CLI's step {x['step']}: non-finite metrics {bad}")
+    check(b_train[PP_CLI_STEPS]["loss"] == a_train[PP_CLI_STEPS]["loss"],
+          f"the resumed --pp 2 run's step {PP_CLI_STEPS} loss {b_train[PP_CLI_STEPS]['loss']} "
+          f"!= the straight run's {a_train[PP_CLI_STEPS]['loss']}")
+    shapes = last["ckpt_stage_shapes"]
+    check(bool(shapes) and all(v[:2] == [PP_STAGES, 24 // PP_STAGES] for v in shapes.values()),
+          f"the checkpoint's stages/ leaves {shapes}")
+    check(last["roundtrip"]["launches"] == {"attention_stacked": 24},
+          f"the round trip's K3 launches {last['roundtrip']['launches']}")
+    check(last["roundtrip"]["max_abs_diff"] <= GT_ROUNDTRIP_TOL,
+          f"the Denoiser's logits vs the trained ranks': {last['roundtrip']['max_abs_diff']} > "
+          f"{GT_ROUNDTRIP_TOL}")
+    return result
+
+
 def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict:
     """The plain version's, SDPA's and the bound's ms over a path's
     ``launches`` at each of ``shapes`` (per-call times of the kernel
@@ -5165,7 +5619,7 @@ def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -5187,7 +5641,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values())
         + gt["launches"]["attention_fwd"] + gt["roundtrip"]["launches"]["attention_fwd"]
         + sum(k1 for _, k1, _ in cp["launches_per_step"]) + dp["launches"]["attention_fwd"]
-        + tp["launches"]["attention_fwd"],
+        + tp["launches"]["attention_fwd"] + ppl["launches"]["attention_fwd"],
         "launches_by_path": {"zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
                              "pretrain_cli": cli["launches"]["attention_fwd"],
@@ -5206,7 +5660,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                                  k1 for _, k1, _ in dp["vcr"]["launches_per_step"]),
                              "data_parallel_zero_shot_cli": dp["zero_shot_cli"]["launches"],
                              "tensor_parallel_pretrain_both_ranks":
-                                 tp["launches"]["attention_fwd"]},
+                                 tp["launches"]["attention_fwd"],
+                             "pipeline_parallel_grover_both_ranks":
+                                 ppl["launches"]["attention_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
@@ -5254,7 +5710,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         **{f"tp_train_{k}": 12 * sum(zs[n[0]][k] for n in TP_ATTN_SHAPES)
            for k in ("ms", "plain_ms", "bound_ms")},
         "tp_train_library_ms": 12 * (zs["tp_pretrain_vit"]["library_ms"]
-                                     + zs["tp_pretrain_joint"]["library_ms"])}
+                                     + zs["tp_pretrain_joint"]["library_ms"]),
+        # per pp=2 Grover train step of one rank (12 layers x 8 microbatches
+        # of 1 x 1536): the per-call times at the microbatch's shape
+        **{f"pp_grover_step_{k}": PP_LAUNCHES_PER_STEP * zs["pp_grover_mb1"][k]
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     # per train step (12 launches at each pretrain shape)
     tb = {r["shape"]: r for r in k2_rows}
     train_shapes = ("pretrain_vit", "pretrain_joint", "pretrain_lang")
@@ -5265,7 +5725,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
         + vcr["launches"]["attention_bwd"] + gt["launches"]["attention_bwd"]
         + sum(k2 for _, _, k2 in cp["launches_per_step"]) + dp["launches"]["attention_bwd"]
-        + tp["launches"]["attention_bwd"],
+        + tp["launches"]["attention_bwd"] + ppl["launches"]["attention_bwd"],
         "launches_by_path": {"train": tr["launches"]["attention_bwd"],
                              "pretrain_cli": cli["launches"]["attention_bwd"],
                              "vcr_train": vcr["launches"]["attention_bwd"],
@@ -5277,7 +5737,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                              "data_parallel_vcr_train": sum(
                                  k2 for _, _, k2 in dp["vcr"]["launches_per_step"]),
                              "tensor_parallel_pretrain_both_ranks":
-                                 tp["launches"]["attention_bwd"]},
+                                 tp["launches"]["attention_bwd"],
+                             "pipeline_parallel_grover_both_ranks":
+                                 ppl["launches"]["attention_bwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
@@ -5299,6 +5761,8 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "grover_train_first_design_ms": first["k2_grover_step"],
         **per_path("grover_train", tb, ("grover_train",), 24),
         **{f"tp_train_{k}": 12 * sum(tb[n[0]][k] for n in TP_ATTN_SHAPES)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        **{f"pp_grover_step_{k}": PP_LAUNCHES_PER_STEP * tb["pp_grover_mb1"][k]
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     # per decode step on the Grover path: 24 launches at its shape (B=8,
     # Sk=1216, kv_len 1101), the kernel, the plain version, SDPA and the
@@ -5317,13 +5781,15 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "launches": gv["launches"]["attention_stacked"]
         + sv["launches"]["attention_stacked"]
         + gt["roundtrip"]["launches"]["attention_stacked"]
-        + tp["launches"]["attention_stacked"],
+        + tp["launches"]["attention_stacked"] + ppl["launches"]["attention_stacked"],
         "launches_by_path": {"grover_decode": gv["launches"]["attention_stacked"],
                              "server": sv["launches"]["attention_stacked"],
                              "grover_train_roundtrip_prefill":
                                  gt["roundtrip"]["launches"]["attention_stacked"],
                              "tensor_parallel_server_both_ranks":
-                                 tp["launches"]["attention_stacked"]},
+                                 tp["launches"]["attention_stacked"],
+                             "pipeline_parallel_roundtrip_prefill":
+                                 ppl["launches"]["attention_stacked"]},
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         "ms": 24 * k3["ms"], "plain_ms": 24 * k3["plain_ms"],
         "bound_ms": 24 * k3["bound_ms"], "bound_by": k3["bound_by"],
@@ -5445,6 +5911,11 @@ def main() -> int:
                          "--tp-dir; the phase starts both)")
     ap.add_argument("--tp-port", help="with --tp-child: the process group's port")
     ap.add_argument("--tp-dir", help="with --tp-child: the phase's directory")
+    ap.add_argument("--pp-child", type=int, metavar="RANK",
+                    help="only one rank of the pipeline_parallel phase (with --pp-ports and "
+                         "--pp-dir; the phase starts both)")
+    ap.add_argument("--pp-ports", help="with --pp-child: the process groups' ports")
+    ap.add_argument("--pp-dir", help="with --pp-child: the phase's directory")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5457,6 +5928,8 @@ def main() -> int:
         return dp_child(args.dp_child, args.dp_config, args.dp_out)
     if args.tp_child is not None:
         return tp_child(args.tp_child, args.tp_port, args.tp_dir)
+    if args.pp_child is not None:
+        return pp_child(args.pp_child, args.pp_ports, args.pp_dir)
     from merlot_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5542,9 +6015,11 @@ def main() -> int:
     lap("corpus")
     tp = tensor_parallel_phase(dev)
     lap("tensor_parallel")
+    ppl = pipeline_parallel_phase(dev)
+    lap("pipeline_parallel")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -5558,7 +6033,7 @@ def main() -> int:
              "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
              "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
              "vcr": vcr, "data_parallel": dp, "grover_train": gt, "corpus": cp,
-             "tensor_parallel": tp,
+             "tensor_parallel": tp, "pipeline_parallel": ppl,
              "ablation": ab_rows,
              "first_design": fd,
              "records": records,

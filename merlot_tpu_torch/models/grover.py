@@ -36,8 +36,19 @@ tensors.
 
 Sampling (``top_p_sample``, ``top_k_sample``, ``make_seq2seq_sampler``)
 draws from an explicit ``torch.Generator``: the same distributions as the
-JAX package, not the same streams. The pipeline-parallel helpers
-(``stack_grover_params``, ``grover_pipeline_forward``) are not ported.
+JAX package, not the same streams.
+
+Pipeline parallelism (``parallel/pipeline.py``, a mesh with a stage axis):
+``GroverStage`` is one rank's stage, its contiguous L/n_stage layers
+(``stages.{j}``) with the replicated ``word_embed``, ``pos_embed`` and
+``embed_norm``, initialised from a seed as the whole ``GroverLM`` would be
+(the same weights at any number of stages). ``grover_pipeline_forward``
+runs the embedding and ``embed_norm`` on stage 0, the layers per
+microbatch through the GPipe schedule, and on the last stage assembles
+the [B, S, H] output in JAX's order and the tied head over the whole
+batch. ``stack_grover_params`` / ``unstack_grover_params`` /
+``shard_grover_pp_params`` move numpy flat trees between the standard
+form, JAX's stacked ``stages/...`` form and one stage's leaves.
 
 Tensor parallelism (``parallel.mesh.shard_params`` sets ``tp`` on each
 layer and the LM): q/k/v and ``intermediate`` are column-parallel (this
@@ -62,7 +73,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout, trunc_normal_
+from merlot_tpu_torch.nn.layers import DenseTN, LayerNorm, dropout, init_params, trunc_normal_
 from merlot_tpu_torch.ops import cuda_attention
 from merlot_tpu_torch.ops.activations import gelu
 from merlot_tpu_torch.ops.attention import attention_core, training_backend
@@ -281,6 +292,102 @@ class GroverLM(nn.Module):
         return out
 
 
+class GroverStage(nn.Module):
+    """Stage ``stage_rank`` of ``n_stage`` of a pipeline-parallel GroverLM:
+    global layers [stage_rank L/n_stage, (stage_rank + 1) L/n_stage) as
+    ``stages.{j}``, and the replicated embeddings and ``embed_norm`` (stage
+    0 uses them for the input, the last stage ``word_embed`` for the tied
+    head)."""
+
+    def __init__(self, cfg: GroverConfig, n_stage: int, stage_rank: int, device=None):
+        super().__init__()
+        if n_stage < 1 or cfg.num_hidden_layers % n_stage:
+            raise ValueError(f"pipeline parallelism: {cfg.num_hidden_layers} layers do not "
+                             f"split into {n_stage} stages (num_hidden_layers % pp must be 0)")
+        if not 0 <= stage_rank < n_stage:
+            raise ValueError(f"stage {stage_rank} of {n_stage}")
+        self.cfg = c = cfg
+        self.n_stage, self.stage_rank = n_stage, stage_rank
+        self.word_embed = nn.Parameter(torch.empty(
+            (c.vocab_size, c.hidden_size), dtype=torch.float32, device=device))
+        self.pos_embed = nn.Parameter(torch.empty(
+            (c.max_position_embeddings, c.hidden_size), dtype=torch.float32,
+            device=device))
+        self.embed_norm = LayerNorm(c.hidden_size, device=device)
+        per = c.num_hidden_layers // n_stage
+        self.stages = nn.ModuleList([GroverLayer(c, device=device) for _ in range(per)])
+
+    @property
+    def first_layer(self) -> int:
+        return self.stage_rank * len(self.stages)
+
+    def init_tree(self, gen: torch.Generator) -> None:
+        """Draw what ``init_params`` draws for the whole GroverLM, in its
+        order (embeddings, ``embed_norm``, layer00 ...), keeping this
+        stage's layers: the other layers' draws go to a scratch layer."""
+        trunc_normal_(self.word_embed, self.cfg.initializer_range, gen)
+        trunc_normal_(self.pos_embed, self.cfg.initializer_range, gen)
+        init_params(self.embed_norm, gen)
+        scratch = None
+        for i in range(self.cfg.num_hidden_layers):
+            j = i - self.first_layer
+            if 0 <= j < len(self.stages):
+                init_params(self.stages[j], gen)
+                continue
+            if scratch is None:
+                scratch = GroverLayer(self.cfg, device=self.word_embed.device)
+            init_params(scratch, gen)
+
+
+def grover_pipeline_forward(stage: GroverStage, input_ids: torch.Tensor, *,
+                            mesh, num_microbatches: int,
+                            generator: Optional[torch.Generator] = None,
+                            attn_backend: Optional[str] = None):
+    """The training forward with the layer stack pipeline-parallel over
+    ``mesh``'s stage axis (None: every layer in this process, the
+    one-process run of the same schedule). Returns (logits, pipeline):
+    on the last stage the [B, S, vocab] fp32 logits of the whole batch
+    (the microbatches' outputs reassembled as JAX's ``out.reshape(b, s,
+    H)``), None elsewhere; and the ``parallel.pipeline.Pipeline``, whose
+    ``backward`` runs the reverse schedule after the loss's backward.
+    With ``generator`` the hidden dropout is keyed per (layer, microbatch)
+    from one seed drawn from it (the same draw on every stage), else none.
+    Stage 0 does the embedding and ``embed_norm``; the causal mask is made
+    once per microbatch shape, [mb, S, S] contiguous for the kernels."""
+    from merlot_tpu_torch.parallel.pipeline import microbatch, pipeline_apply
+    c = stage.cfg
+    b, s = input_ids.shape
+    dev = input_ids.device
+    first = mesh is None or mesh.is_first_stage
+    last = mesh is None or mesh.is_last_stage
+    backend = attn_backend or training_backend(dev)
+    if first:
+        h = stage.word_embed[input_ids]
+        h = stage.embed_norm(h + stage.pos_embed[:s][None])
+        h_mb = microbatch(h, num_microbatches)
+    else:  # later stages read only its shape
+        h_mb = microbatch(torch.empty((b, s, c.hidden_size), device=dev), num_microbatches)
+    mb = h_mb.shape[1]
+    mask = (torch.arange(s, device=dev)[None] <= torch.arange(s, device=dev)[:, None]
+            ).to(torch.float32)[None]
+    if backend == "cuda":
+        mask = mask.expand(mb, s, s).contiguous()
+    seed = None
+    if generator is not None:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device).item())
+
+    def layer_fn(layer, hh, gen=None):
+        return layer(hh, mask, attn_backend=backend, deterministic=gen is None,
+                     generator=gen)
+
+    pipe = pipeline_apply(layer_fn, list(stage.stages), h_mb, mesh, generator_seed=seed)
+    if not last:
+        return None, pipe
+    out = pipe.outputs.reshape(b, s, c.hidden_size)
+    return lm_logits_for_hidden(stage.word_embed, c, out), pipe
+
+
 def lm_logits_for_hidden(word_embed: torch.Tensor, cfg: GroverConfig,
                          h: torch.Tensor) -> torch.Tensor:
     """Tied-embedding logits, fp32. With ``use_bfloat16`` the table is
@@ -324,6 +431,29 @@ def grover_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor, is_target: tor
 # ----------------------------------------------------------------------
 # parameter trees (numpy leaves keyed by '/'-joined flax path)
 # ----------------------------------------------------------------------
+def stack_grover_params(flat: Mapping[str, np.ndarray], n_stage: int
+                        ) -> Dict[str, np.ndarray]:
+    """Standard leaves -> the pipeline-parallel form: the uniform
+    ``layer{i:02d}/...`` subtrees become ``stages/...`` leaves [n_stage,
+    L/n_stage, ...] (``parallel.pipeline.stack_stage_params``); the rest as
+    is. JAX's ``stack_grover_params`` on a flat tree."""
+    from merlot_tpu_torch.parallel.pipeline import stack_stage_params
+    names = sorted({p.split("/")[0] for p in flat if p.startswith("layer")})
+    layers = [{p[len(n) + 1:]: v for p, v in flat.items() if p.split("/")[0] == n}
+              for n in names]
+    out = {p: v for p, v in flat.items() if not p.startswith("layer")}
+    out.update({f"stages/{k}": v for k, v in stack_stage_params(layers, n_stage).items()})
+    return out
+
+
+def shard_grover_pp_params(flat_pp: Mapping[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's ``GroverStage`` leaves from a stacked tree: its slice of
+    ``stages`` as ``stages/{j}/...``, the rest (replicated) whole; a tree
+    split in another number of stages is refused."""
+    from merlot_tpu_torch.convert import stage_tree
+    return stage_tree(flat_pp, mesh.stage_rank, mesh.stage)
+
+
 def unstack_grover_params(flat: Mapping[str, np.ndarray],
                           num_layers: int) -> Dict[str, np.ndarray]:
     """A pipeline-parallel checkpoint's ``stages/...`` leaves [n_stage,

@@ -40,7 +40,11 @@ def variance_scaling_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:
-    """Initialise every parameter of a module tree, in module order."""
+    """Initialise every parameter of a module tree, in module order; a
+    module with an ``init_tree`` method initialises its whole tree itself."""
+    if hasattr(module, "init_tree"):
+        module.init_tree(gen)
+        return
     for m in module.modules():
         if hasattr(m, "init_weights"):
             m.init_weights(gen)

@@ -1,5 +1,6 @@
-"""Process groups, data parallelism, ZeRO-1 and tensor parallelism
-(counterpart of merlot_tpu/parallel/mesh.py).
+"""Process groups, data parallelism, ZeRO-1, tensor parallelism and the
+pipeline's stage axis (counterpart of merlot_tpu/parallel/mesh.py and of
+the mesh merlot_tpu/parallel/pipeline.py runs on).
 
 The JAX package builds a ``(data, model)`` device mesh and lets GSPMD
 partition one global program over it. Here a rank is a process with one
@@ -41,9 +42,18 @@ device, launched by ``torchrun`` or ``tools/multiprocess_smoke.py``:
     of one data index, and each of those ranks draws the same dropout
     masks from the same generator state.
 
+  * the stage axis (pipeline parallelism, ``parallel/pipeline.py``):
+    ``make_mesh(data, stage=S)`` lays the ranks out as JAX's pipeline tests
+    do, ``devices.reshape(data, stage)``: rank ``d * S + s`` is stage s of
+    data index d. The ``Mesh`` holds the stage index (``stage_rank``), the
+    stage group (the S stages of one data index) and the global ranks of
+    the previous and next stages. No JAX path composes a stage axis with a
+    model axis (``pipeline_apply`` takes ``axis`` and ``data_axis`` only),
+    so ``make_mesh`` refuses both above 1.
+
 A collective over a group of one rank is skipped when the mesh has a model
-axis (it would copy); at model 1 the data collectives run on the default
-group as they always have.
+or a stage axis (it would copy); at model 1 and stage 1 the data
+collectives run on the default group as they always have.
 """
 
 from __future__ import annotations
@@ -57,7 +67,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from merlot_tpu_torch.convert import flax_axes, flax_path
+from merlot_tpu_torch.convert import flax_axes, flax_path, stage_leaf
 
 # gradient all-reduce and parameter all-gather buckets, in elements
 BUCKET_ELEMENTS = 1 << 26
@@ -108,26 +118,32 @@ def launched_distributed() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
-def join_from_env(device="cuda", model: int = 1) -> Tuple[torch.device, Optional["Mesh"]]:
+def join_from_env(device="cuda", model: int = 1, stage: int = 1,
+                  backend: Optional[str] = None) -> Tuple[torch.device, Optional["Mesh"]]:
     """What a CLI runs on: (this rank's device, its mesh of ``model``
-    model ranks per data index) when the process was launched as a rank,
-    else (``device``, None), the one process of a run without torchrun,
-    which has no model axis (``model > 1`` raises)."""
+    model ranks or ``stage`` pipeline stages per data index) when the
+    process was launched as a rank, else (``device``, None), the one
+    process of a run without torchrun, which has neither axis (``model >
+    1`` or ``stage > 1`` raises). ``backend`` as ``init_multihost`` takes it."""
     if not launched_distributed():
         if model != 1:
             raise ValueError(
                 f"model_parallelism={model}: tensor parallelism runs one process per "
                 f"device; launch {model} ranks per data index under torchrun "
                 f"(torchrun --nproc_per_node N ...)")
+        if stage != 1:
+            raise ValueError(
+                f"pipeline parallelism over {stage} stages runs one process per stage; "
+                f"launch {stage} ranks under torchrun (torchrun --nproc_per_node {stage} ...)")
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("asked for CUDA but no CUDA device is present "
                                "(pass device='cpu' to run on the CPU)")
         return torch.device(device), None
-    dev = init_multihost(device=device)
-    mesh = make_mesh(model=model)
+    dev = init_multihost(device=device, backend=backend)
+    mesh = make_mesh(model=model, stage=stage)
     print(f"process group: backend {mesh.backend}, world {dist.get_world_size()}, "
-          f"rank {dist.get_rank()}, device {dev}, data {mesh.data} x model {mesh.model}",
-          flush=True)
+          f"rank {dist.get_rank()}, device {dev}, data {mesh.data} x model {mesh.model} "
+          f"x stage {mesh.stage}", flush=True)
     return dev, mesh
 
 
@@ -151,27 +167,121 @@ def leave(mesh: Optional["Mesh"]) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the (data, model) grid: its data index
-    ``rank`` of ``data`` and model index ``model_rank`` of ``model``, the
-    backend, and the group of each axis (None: the default group, which is
-    the data group at model 1)."""
+    """This rank's place in the (data, model) or (data, stage) grid: its
+    data index ``rank`` of ``data``, model index ``model_rank`` of
+    ``model`` and stage index ``stage_rank`` of ``stage``, the backend, and
+    the group of each axis (None: the default group, which is the data
+    group at model 1 and stage 1)."""
     data: int
     rank: int
     backend: str
     model: int = 1
     model_rank: int = 0
+    stage: int = 1
+    stage_rank: int = 0
     data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    stage_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def is_chief(self) -> bool:
         """Global rank 0: the one that writes metrics and checkpoints."""
-        return self.rank == 0 and self.model_rank == 0
+        return self.rank == 0 and self.model_rank == 0 and self.stage_rank == 0
 
     @property
     def _data_solo(self) -> bool:
-        """A data group of one rank beside a model axis: nothing to sum."""
-        return self.data == 1 and self.model > 1
+        """A data group of one rank beside a model or a stage axis: nothing
+        to sum."""
+        return self.data == 1 and (self.model > 1 or self.stage > 1)
+
+    # --- the stage axis ----------------------------------------------
+    @property
+    def is_first_stage(self) -> bool:
+        return self.stage_rank == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.stage_rank == self.stage - 1
+
+    @property
+    def prev_rank(self) -> Optional[int]:
+        """The global rank of the previous stage of this data index."""
+        return None if self.is_first_stage else self.rank * self.stage + self.stage_rank - 1
+
+    @property
+    def next_rank(self) -> Optional[int]:
+        """The global rank of the next stage of this data index."""
+        return None if self.is_last_stage else self.rank * self.stage + self.stage_rank + 1
+
+    @property
+    def last_stage_rank(self) -> int:
+        """The global rank of this data index's last stage."""
+        return (self.rank + 1) * self.stage - 1
+
+    def stage_all_reduce_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Sum each tensor over the stage group, in place, through flat
+        buckets (the replicated leaves' gradients)."""
+        if self.stage == 1:
+            return
+        for bucket in _buckets(list(tensors)):
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat, group=self.stage_group)
+            off = 0
+            for t in bucket:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+
+    def stage_all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the stage group, as a new tensor."""
+        out = t.detach().clone()
+        if self.stage > 1:
+            dist.all_reduce(out, group=self.stage_group)
+        return out
+
+    def from_last_stage(self, obj: Any) -> Any:
+        """The last stage's ``obj`` (picklable) on every stage of this data
+        index."""
+        if self.stage == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.last_stage_rank, group=self.stage_group)
+        return box[0]
+
+    def gather_stages(self, tensors: Mapping[str, torch.Tensor]
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+        """The whole stacked leaves from the stages' layers, on this data
+        index's first stage (None on the others): each stage's
+        ``stages.{j}.<leaf>`` stacked on a new axis 0 ([L/stage, ...]) and
+        gathered into ``stages.<leaf>`` [stage, L/stage, ...]
+        (``convert.stage_leaf`` names), JAX's ``stack_grover_params``
+        form; the other tensors (replicated) as they are. A collective
+        (one gather per bucket): every stage calls it."""
+        layers: Dict[str, Dict[int, torch.Tensor]] = {}
+        out: Dict[str, torch.Tensor] = {}
+        for n, t in tensors.items():
+            parsed = stage_leaf(n)
+            if parsed is None:
+                out[n] = t
+            else:
+                j, leaf = parsed
+                layers.setdefault(f"stages.{leaf}", {})[j] = t
+        local = {n: torch.stack([by_j[j] for j in sorted(by_j)]) for n, by_j in layers.items()}
+        if self.stage == 1:
+            return {**out, **{n: t[None] for n, t in local.items()}}
+        first = self.rank * self.stage
+        mine = dist.get_rank() == first
+        names = list(local)
+        for bucket in _buckets([local[n] for n in names], names):
+            flat = torch.cat([local[n].reshape(-1) for n in bucket])
+            parts = [torch.empty_like(flat) for _ in range(self.stage)] if mine else None
+            dist.gather(flat, parts, dst=first, group=self.stage_group)
+            if mine:
+                off = 0
+                for n in bucket:
+                    t = local[n]
+                    out[n] = torch.stack([p[off:off + t.numel()].view_as(t) for p in parts])
+                    off += t.numel()
+        return out if mine else None
 
     # --- data-axis collectives --------------------------------------
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -346,14 +456,37 @@ def _buckets(tensors: List[torch.Tensor], keys: Optional[List[Any]] = None) -> L
     return out
 
 
-def make_mesh(data: Optional[int] = None, model: int = 1) -> Mesh:
-    """The (data, model) grid over the initialised process group's ranks,
-    JAX's ``devices.reshape(data, model)``: rank ``d * model + m``. Every
-    rank must call it (each axis group is made by all ranks). At model 1
-    the data group is the default group."""
+def make_mesh(data: Optional[int] = None, model: int = 1, stage: int = 1) -> Mesh:
+    """The (data, model) or (data, stage) grid over the initialised process
+    group's ranks, JAX's ``devices.reshape(data, model)`` (``reshape(data,
+    stage)``): rank ``d * model + m`` (``d * stage + s``). Every rank must
+    call it (each axis group is made by all ranks). At model 1 and stage 1
+    the data group is the default group. A stage axis beside a model axis
+    is refused: no JAX path composes them."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call init_multihost first")
     world = dist.get_world_size()
+    if stage > 1 and model > 1:
+        raise NotImplementedError(
+            f"a stage axis ({stage}) beside a model axis ({model}): no JAX path composes "
+            f"pipeline and tensor parallelism (pipeline_apply takes a stage axis and a "
+            f"data axis only), so neither does this package")
+    if stage < 1 or world % stage:
+        raise ValueError(f"pipeline parallelism: stage {stage} does not divide the world "
+                         f"size {world}")
+    if stage > 1:
+        data = world // stage if data is None else data
+        if data * stage != world:
+            raise ValueError(f"data {data} x stage {stage} != world size {world}")
+        rank, backend = dist.get_rank(), dist.get_backend()
+        d, s = divmod(rank, stage)
+        groups = {}
+        for i in range(data):
+            groups["stage", i] = dist.new_group(list(range(i * stage, (i + 1) * stage)))
+        for j in range(stage):
+            groups["data", j] = dist.new_group(list(range(j, world, stage)))
+        return Mesh(data=data, rank=d, backend=backend, stage=stage, stage_rank=s,
+                    data_group=groups["data", s], stage_group=groups["stage", d])
     if model < 1 or world % model:
         raise ValueError(f"tensor parallelism: model {model} does not divide the world "
                          f"size {world}")

@@ -1,18 +1,26 @@
-"""Which gloo collectives take CUDA tensors when two ranks share one card.
+"""Which gloo collectives and point-to-point ops take CUDA tensors when two
+ranks share one card.
 
     python -m merlot_tpu_torch.tools.gloo_probe
 
 NCCL refuses two ranks on one device, so a one-card machine runs the mesh's
-model axis as gloo ranks (chip_smoke.py's tensor_parallel phase). This tool
-starts two processes on ``cuda:0`` over gloo and tries, on CUDA tensors,
-each collective that path needs: all-reduce (sum in fp32 and bf16, max,
-min), broadcast, all-gather, groups of one and of two ranks, an object
-broadcast; then it times a 64 MB fp32 all-reduce. Each rank prints one
-line ``RESULT <rank> <json>``; a collective that fails reads ``FAIL ...``.
+model and stage axes as gloo ranks (chip_smoke.py's tensor_parallel and
+pipeline_parallel phases). This tool starts two processes on ``cuda:0``
+over gloo and tries, on CUDA tensors, each collective those paths need:
+all-reduce (sum in fp32 and bf16, max, min), broadcast, all-gather, groups
+of one and of two ranks, an object broadcast; then it times a 64 MB fp32
+all-reduce and a 24 MB hop (one pipeline microbatch's [1, 1536, 1024] fp32
+activation at 4x headroom) through pinned host buffers, the pipeline's
+gloo transport; last, the point-to-point ops on CUDA tensors themselves
+(``send``/``recv``, ``isend``/``irecv``, ``batch_isend_irecv``), each
+checked for the values that arrive, under a 20 s wait. Each rank prints a
+line ``PROBE <rank> <name> <json>`` as each probe ends and one line
+``RESULT <rank> <json>``; a probe that fails reads ``FAIL ...``.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import socket
 import subprocess
@@ -25,7 +33,7 @@ import torch.distributed as dist
 
 def _rank(rank: int, port: int) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
-                            rank=rank)
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = {}
@@ -33,8 +41,10 @@ def _rank(rank: int, port: int) -> None:
     def probe(name, fn):
         try:
             out[name] = fn()
-        except RuntimeError as e:
+        except Exception as e:  # noqa: BLE001 -- every failure is a finding
+
             out[name] = f"FAIL {type(e).__name__}: {str(e)[:200]}"
+        print("PROBE", rank, name, json.dumps(out[name]), flush=True)
 
     def all_reduce(dtype, op, group=None):
         t = torch.full((1000,), float(rank + 1), dtype=dtype, device=dev)
@@ -83,7 +93,53 @@ def _rank(rank: int, port: int) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / 5
     probe("all_reduce_64MB_fp32_s", seconds_64mb)
+
+    def hop_via_host():
+        """Seconds of one 24 MB hop, device to device through pinned host
+        buffers (the copies included): half a round trip, mean of 5."""
+        t = torch.full((6 << 20,), float(rank + 1), device=dev)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+        def one(src):
+            if rank == src:
+                host.copy_(t)
+                dist.send(host, 1 - src, tag=7)
+            else:
+                dist.recv(host, src, tag=7)
+                t.copy_(host)
+                torch.cuda.synchronize()
+        one(0), one(1)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one(0)
+            one(1)
+        return (time.perf_counter() - t0) / 10
+
+    probe("hop_24MB_via_pinned_host_s", hop_via_host)
     dist.barrier()
+
+    # point-to-point on CUDA tensors, last: a backend that takes the device
+    # pointer for a host one may crash a rank (the other's wait then fails)
+    wait = datetime.timedelta(seconds=20)
+
+    def p2p(kind, tag):
+        sent = torch.arange(1024, dtype=torch.float32, device=dev) + 1
+        got = torch.zeros_like(sent)
+        if kind == "send_recv":
+            dist.send(sent, 1, tag=tag) if rank == 0 else dist.recv(got, 0, tag=tag)
+        elif kind == "isend_irecv":
+            work = dist.isend(sent, 1, tag=tag) if rank == 0 else dist.irecv(got, 0, tag=tag)
+            work.wait(wait)
+        else:
+            op = (dist.P2POp(dist.isend, sent, 1, tag=tag) if rank == 0
+                  else dist.P2POp(dist.irecv, got, 0, tag=tag))
+            for work in dist.batch_isend_irecv([op]):
+                work.wait(wait)
+        torch.cuda.synchronize()
+        return "sent" if rank == 0 else bool(torch.equal(got, sent))
+
+    for i, kind in enumerate(("send_recv", "isend_irecv", "batch_isend_irecv")):
+        probe(f"p2p_cuda_{kind}", lambda kind=kind, i=i: p2p(kind, 100 + i))
     print("RESULT", rank, json.dumps(out), flush=True)
     dist.destroy_process_group()
 

@@ -32,6 +32,13 @@ check, like the reference's name-intersection warm start
 A checkpoint always holds whole leaves. Under tensor parallelism (a
 ``mesh`` with a model axis) ``load_checkpoint`` and ``warm_start`` cut each
 to this model rank's slice (``Mesh.local_slice``) before they load it.
+A pipeline-parallel run's checkpoint holds JAX's ``--pp`` form: its layers
+as ``stages/<leaf>`` [pp, L/pp, ...] (parameters and moments). Under a
+``mesh`` with a stage axis ``load_checkpoint`` loads this stage's slice
+(``convert.stage_tree``); a checkpoint written at another ``pp``, or one
+without ``stages/`` leaves, is refused by name, and so is a ``stages/``
+checkpoint restored without a stage axis (JAX's template shapes refuse
+both). The denoise server reads either form (``load_npz_params``).
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from merlot_tpu_torch.convert import (flax_layout, flax_path, load_flax_params,
-                                      params_from_flax, torch_layout)
+from merlot_tpu_torch.convert import (STAGES, flax_axes, flax_path, load_flax_params,
+                                      params_from_flax, stage_tree, to_torch_layout)
 
 PARAMS_FILE = "params.npz"
 OPT_FILE = "opt_state.npz"
@@ -63,6 +70,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
         t = t.view(torch.int16)
     arr = t.cpu().numpy()
     return arr.view(np.uint16) if arr.dtype == np.int16 else arr
+
+
+def _flax_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    """A host copy of parameter ``name``'s tensor in the flax layout, its
+    axes moved on the tensor's device (bf16 as uint16 bit patterns)."""
+    return _to_numpy(t.detach().permute(flax_axes(name, t.dim())).contiguous())
 
 
 def _group_dtype(tensors: Mapping[str, torch.Tensor], group: str) -> str:
@@ -92,8 +105,8 @@ def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
     tmp = tempfile.mkdtemp(prefix=f".tmp-{os.path.basename(path)}-", dir=parent)
     try:
         np.savez(os.path.join(tmp, PARAMS_FILE),
-                 **{flax_path(n): flax_layout(n, _to_numpy(p)) for n, p in params.items()})
-        moments = {f"{g}/{flax_path(n)}": flax_layout(n, _to_numpy(t))
+                 **{flax_path(n): _flax_numpy(n, p) for n, p in params.items()})
+        moments = {f"{g}/{flax_path(n)}": _flax_numpy(n, t)
                    for g in ("m", "v") for n, t in opt_state[g].items()}
         np.savez(os.path.join(tmp, OPT_FILE), **moments)
         meta = {"step": int(opt_state["step"]),
@@ -130,21 +143,42 @@ def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any],
                     mesh=None) -> None:
     """Restore a checkpoint directory into ``model``'s parameters and the
     AdamW state ``opt_state`` (whose tensors keep their dtype and device),
-    in place; with ``mesh``, this model rank's slices of them."""
+    in place; with ``mesh``, this model rank's slices of them (this
+    stage's under a stage axis)."""
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
-    load_flax_params(model, load_params(path), mesh)
+    params = load_params(path)
+    n_stage = 1 if mesh is None else mesh.stage
+    written = {v.shape[0] for k, v in params.items() if k.split("/")[0] == STAGES}
+    if n_stage > 1 and not written:
+        raise ValueError(f"{path} holds no stages/ leaves (written at pp=1); this run has "
+                         f"pp={n_stage}")
+    if n_stage == 1 and written:
+        raise ValueError(f"{path} holds stages/ leaves (written at pp={written.pop()}); "
+                         f"restore it at that pp")
+    if n_stage > 1:
+        params = stage_tree(params, mesh.stage_rank, n_stage)
+    load_flax_params(model, params, mesh)
     with np.load(os.path.join(path, OPT_FILE)) as z:
+        moments = z
+        if n_stage > 1:  # this stage's slices of the stacked moments
+            moments = {}
+            for g in ("m", "v"):
+                part = stage_tree({k[len(g) + 1:]: z[k] for k in z.files
+                                   if k.startswith(g + "/")}, mesh.stage_rank, n_stage)
+                moments.update({f"{g}/{k}": v for k, v in part.items()})
         for g in ("m", "v"):
             stored = meta["dtypes"][g]
             for n, t in opt_state[g].items():
                 key = f"{g}/{flax_path(n)}"
-                if key not in z.files:
+                if key not in moments:
                     raise KeyError(f"{path}: no {key}")
-                arr = torch_layout(flax_path(n), z[key])
-                src = torch.from_numpy(arr)
+                arr = moments[key]
+                if stored == "bfloat16":  # the uint16 bit patterns
+                    arr = arr.view(np.int16)
+                src = to_torch_layout(flax_path(n), arr, t.device)
                 if stored == "bfloat16":
-                    src = src.view(torch.int16).view(torch.bfloat16)
+                    src = src.view(torch.bfloat16)
                 if mesh is not None:
                     src = mesh.local_slice(n, src)
                 if src.shape != t.shape or src.dtype != t.dtype:

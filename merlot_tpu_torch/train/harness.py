@@ -31,6 +31,16 @@ holds whole leaves, gathered over the model group (and over the data group
 for ZeRO-1's moments), in the same format, and a restore or a warm start
 cuts them again: a checkpoint written at any (data, model) restores at any
 other. Global rank 0 writes.
+
+Pipeline parallelism (a mesh with a stage axis; the model a
+``models.grover.GroverStage`` and the step ``make_pipeline_loss_train_step``):
+``init_state`` draws the whole model's weights from the seed and keeps
+this stage's; a checkpoint holds JAX's ``--pp`` form, whole
+``stages/<leaf>`` arrays [pp, L/pp, ...] of the parameters and moments
+gathered onto stage 0 (``Mesh.gather_stages``) and the replicated
+leaves once; a restore gives each stage its slice, and a checkpoint of
+another ``pp`` is refused by name. ZeRO-1 beside a stage axis is refused
+(JAX's pipeline-parallel CLI has no data axis).
 """
 
 from __future__ import annotations
@@ -68,6 +78,11 @@ class Trainer:
         self.opt_mesh = mesh if self.zero1 else None
         # the model axis the parameters are cut over, if any
         self.tp = mesh if mesh is not None and mesh.model > 1 else None
+        # the stage axis the layers are split over, if any
+        self.pp = mesh if mesh is not None and mesh.stage > 1 else None
+        if self.pp is not None and self.zero1:
+            raise ValueError("ZeRO-1 beside a stage axis is not ported: JAX's "
+                             "pipeline-parallel CLI has no data axis")
         self.is_chief = mesh is None or mesh.is_chief
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
@@ -107,7 +122,7 @@ class Trainer:
         print(f"restoring checkpoint at step {latest}")
         params = dict(self.model.named_parameters())
         whole = self.optimizer.init(params) if self.zero1 else opt_state
-        self.ckpt.restore(latest, self.model, whole, mesh=self.tp)
+        self.ckpt.restore(latest, self.model, whole, mesh=self.tp or self.pp)
         return self.optimizer.shard_state(whole, params, self.opt_mesh)
 
     def save(self, step: int, opt_state: Dict[str, Any]) -> None:
@@ -119,6 +134,10 @@ class Trainer:
             params = self.tp.gather_model(params)
             whole = {"step": whole["step"],
                      **{g: self.tp.gather_model(whole[g]) for g in ("m", "v")}}
+        if self.pp is not None:  # stacked leaves from the stages' layers, on stage 0
+            params = self.pp.gather_stages(params)
+            whole = {"step": whole["step"],
+                     **{g: self.pp.gather_stages(whole[g]) for g in ("m", "v")}}
         if self.is_chief:
             self.ckpt.save(step, params, whole)
         if self.mesh is not None:

@@ -37,6 +37,14 @@ whole one would be. The global-norm clip and the ``gradnorms/*`` and
 the model group and each replicated leaf's once (every model rank holds
 the same copy of it). ZeRO-1 then splits this model rank's slice over the
 data group.
+
+Pipeline parallelism (``pp``, a mesh with a stage axis, given to
+``update``): the parameters are one stage's (``models.grover.GroverStage``:
+its layers as ``stages.{j}.*`` and the replicated leaves, whose gradients
+the step has summed over the stage group). The clip and the norms count
+the layers' squares summed over the stage group and the replicated leaves'
+once. Hyperparameters resolve on JAX's stacked path (``stages/<leaf>``,
+no layer index), so a regex matches what it matches in JAX's PP tree.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from merlot_tpu_torch.convert import flax_path
+from merlot_tpu_torch.convert import flax_path, stage_leaf
 from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, tp_layout, zero1_axes
 
 MISSING_PRECISION = 1.00390625  # 1 + 2^-8
@@ -108,15 +116,28 @@ def _path_key(name: str) -> Tuple[str, ...]:
     return tuple(flax_path(name).split("/"))
 
 
+def _resolve_path(name: str) -> str:
+    """The flax path whose hyperparameters a parameter takes: a stage's
+    layer ``stages.{j}.<leaf>`` resolves on JAX's ``stages/<leaf>``."""
+    parsed = stage_leaf(name)
+    return flax_path(name if parsed is None else f"stages.{parsed[1]}")
+
+
 def _tp_totals(groups: Sequence[Sequence[str]], sq: Mapping[str, torch.Tensor],
-               params: Mapping[str, torch.Tensor], tp: Mesh) -> List[torch.Tensor]:
+               params: Mapping[str, torch.Tensor], tp: Optional[Mesh],
+               pp: Optional[Mesh] = None) -> List[torch.Tensor]:
     """For each group of parameter names, the sum of ``sq`` over the whole
-    leaves: the cut leaves' parts summed over the model group (one
-    all-reduce for every group), the replicated leaves' counted once."""
-    cut = {n for g in groups for n in g if tp_layout(n, params[n].dim()) is not None}
+    leaves: the cut leaves' parts summed over the model group (``tp``) or
+    a stage's layers over the stage group (``pp``), one all-reduce for
+    every group; the replicated leaves' counted once."""
+    if pp is not None:
+        cut = {n for g in groups for n in g if stage_leaf(n) is not None}
+        reduce = pp.stage_all_reduce_sum
+    else:
+        cut = {n for g in groups for n in g if tp_layout(n, params[n].dim()) is not None}
+        reduce = tp.model_all_reduce
     zero = next(iter(sq.values())).new_zeros(())
-    part = tp.model_all_reduce(torch.stack([sum((sq[n] for n in g if n in cut), zero)
-                                            for g in groups]))
+    part = reduce(torch.stack([sum((sq[n] for n in g if n in cut), zero) for g in groups]))
     return [part[i] + sum((sq[n] for n in g if n not in cut), zero)
             for i, g in enumerate(groups)]
 
@@ -150,7 +171,7 @@ class MerlotAdamW:
         """(name, flax path, hyperparameters) of each parameter, in the
         JAX package's leaf order; resolved once for a set of names."""
         if names != self._plan_names:
-            self._plan = [(n, flax_path(n), self._resolve(flax_path(n)))
+            self._plan = [(n, _resolve_path(n), self._resolve(_resolve_path(n)))
                           for n in sorted(names, key=_path_key)]
             self._plan_names = names
         return self._plan
@@ -218,13 +239,15 @@ class MerlotAdamW:
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                params: Mapping[str, torch.Tensor],
-               mesh: Optional[Mesh] = None, tp: Optional[Mesh] = None) -> Dict[str, Any]:
+               mesh: Optional[Mesh] = None, tp: Optional[Mesh] = None,
+               pp: Optional[Mesh] = None) -> Dict[str, Any]:
         """One step: writes the new params and state in place and returns
         the metrics. Frozen params (lr == 0) and their state are left as
         they are. ``mesh``: the state is ZeRO-1's (``init(params, mesh)``)
         and ``grads`` are the whole gradients (of this model rank's
         slices), the same on every data index. ``tp``: the parameters are
-        cut over its model axis (the module docstring)."""
+        cut over its model axis, ``pp``: one stage's (the module
+        docstring)."""
         c = self.cfg
         plan = self._params_plan(tuple(params))
         axes = self.zero1_axes(params, mesh) if mesh is not None else {}
@@ -233,11 +256,12 @@ class MerlotAdamW:
         scale = self.lr_scale(step)
 
         # global-norm clip
-        if tp is None:
+        split = tp is not None or pp is not None
+        if not split:
             global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
         else:
             (sq,) = _tp_totals([names], {n: grads[n].float().square().sum() for n in names},
-                               params, tp)
+                               params, tp, pp)
             global_norm = torch.sqrt(sq)
         g_all = {n: grads[n] for n in names}
         if c.clip_norm > 0.0:
@@ -251,7 +275,7 @@ class MerlotAdamW:
             # of the parameters before this step
             groups: Dict[str, Any] = {}
             wd_loss = 0.0
-            if tp is None:
+            if not split:
                 for n, path, hp in plan:
                     scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
                     groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
@@ -263,11 +287,11 @@ class MerlotAdamW:
                     scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]), []).append(n)
                 sq = _tp_totals(list(scopes.values()),
                                 {n: g_all[n].float().square().sum() for n in names},
-                                params, tp)
+                                params, tp, pp)
                 groups = dict(zip(scopes, sq))
                 (wd_loss,) = _tp_totals(
                     [names], {n: hp["weight_decay_rate"] * 0.5 * params[n].float().square().sum()
-                              for n, _, hp in plan}, params, tp)
+                              for n, _, hp in plan}, params, tp, pp)
             for scope, sq in groups.items():
                 metrics[f"gradnorms/{scope}"] = torch.sqrt(sq)
             metrics["weight_decay_loss"] = wd_loss

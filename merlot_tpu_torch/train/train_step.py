@@ -42,6 +42,19 @@ the data group only: a cut leaf's gradient is this model rank's slice, and
 a replicated one's is the same on every model rank by construction (the
 model axis's collectives sit inside the forward and backward). The
 update's clip and norms count the cut leaves over the model group.
+
+Pipeline parallelism (a mesh with a stage axis; ``make_pipeline_loss_train_step``):
+``loss_fn`` runs the GPipe forward (``parallel/pipeline.py``) and returns
+the loss on the last stage only. The step backwards from it there, then
+runs the reverse schedule on every stage, which leaves each stage's layer
+gradients in place and stage 0's embedding gradients. The replicated
+leaves (the tied ``word_embed``, whose gradient comes from stage 0's
+lookup and the last stage's head, ``pos_embed`` and ``embed_norm``) are
+summed over the stage group, so every stage holds the same gradient and
+makes the same update of its copy; with a data axis every gradient is then
+summed over the data group. The last stage's loss and metrics go to every
+stage. The update's clip counts each stage's layers once over the stage
+group and the replicated leaves once.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from merlot_tpu_torch.convert import stage_leaf
 from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
 from merlot_tpu_torch.nn.layers import init_params
 from merlot_tpu_torch.ops.attention import training_backend
@@ -214,5 +228,58 @@ def make_loss_train_step(loss_fn: Callable, optimizer: MerlotAdamW, *,
             generator = rank_generator(generator, mesh)
         loss, metrics = loss_fn(model, batch, generator)
         return _apply_update(optimizer, opt_state, params, loss, dict(metrics), mesh, zero1)
+
+    return step
+
+
+def _last_stage_metrics(loss: Optional[torch.Tensor], metrics: Optional[Dict[str, Any]],
+                        mesh: Mesh, device) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The last stage's loss and tensor metrics on every stage of its data
+    index (the keys by one object broadcast, the values by one sum over
+    the stage group, zeros elsewhere)."""
+    keys = mesh.from_last_stage(
+        sorted(k for k, v in metrics.items() if torch.is_tensor(v)) if mesh.is_last_stage
+        else None)
+    if mesh.is_last_stage:
+        vals = torch.stack([metrics[k].detach().float() for k in keys] + [loss.detach().float()])
+    else:
+        vals = torch.zeros((len(keys) + 1,), device=device)
+    vals = mesh.stage_all_reduce_sum(vals)
+    return vals[-1], {k: vals[i] for i, k in enumerate(keys)}
+
+
+def make_pipeline_loss_train_step(loss_fn: Callable, optimizer: MerlotAdamW, *, mesh: Mesh,
+                                  device="cuda") -> Callable:
+    """Build ``step(stage_model, opt_state, batch, generator) -> metrics`` for
+    a mesh with a stage axis (module docstring) from ``loss_fn(stage_model,
+    batch, generator) -> (loss, metrics, pipeline)``, loss and metrics None
+    on all but the last stage. Every stage returns the global metrics."""
+    dev = _device(device)
+
+    def step(model: torch.nn.Module, opt_state: Dict[str, Any],
+             batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]
+             ) -> Dict[str, Any]:
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        if mesh.data > 1:
+            generator = rank_generator(generator, mesh)
+        loss, metrics, pipe = loss_fn(model, batch, generator)
+        if loss is not None:
+            loss.backward()
+        pipe.backward()
+        for p in params.values():  # a leaf no stage's graph reached (the last
+            if p.grad is None:      # stage's pos_embed) sums as zeros
+                p.grad = torch.zeros_like(p)
+        grads = {n: p.grad for n, p in params.items()}
+        mesh.stage_all_reduce_([g for n, g in grads.items() if stage_leaf(n) is None])
+        loss, metrics = _last_stage_metrics(loss, metrics, mesh, dev)
+        if mesh.data > 1:
+            mesh.all_reduce_(list(grads.values()))
+            loss, metrics = global_metrics(loss, metrics, mesh)
+        metrics.update(optimizer.update(grads, opt_state, params, pp=mesh))
+        metrics["loss"] = loss
+        return metrics
 
     return step

@@ -374,8 +374,11 @@ def test_grover_train_cli_resumes_and_serves(cli_setup):
 
 
 def test_grover_train_cli_refuses_pipeline_parallel(cli_setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="M7b"):
-        grover_train.main(_argv(cli_setup, tmp_path / "pp") + ["--pp", "2"])
+    """--pp 2 in one process: the world must be the stages (one rank each
+    under torchrun; tests/test_torch_pipeline.py runs them)."""
+    with pytest.raises(ValueError, match="world size must equal pp"):
+        grover_train.main(_argv(cli_setup, tmp_path / "pp") + ["--pp", "2",
+                                                               "--microbatches", "2"])
     with pytest.raises(ValueError, match="no files"):
         grover_train.main(_argv(cli_setup, tmp_path / "none")[:2] + [
             "--train_files", str(tmp_path / "missing-*"), "--output_dir", str(tmp_path),

@@ -23,7 +23,7 @@ bad = sorted(k for k in sys.modules if k.split(".")[0] in (
     "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "sacremoses",
     "cv2", "merlot_tpu"))
 assert not bad, bad
-assert len(names) >= 62, names
+assert len(names) >= 63, names
 assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server",
         "merlot_tpu_torch.core.tokenizer", "merlot_tpu_torch.ops.cuda_groupnorm",
         "merlot_tpu_torch.ops.cuda_ln_matmul", "merlot_tpu_torch.core.config",
@@ -47,7 +47,8 @@ assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server
         "merlot_tpu_torch.data.process", "merlot_tpu_torch.data.video",
         "merlot_tpu_torch.models.grover", "merlot_tpu_torch.parallel.mesh",
         "merlot_tpu_torch.tools.multiprocess_smoke",
-        "merlot_tpu_torch.parallel.tensor_parallel"} <= set(names), names
+        "merlot_tpu_torch.parallel.tensor_parallel",
+        "merlot_tpu_torch.parallel.pipeline"} <= set(names), names
 print(len(names))
 """
 
