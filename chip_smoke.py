@@ -106,11 +106,18 @@
    argmax decode steps through K3 against the plain attention fed the same
    tokens, with a mask-less plain run checked to exceed the bound; and a
    short fp32 generation (fp32 K3);
-8. server phase: the port's DenoiseHTTPServer on 127.0.0.1 with the
-   server's defaults (grover-medium, top_p 0.94, --bf16, max_batch 8) but
-   for max_len and the batching window (SERVER_MAX_LEN, SERVER_WINDOW_MS)
-   answers 4 concurrent POST /api/ask, coalesced (/stats mean_batch > 1),
-   with 4 JSONL records and the seconds per batch;
+8. server phase: the seed weights the server draws (grover-medium, fp32,
+   seed 0) go through the checkpoint tools: named as the reference's TF
+   variables (the inverse of grover_tf_name_map), converted
+   (convert_arrays) and written (save_params_checkpoint) as a params-only
+   checkpoint; the Denoiser loading its params.npz (--ckpt) must give
+   the seed-weight Denoiser's greedy logits on one context bit for bit,
+   with 24 K3 launches per prefill and per decode step. That Denoiser in
+   the port's DenoiseHTTPServer on 127.0.0.1 with the server's defaults
+   (top_p 0.94, --bf16, max_batch 8) but for max_len and the batching
+   window (SERVER_MAX_LEN, SERVER_WINDOW_MS) answers 4 concurrent POST
+   /api/ask, coalesced (/stats mean_batch > 1), with 4 JSONL records and
+   the seconds per batch;
 9. CLI phase: the pretraining entry point from tfrecords at full
    pretrain_4seg width. The machine's JPEG route (libjpeg, else pil) is
    held against the committed fixture bit for bit, nvJPEG (asked for by
@@ -133,14 +140,21 @@
    must reproduce A's evaluation loss, within the tolerances at the top;
    segments/s through the CLI, checkpoint seconds and bytes are printed;
 10. zero-shot CLI phase: the port's writer makes 1 synthetic story in
-   all 120 orderings (600x800 frames); a fresh pretrain_5seg-width model
-   is saved as a pretrain checkpoint (rooted at merlot/); `python -m
+   all 120 orderings (600x800 frames); a fresh pretrain_5seg-width
+   MerlotPretrainModel (seed 0) goes through the checkpoint tools: its
+   weights named as the released TF checkpoints name them (the inverse of
+   merlot_tf_name_map), converted (convert_arrays) and written
+   (save_params_checkpoint) as the params-only checkpoints/ckpt_0; `python -m
    merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits zs.yaml`
    (a copy of configs/pretrain_5seg.yaml with data.num_chunks 5 and
    val_batch_size 2) runs in a subprocess and its .npz is scored; the same
-   loader batches through make_zero_shot_fn in this process must give the
-   CLI's probs bit for bit, with 24 K1 launches per batch; stories/s is
-   printed beside the zero-shot phase's;
+   loader batches through make_zero_shot_fn in this process, on the model
+   object itself (never written), must give the CLI's probs bit for bit,
+   with 24 K1 launches per batch; fault probes (two of the first joint
+   layer's kernels swapped among the TF arrays before converting,
+   ZS_CLI_SWAPS) must move the first batch's probs: query and key at all,
+   query and value past SLICE_TOL; stories/s is printed beside the
+   zero-shot phase's;
 11. VCR phase: configs/vcr_finetune.yaml's model block at full size
    (VCR_REDUCED lists the cuts) from synthetic shards built by the port's
    build_vcr_example (draw_grounding overlays on 540x960 frames):
@@ -505,6 +519,9 @@ SERVER_MAX_LEN = 512
 # within 100 ms, so they coalesce into one batch (on a slow host one of
 # them missed 15 ms and a second batch decoded to max_len)
 SERVER_WINDOW_MS = 100.0
+# the converted weights' check: one context of this many tokens, a prefill
+# and GREEDY_STEPS argmax decode steps
+SERVER_CHECK_CTX = 64
 SERVER_TEXTS = [
     "so today were gonna make pasta with a to mate sauce from scratch",
     "the whether tomorrow is gonna be sunny in the after noon they said",
@@ -559,11 +576,21 @@ RELOAD_EVAL_RTOL = 0.0
 # thumbnail size (800 pixels on the long side); a copy of
 # configs/pretrain_5seg.yaml with ZS_CLI_REDUCED's keys changed (one group
 # of 5 is one story; the model block unchanged); a fresh model from seed 0
-# saved as a pretrain checkpoint
+# written through the checkpoint tools as a params-only checkpoint
 ZS_CLI_STORIES = 1
 ZS_CLI_FRAME_HW = (600, 800)
 ZS_CLI_BATCH = 2
 ZS_CLI_REDUCED = {"num_chunks": CHUNKS, "val_batch_size": ZS_CLI_BATCH}
+# The probes swap two same-shaped TF variables of the joint tower's first
+# layer before converting. Query and key at random init (scores of std
+# ~0.3 over ~885 keys: near-uniform attention, its matrix transposed) moved
+# the probs by 4.1e-3 on an H100: seen by the CLI's bit-for-bit check,
+# not past the kernel-vs-plain SLICE_TOL; query and value moved them by
+# 0.044, past it.
+ZS_CLI_SWAPS = {"query_key": ("encoder/layer00/query_layer/kernel",
+                              "encoder/layer00/key_layer/kernel"),
+                "query_value": ("encoder/layer00/query_layer/kernel",
+                                "encoder/layer00/value_layer/kernel")}
 # the VCR phase: a copy of configs/vcr_finetune.yaml with VCR_REDUCED's keys
 # changed (each listed under "reduced"; the model block but for the
 # warm-start path and the optimizer block but for num_train_steps
@@ -2924,9 +2951,69 @@ def grover_phase(dev) -> dict:
     return result
 
 
+def unfuse_qkv(flat: dict) -> dict:
+    """A fused_qkv model's leaves -> the split query/key/value form (the
+    inverse of grover.fuse_qkv_for_serving)."""
+    import numpy as np
+    out = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")
+        if parts[1:2] != ["qkv"]:
+            out[path] = leaf
+            continue
+        for name, third in zip(("query", "key", "value"), np.split(leaf, 3, axis=-1)):
+            out["/".join([parts[0], name] + parts[2:])] = np.ascontiguousarray(third)
+    return out
+
+
+def launches_per_call(model, run) -> tuple:
+    """(run()'s result, K3's launches in each of ``model``'s forward calls)."""
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    per, forward = [], model.forward
+
+    def counted(*args, **kw):
+        before = ca.stacked_launches
+        out = forward(*args, **kw)
+        per.append(ca.stacked_launches - before)
+        return out
+    model.forward = counted
+    try:
+        return run(), per
+    finally:
+        del model.forward
+
+
+def server_checkpoint(dev, d: Path) -> tuple:
+    """The server's seed weights (grover-medium, fp32, as ``Denoiser`` draws
+    them from seed 0 before the serving cast) named as the reference's TF
+    variables, converted and written as a params-only checkpoint under
+    ``d``: (its params.npz, the checkpoint tools' seconds)."""
+    import dataclasses
+    import gc
+    import torch
+    from merlot_tpu_torch.models.grover import GroverConfig, GroverLM
+    from merlot_tpu_torch.nn.layers import init_params
+    from merlot_tpu_torch.tools.convert_tf_checkpoint import grover_tf_name_map
+
+    cfg = dataclasses.replace(
+        GroverConfig.from_json_file(str(ROOT / "configs" / "grover_medium.json")),
+        use_bfloat16=True, fused_qkv=True, stacked_kv=True)
+    model = GroverLM(cfg, device=dev).eval()
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    t0 = time.perf_counter()
+    _, tools_s = through_checkpoint_tools(unfuse_qkv(module_flax_numpy(model)),
+                                          grover_tf_name_map(cfg.num_hidden_layers), d)
+    tools_s["total_s"] = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return d / "params.npz", tools_s
+
+
 def server_phase(dev, log_path: Path) -> dict:
-    """The port's denoise server with its defaults, answering concurrent
-    requests over HTTP on 127.0.0.1."""
+    """The port's denoise server with its defaults on weights that came
+    through the checkpoint tools (held against the seed weights' server),
+    answering concurrent requests over HTTP on 127.0.0.1."""
     import threading
     import urllib.request
     import torch
@@ -2934,11 +3021,32 @@ def server_phase(dev, log_path: Path) -> dict:
     from merlot_tpu_torch.tools.denoise_server import (DenoiseHTTPServer, Denoiser,
                                                        make_handler)
 
+    card = card_line()
+    config = str(ROOT / "configs" / "grover_medium.json")
+    kw = dict(max_len=SERVER_MAX_LEN, top_p=0.94, bf16=True, max_batch=8,
+              batch_window_ms=SERVER_WINDOW_MS, device=dev)
+    ckpt, tools_s = server_checkpoint(dev, log_path.parent / "grover_converted")
     t0 = time.perf_counter()
-    den = Denoiser(str(ROOT / "configs" / "grover_medium.json"), None, max_len=SERVER_MAX_LEN,
-                   top_p=0.94, bf16=True, max_batch=8, batch_window_ms=SERVER_WINDOW_MS,
-                   device=dev)
+    den = Denoiser(config, str(ckpt), **kw)
     init_s = time.perf_counter() - t0
+    seeded = Denoiser(config, None, **dict(kw, batch_window_ms=0.0))
+    ctx = torch.randint(100, den.cfg.vocab_size, (1, SERVER_CHECK_CTX),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    got, per_call = launches_per_call(
+        den.model, lambda: greedy_logits(den.model, ctx, SERVER_MAX_LEN))
+    want = greedy_logits(seeded.model, ctx, SERVER_MAX_LEN)
+    converted_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    del seeded
+    torch.cuda.empty_cache()
+    print(f"[checkpoint-tools] {card}: grover-medium's seed weights through the TF names, "
+          f"convert_arrays and save_params_checkpoint in {tools_s['total_s']:.2f} s "
+          f"({json.dumps(tools_s)}); the Denoiser on them loaded in {init_s:.2f} s, greedy "
+          f"logits equal to the seed weights': {converted_equal}, K3 per call {per_call}",
+          flush=True)
+    check(converted_equal, "the server's greedy logits from the converted checkpoint differ "
+                           "from the seed weights'")
+    check(per_call == [24] * (1 + GREEDY_STEPS),
+          f"K3 launches per prefill and decode step {per_call}, want 24 each")
     batch_s, batch_sizes = [], []
     run_batch = den.run_batch
 
@@ -2984,7 +3092,9 @@ def server_phase(dev, log_path: Path) -> dict:
         server.shutdown()
         server.server_close()
     records = log_path.read_text().strip().splitlines() if log_path.exists() else []
-    result = {"init_s": init_s, "requests": SERVER_REQUESTS, "wall_s": wall_s,
+    result = {"checkpoint_tools": tools_s, "converted_equal": converted_equal,
+              "k3_per_call": per_call,
+              "init_s": init_s, "requests": SERVER_REQUESTS, "wall_s": wall_s,
               "batch_seconds": batch_s, "batch_sizes": batch_sizes,
               "stats": stats, "launches": launches, "log_records": len(records),
               "answers": [None if a is None else {"gen_chars": len(a["gen"]), "ppl": a["ppl"]}
@@ -3662,15 +3772,50 @@ def save_fresh_pretrain(cfg, opt_block: dict, path: Path, dev) -> float:
     return seconds
 
 
+def module_flax_numpy(model) -> dict:
+    """A module's parameters by flax path, in the flax layout, on the host
+    (their axes moved on the card)."""
+    from merlot_tpu_torch.convert import flax_axes, flax_path
+    return {flax_path(n): p.detach().permute(flax_axes(n, p.dim())).contiguous().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def tf_named(flat: dict, name_map: dict) -> dict:
+    """Flax-path leaves named as the reference's TF variables: the inverse
+    of a TF name map, which must cover them one for one."""
+    check(len(set(name_map.values())) == len(name_map) and set(name_map.values()) == set(flat),
+          f"the TF name map does not cover the model one for one: "
+          f"{sorted(set(flat) ^ set(name_map.values()))[:5]}")
+    return {tf: flat[ours] for tf, ours in name_map.items()}
+
+
+def through_checkpoint_tools(flat: dict, name_map: dict, path: Path) -> tuple:
+    """``flat`` named as TF variables, converted and written as a
+    params-only checkpoint at ``path``: (the TF-named arrays, seconds per
+    step)."""
+    from merlot_tpu_torch.tools.convert_tf_checkpoint import convert_arrays
+    from merlot_tpu_torch.train.checkpoint import save_params_checkpoint
+    t0 = time.perf_counter()
+    arrays = tf_named(flat, name_map)
+    t1 = time.perf_counter()
+    converted = convert_arrays(arrays, name_map, verbose=False)
+    t2 = time.perf_counter()
+    save_params_checkpoint(str(path), converted)
+    t3 = time.perf_counter()
+    return arrays, {"to_tf_names_s": t1 - t0, "convert_s": t2 - t1, "write_s": t3 - t2}
+
+
 def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
     """The zero-shot CLI at pretrain_5seg width: the port's writer makes
-    ZS_CLI_STORIES synthetic stories in all 120 orderings; a fresh model is
-    saved as a pretrain checkpoint; `python -m
+    ZS_CLI_STORIES synthetic stories in all 120 orderings; a fresh
+    pretrain model's weights go through the TF names and the converter
+    into a params-only ckpt_0; `python -m
     merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits zs.yaml`
     runs in a subprocess and its .npz is scored; the same loader batches
-    then go through make_zero_shot_fn in this process, from the same
-    checkpoint, with K1's counter and CUDA events per batch: its probs must
-    equal the CLI's bit for bit (K1 is deterministic)."""
+    then go through make_zero_shot_fn in this process, on the model
+    object's own weights, with K1's counter and CUDA events per batch: its
+    probs must equal the CLI's bit for bit (K1 is deterministic); then the
+    swap probes (ZS_CLI_SWAPS)."""
     import gc
     import numpy as np
     import torch
@@ -3683,8 +3828,11 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
     from merlot_tpu_torch.downstream.sort_story.zero_shot import make_zero_shot_fn
     from merlot_tpu_torch.models.config import MerlotConfig
     from merlot_tpu_torch.models.merlot import MerlotModel
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.nn.layers import init_params
     from merlot_tpu_torch.ops import cuda_attention as ca
-    from merlot_tpu_torch.train.checkpoint import CheckpointManager, load_params
+    from merlot_tpu_torch.tools.convert_tf_checkpoint import convert_arrays, merlot_tf_name_map
+    from merlot_tpu_torch.train.checkpoint import CheckpointManager
 
     card = card_line()
     d = tmp / "zero_shot_cli"
@@ -3700,7 +3848,17 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
     config = NeatConfig.from_yaml(str(d / "zs.yaml"))
     cfg = MerlotConfig.from_dict(config.model)
     ckpt = CheckpointManager(str(d / "out" / "checkpoints"))
-    save_s = save_fresh_pretrain(cfg, config.optimizer, Path(ckpt.path(1)), dev)
+    # the model's weights as the released TF checkpoints name them, through
+    # the converter into the CLI's ckpt_0
+    pretrain = MerlotPretrainModel(cfg, device=dev)
+    init_params(pretrain, torch.Generator(device=dev).manual_seed(0))
+    name_map = merlot_tf_name_map(cfg)
+    t0 = time.perf_counter()
+    tf_arrays, tools_s = through_checkpoint_tools(module_flax_numpy(pretrain), name_map,
+                                                  Path(ckpt.path(0)))
+    tools_s["total_s"] = time.perf_counter() - t0
+    check(ckpt.latest_step() == 0 and sorted(os.listdir(ckpt.path(0))) == [
+        "meta.json", "params.npz"], "the converter's writer left no params-only ckpt_0")
 
     rc, cli_s, log = run_module("merlot_tpu_torch.downstream.sort_story.get_zero_shot_logits",
                                 d / "zs.yaml", d / "run", d / "cli.log")
@@ -3708,10 +3866,12 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
     npz = d / "run" / "logits_val.npz"
     metrics = score_file(str(npz))
 
-    # the same batches in this process, with torch's TF32 defaults as the
-    # CLI's process has them
+    # the same batches in this process, on the model object's own weights
+    # (never written), with torch's TF32 defaults as the CLI's process has
+    # them
     model = MerlotModel(cfg.eval_mode(), device=dev).eval()
-    load_flax_params(model, merlot_subtree(load_params(ckpt.path(1))))
+    model.load_state_dict(pretrain.merlot.state_dict())
+    del pretrain
     fn = make_zero_shot_fn(ZS_CLI_BATCH, CHUNKS)
     merged = {"num_chunks": CHUNKS, "image_size": list(cfg.image_size)}
     first, seconds, k1_ms, per_batch = {}, [], [], []
@@ -3731,6 +3891,8 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
                 out = fn(model, torch.from_numpy(batch["images"]).to(dev),
                          torch.from_numpy(batch["sentences"]).to(dev))
             out = {k: v.cpu().numpy() for k, v in out.items()}
+            if not per_batch:
+                first_batch = (batch, out)
             seconds.append(time.perf_counter() - t0)
             k1_ms.append(spans_ms(spans))
             per_batch.append(ca.launches - before)
@@ -3738,7 +3900,23 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
                 first.setdefault(str(int(sid)), {k: v[i] for k, v in out.items()})
         loop_s = time.perf_counter() - t_all
         launches = ca.launches
-    del model
+
+        # the fault probes: two same-shaped TF variables swapped before
+        # converting, the first batch's probs against the model's
+        t0 = time.perf_counter()
+        batch, want = first_batch
+        swap_gap = {}
+        for probe, (a, b) in ZS_CLI_SWAPS.items():
+            swapped = dict(tf_arrays)
+            swapped[a], swapped[b] = tf_arrays[b], tf_arrays[a]
+            load_flax_params(model, merlot_subtree(convert_arrays(swapped, name_map,
+                                                                  verbose=False)))
+            got = fn(model, torch.from_numpy(batch["images"]).to(dev),
+                     torch.from_numpy(batch["sentences"]).to(dev))
+            swap_gap[probe] = max(float(np.abs(got[k].cpu().numpy() - want[k]).max())
+                                  for k in want)
+        tools_s["swap_probes_s"] = time.perf_counter() - t0
+    del model, tf_arrays, swapped
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3750,7 +3928,8 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
                           for name in ("lang_viz", "viz_viz")])
     examples = records - records % ZS_CLI_BATCH
     result = {"card": card, "reduced": reduced, "records": records, "write_s": write_s,
-              "checkpoint_save_s": save_s, "stories": stories, "scores": metrics,
+              "checkpoint_tools": tools_s, "swap_probe_gaps": swap_gap,
+              "stories": stories, "scores": metrics,
               "cli_seconds": cli_s, "cli_wall_stories_per_s": examples / cli_s,
               "batches": len(per_batch), "launches": launches,
               "launches_per_batch": sorted(set(per_batch)),
@@ -3761,6 +3940,9 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
               "cli_equals_in_process": equal,
               "probs_min": float(probs.min()), "probs_max": float(probs.max())}
     print(f"[zero-shot-cli] {json.dumps(result)}", flush=True)
+    print(f"[checkpoint-tools] {card}: pretrain_5seg through the TF names, convert_arrays and "
+          f"save_params_checkpoint in {tools_s['total_s']:.2f} s ({json.dumps(tools_s)}); the swap "
+          f"probes moved the probs by {json.dumps(swap_gap)}", flush=True)
     print(f"[zero-shot-cli] {card}: {result['stories_per_s']:.2f} stories/s through the "
           f"loader and make_zero_shot_fn (median batch of {ZS_CLI_BATCH}), "
           f"{result['cli_wall_stories_per_s']:.2f} over the CLI's whole process "
@@ -3774,7 +3956,13 @@ def zero_shot_cli_phase(dev, tmp: Path, slice_stories_per_s: float) -> dict:
     check(per_batch == [LAUNCHES_PER_BATCH] * (examples // ZS_CLI_BATCH),
           f"in-process K1 launches per batch {sorted(set(per_batch))} over {len(per_batch)} "
           f"batches, want {LAUNCHES_PER_BATCH} over {examples // ZS_CLI_BATCH}")
-    check(equal, "the CLI's probs differ from make_zero_shot_fn's on the same batches")
+    check(equal, "the CLI's probs from the converted checkpoint differ from make_zero_shot_fn's "
+                 "on the model's own weights")
+    check(swap_gap["query_key"] > 0, "swapping the query and key kernels before converting "
+                                     "left the probs unchanged")
+    check(swap_gap["query_value"] > SLICE_TOL,
+          f"swapping the query and value kernels before converting moved the probs by "
+          f"{swap_gap['query_value']}, not past {SLICE_TOL}")
     check(all(math.isfinite(v) for v in metrics.values()) and -1 <= metrics["spearman"] <= 1,
           f"scores {metrics}")
     return result

@@ -16,6 +16,10 @@ which numpy alone reads:
                        numpy has no bfloat16, so bf16 arrays are stored as
                        their uint16 bit patterns and meta.json says so.
 
+A params-only checkpoint (``save_params_checkpoint``: weights converted
+from the reference's TF checkpoints or imported from the JAX package's) has
+no ``opt_state.npz``, and its ``meta.json`` says ``"opt_state": false``.
+
 A checkpoint is written into a hidden temporary directory and renamed to
 ``ckpt_{step}`` only when complete, so an interrupted write never leaves a
 directory that ``latest_step`` picks. Its files and the temporary directory
@@ -95,27 +99,26 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
-def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
-                    opt_state: Dict[str, Any]) -> None:
-    """Write ``params`` (torch name -> tensor) and ``opt_state`` (the
-    AdamW state: step, m, v) to the directory ``path``, atomically."""
+def write_checkpoint(path: str, params: Mapping[str, np.ndarray], meta: Dict[str, Any],
+                     moments: Optional[Mapping[str, np.ndarray]] = None) -> None:
+    """Write a checkpoint directory at ``path`` from host arrays by flax
+    path in the flax layout (bf16 as uint16 bit patterns): ``params.npz``,
+    ``opt_state.npz`` when ``moments`` ("m/<path>", "v/<path>") is given,
+    and ``meta``. It is written into a hidden temporary directory, fsynced
+    and renamed into place (a re-save of the same path replaces it whole)."""
     path = os.path.abspath(path)
     parent = os.path.dirname(path)
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".tmp-{os.path.basename(path)}-", dir=parent)
     try:
-        np.savez(os.path.join(tmp, PARAMS_FILE),
-                 **{flax_path(n): _flax_numpy(n, p) for n, p in params.items()})
-        moments = {f"{g}/{flax_path(n)}": _flax_numpy(n, t)
-                   for g in ("m", "v") for n, t in opt_state[g].items()}
-        np.savez(os.path.join(tmp, OPT_FILE), **moments)
-        meta = {"step": int(opt_state["step"]),
-                "dtypes": {"params": _group_dtype(params, "params"),
-                           "m": _group_dtype(opt_state["m"], "m"),
-                           "v": _group_dtype(opt_state["v"], "v")}}
+        np.savez(os.path.join(tmp, PARAMS_FILE), **params)
+        names = [PARAMS_FILE]
+        if moments is not None:
+            np.savez(os.path.join(tmp, OPT_FILE), **moments)
+            names.append(OPT_FILE)
         with open(os.path.join(tmp, META_FILE), "w") as f:
             json.dump(meta, f)
-        for name in (PARAMS_FILE, OPT_FILE, META_FILE):
+        for name in names + [META_FILE]:
             _fsync(os.path.join(tmp, name))
         _fsync(tmp)
         if os.path.exists(path):  # a re-save of the same step
@@ -130,6 +133,32 @@ def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
     finally:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
+
+
+def save_checkpoint(path: str, params: Mapping[str, torch.Tensor],
+                    opt_state: Dict[str, Any]) -> None:
+    """Write ``params`` (torch name -> tensor) and ``opt_state`` (the
+    AdamW state: step, m, v) to the directory ``path``, atomically."""
+    meta = {"step": int(opt_state["step"]),
+            "dtypes": {"params": _group_dtype(params, "params"),
+                       "m": _group_dtype(opt_state["m"], "m"),
+                       "v": _group_dtype(opt_state["v"], "v")}}
+    write_checkpoint(path, {flax_path(n): _flax_numpy(n, p) for n, p in params.items()}, meta,
+                     {f"{g}/{flax_path(n)}": _flax_numpy(n, t)
+                      for g in ("m", "v") for n, t in opt_state[g].items()})
+
+
+def save_params_checkpoint(path: str, params: Mapping[str, np.ndarray]) -> None:
+    """Write float32 leaves by flax path (flax layout) as a params-only
+    checkpoint directory: no ``opt_state.npz``, and a ``meta.json`` whose
+    ``opt_state`` is false. Every reader of parameters takes it (the
+    zero-shot CLI, the warm starts, the server's ``--ckpt`` on its
+    ``params.npz``); ``load_checkpoint`` refuses it by name."""
+    bad = sorted(k for k, v in params.items() if np.asarray(v).dtype != np.float32)
+    if bad:
+        raise ValueError(f"params-only checkpoints hold float32 leaves: {bad[:5]}")
+    write_checkpoint(path, params, {"step": None, "opt_state": False,
+                                    "dtypes": {"params": "float32"}})
 
 
 def load_params(path: str) -> Dict[str, np.ndarray]:
@@ -147,6 +176,9 @@ def load_checkpoint(path: str, model: nn.Module, opt_state: Dict[str, Any],
     stage's under a stage axis)."""
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
+    if not meta.get("opt_state", True):
+        raise ValueError(f"{path} holds parameters only (no optimizer state): warm-start "
+                         f"from it (model.init_checkpoint) instead of resuming it")
     params = load_params(path)
     n_stage = 1 if mesh is None else mesh.stage
     written = {v.shape[0] for k, v in params.items() if k.split("/")[0] == STAGES}

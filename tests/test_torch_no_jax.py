@@ -1,6 +1,6 @@
 """merlot_tpu_torch imports neither jax nor flax, nor the libraries the
 card's machine may lack or that only some functions need (pyyaml, PIL,
-orbax, h5py, sacremoses, cv2), nor
+orbax, h5py, sacremoses, cv2, tensorflow, tensorstore), nor
 merlot_tpu: every module is imported in a fresh interpreter, which then
 must hold none of them. Importing builds nothing: no native library
 appears."""
@@ -21,9 +21,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in (
     "jax", "jaxlib", "flax", "yaml", "PIL", "orbax", "h5py", "sacremoses",
-    "cv2", "merlot_tpu"))
+    "cv2", "merlot_tpu", "tensorflow", "tensorstore"))
 assert not bad, bad
-assert len(names) >= 63, names
+assert len(names) >= 67, names
 assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server",
         "merlot_tpu_torch.core.tokenizer", "merlot_tpu_torch.ops.cuda_groupnorm",
         "merlot_tpu_torch.ops.cuda_ln_matmul", "merlot_tpu_torch.core.config",
@@ -48,7 +48,10 @@ assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server
         "merlot_tpu_torch.models.grover", "merlot_tpu_torch.parallel.mesh",
         "merlot_tpu_torch.tools.multiprocess_smoke",
         "merlot_tpu_torch.parallel.tensor_parallel",
-        "merlot_tpu_torch.parallel.pipeline"} <= set(names), names
+        "merlot_tpu_torch.parallel.pipeline",
+        "merlot_tpu_torch.tools.convert_tf_checkpoint",
+        "merlot_tpu_torch.tools.download_checkpoint",
+        "merlot_tpu_torch.tools.import_jax_checkpoint"} <= set(names), names
 print(len(names))
 """
 
