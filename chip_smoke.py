@@ -2,6 +2,7 @@
 """GPU drive of the PyTorch port (merlot_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--out details.json] [--parent DIR]
+    python3 chip_smoke.py --dispatch-cost [--out details.json]
 
 1. builds the kernels from csrc/ with nvcc, one process per source, all
    in parallel, then links each library: K1 (attention forward), K2
@@ -236,12 +237,32 @@
    slower rank beside one process, peak memory per rank, the hops' time
    and the bubble's share. The kernel phases hold K1 and K2 at the
    microbatch's shape (1 x 1536, 16 heads, fp32, causal).
+17. remat_and_cross phase (after the fused train phase, on its weights):
+   per-layer remat at pretrain_4seg's full width and depth, bench.py's
+   batch, hidden dropout on from one generator seed: remat off, None,
+   'dots', 'probs', 'probs_dots', and the fused configuration off and under
+   None, each a warm-up and REMAT_STEPS timed forward+backward runs held
+   bit for bit against its run without remat (loss, masked positions,
+   every grad, the generator's state), with K1/K2/K4/K5 launches per step
+   (K1 72 under None and 'dots', 36 under 'probs'), step ms and peak memory;
+   the probe (the recompute drawing new dropout masks) must fail the
+   grads' bound. K1 and K2 at cross-attention's shape (8 x 256 queries over
+   396 keys, a rectangular validity mask) and K1 at the encoder cache's
+   decode step (8 x 1 over 512 slots) against their plain versions, timed
+   beside SDPA and the bound; then a 12-layer encoder at the joint tower's
+   width: cross-attention's forward and backward through K1/K2 against the
+   plain attention (the mask dropped must fail), and 64 tokens decoded one
+   at a time into the cache after a 448-token prefix (K1 at Sq = 1), held
+   against the full causal forward and the plain decode (the future slots
+   attended must fail).
 
 Prints the card's name and power limit early, one JSON line of kernel
 records before the last line, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 ``--out`` writes the per-shape details, the phase numbers, the profile
-and the ptxas reports to a JSON file. Any
+and the ptxas reports to a JSON file. ``--dispatch-cost`` runs only the
+cost of K1's and K5's forwards going through their dispatcher ops
+(``dispatch_cost_phase``) and prints its JSON. Any
 failed check raises, so the script exits non-zero; without a CUDA card it
 exits 1 and prints no result.
 """
@@ -476,6 +497,52 @@ FUSED_SLICE_TOL = 1.5e-2
 # backward without dgamma must exceed it (1.0).
 FUSED_RESNET_GRAD_TOL = 3.0
 FUSED_GRAD_TOL = 0.025
+
+# remat_and_cross phase. Per-layer remat at pretrain_4seg's full width and
+# depth, bench.py's batch, one forward and backward with hidden dropout on
+# (one generator seed) per case: (name, remat, remat_policy, fused norms).
+# Each case is held against its run without remat (the unfused or the
+# fused one): the loss, the masked positions and every grad bit for bit,
+# since the recompute runs the same deterministic kernels on the same
+# inputs; the grads also within TRAIN_GRAD_TOL (grad_gap), which the
+# recompute without the dropout masks replayed must exceed
+REMAT_CASES = [
+    ("off", False, None, False), ("none", True, None, False), ("dots", True, "dots", False),
+    ("probs", True, "probs", False), ("probs_dots", True, "probs_dots", False),
+    ("fused_off", False, None, True), ("fused_none", True, None, True)]
+# K1/K2/K4/K5 launches per step: K1 runs again in every layer's recompute
+# unless the policy keeps its outputs ('probs', 'probs_dots'), and so does
+# K5 in the fused configuration under None; K4 sits in the stem, outside
+# the checkpointed layers
+REMAT_LAUNCHES = {"off": (36, 36, 0, 0), "none": (72, 36, 0, 0), "dots": (72, 36, 0, 0),
+                  "probs": (36, 36, 0, 0), "probs_dots": (36, 36, 0, 0),
+                  "fused_off": (36, 36, 54, 72), "fused_none": (72, 36, 54, 144)}
+REMAT_SEED = 7
+REMAT_STEPS = 3        # timed runs per case, after one warm-up
+# cross-attention and the encoder cache at the joint encoder's width (12
+# layers x 768, 12 heads, bf16, the bf16 softmax of pretrain_4seg):
+# queries B 8 x Sq 256 on an encoder source of Sk 396 (the joint tower's
+# length) under a rectangular validity mask; decoding 64 tokens one at a
+# time into max_len 512 after a 448-token cached prefix
+CROSS_B, CROSS_SQ, CROSS_SK = 8, 256, 396
+DECODE_B, DECODE_PREFIX, DECODE_LEN = 8, 448, 512
+ENC_LAYERS = 12
+# kernels vs plain versions through the 12-layer stack, and the cached
+# decode against the full causal forward: the mean |difference| of the
+# hidden states over their mean |value| (hidden_gap's mean_rel), and
+# grad_gap of the grads. The bf16 stack passes one-ulp differences (fp32
+# sums in another order in the attention, and in cuBLAS's products at
+# other row counts: 8 rows a decode step against 4,096 in the full
+# forward) on through the layers. Measured on one H100,
+# cross-attention read 1.38e-3 against the mask dropped's 1.89e-2, its
+# grads 0.025 against 0.82; the 64 decoded tokens 6.00e-3 from the full
+# forward and 6.03e-3 from the plain decode, against 1.30e-2 with the
+# future slots attended (at random init the attention is near uniform over
+# ~480 live slots, so 63 zero slots more move it little). Each bound lies
+# between the two, and each probe must exceed it
+CROSS_HIDDEN_TOL = 5e-3
+CROSS_GRAD_TOL = TRAIN_GRAD_TOL
+DECODE_HIDDEN_TOL = 9e-3
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
 # bf16 on the tensor cores, fp32 outside them, device memory
@@ -2354,6 +2421,480 @@ def ab_phase(dev) -> dict:
               "unfused_segments_per_s": [r["segments_per_s"] for r in runs if not r["fused"]],
               "fused_segments_per_s": [r["segments_per_s"] for r in runs if r["fused"]]}
     print(f"[train-ab] {json.dumps(result)}", flush=True)
+    return result
+
+
+def remat_step(model, batch, dev, seed: int = REMAT_SEED) -> tuple:
+    """One forward and backward with hidden dropout on, from a generator
+    seeded with ``seed``: (loss, masked positions, fp32 grads by name, the
+    generator's state after)."""
+    import torch
+    for p in model.parameters():
+        p.grad = None
+    g = torch.Generator(device=dev).manual_seed(seed)
+    loss, _, fwd = model(batch, deterministic=False, attn_backend="cuda", generator=g)
+    loss.backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().float()
+             for n, p in model.named_parameters()}
+    return loss.item(), fwd["lang_mask_info"]["masked_idx"], grads, g.get_state()
+
+
+def remat_cases(dev, weights) -> dict:
+    """Per-layer remat under each of REMAT_CASES: launches per step, step
+    ms (REMAT_STEPS runs after a warm-up), peak memory, and the loss and
+    grads against the run without remat; then the fault probe (None with
+    the dropout masks redrawn)."""
+    import torch
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.nn import transformer as transformer_mod
+
+    batch = pretrain_batch(MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL), dev)
+    cases, refs = {}, {}
+
+    def build(remat, policy, fused):
+        model = MerlotPretrainModel(MerlotConfig.from_dict(dict(
+            PRETRAIN_4SEG_MODEL, remat=remat, remat_policy=policy, fuse_ln_matmul=fused)),
+            device=dev)
+        model.load_state_dict(weights)
+        return model
+
+    for name, remat, policy, fused in REMAT_CASES:
+        model = build(remat, policy, fused)
+        with fused_norms() if fused else contextlib.nullcontext():
+            remat_step(model, batch, dev)                      # warm-up
+            for p in model.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()                # counts set to 0 just before the runs
+            step_ms, per_step, grads = [], [], None
+            for _ in range(REMAT_STEPS):
+                grads = None              # the last run's grads are freed first
+                before = counts()
+                t0 = time.perf_counter()
+                loss, masked, grads, gen_state = remat_step(model, batch, dev)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+            peak = torch.cuda.max_memory_allocated(dev)
+            launched = counts()           # and read just after
+        check(len(set(per_step)) == 1, f"remat {name}: launches differ by step {per_step}")
+        case = {"remat": remat, "policy": policy, "fused": fused, "loss": loss,
+                "launches": list(launched), "launches_per_step": list(per_step[0]),
+                "step_ms": step_ms,
+                "step_ms_median": statistics.median(step_ms),
+                # the peak, and above what was allocated before the runs (the
+                # weights, and the reference runs' grads kept for comparison)
+                "peak_mem_gib": peak / 2**30, "peak_above_base_gib": (peak - base) / 2**30}
+        if not remat:
+            refs[fused] = (loss, masked, grads, gen_state)
+        else:
+            r_loss, r_masked, r_grads, r_state = refs[fused]
+            case.update({
+                "loss_equal": loss == r_loss, "masked_equal": torch.equal(masked, r_masked),
+                "grads_bitwise": all(torch.equal(grads[n], r) for n, r in r_grads.items()),
+                "generator_state_equal": torch.equal(gen_state, r_state),
+                "grads_vs_off": grad_gap(grads, r_grads)})
+        if name == "none":
+            # the fault probe: the recompute draws new dropout masks
+            no_replay = lambda f: lambda policy, generator: f(policy, None)
+            with wrapped(transformer_mod, "_remat_contexts", no_replay):
+                case["masks_redrawn_vs_off"] = grad_gap(remat_step(model, batch, dev)[2],
+                                                        refs[False][2])
+        cases[name] = case
+        print(f"[remat] {name} {json.dumps(case)}", flush=True)
+        del model, grads
+        torch.cuda.empty_cache()
+    for name, case in cases.items():
+        check(tuple(case["launches_per_step"]) == REMAT_LAUNCHES[name],
+              f"remat {name}: K1/K2/K4/K5 launches {case['launches_per_step']}, "
+              f"want {REMAT_LAUNCHES[name]}")
+        check(math.isfinite(case["loss"]), f"remat {name}: loss {case['loss']}")
+        if case["remat"]:
+            check(case["loss_equal"] and case["masked_equal"] and case["generator_state_equal"]
+                  and case["grads_bitwise"],
+                  f"remat {name}: loss, masking, the generator's state or a grad differ "
+                  f"from off")
+            check(case["grads_vs_off"]["max_rel"] <= TRAIN_GRAD_TOL,
+                  f"remat {name}: grads {case['grads_vs_off']} > {TRAIN_GRAD_TOL}")
+    check(cases["none"]["masks_redrawn_vs_off"]["max_rel"] > TRAIN_GRAD_TOL,
+          f"a recompute with new dropout masks moves the grads by only "
+          f"{cases['none']['masks_redrawn_vs_off']}: the remat comparison cannot see it")
+    return cases
+
+
+DISPATCH_CALLS = 300   # host-timed calls per reading at the per-call shapes
+DISPATCH_ROUNDS = 3    # op, direct, direct, op: this many times
+DISPATCH_STEPS = 3     # timed steps (or batches) per reading, after one warm-up
+
+
+def host_ms(call, n: int) -> float:
+    """Host ms per call of call() over n calls, the card drained after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def op_vs_direct(call, n: int) -> dict:
+    """call()'s ms with K1's and K5's forwards through their dispatcher
+    ops (``named_ops.through_ops``, as under a selective remat policy) and
+    called directly (the port's default), in turns (op, direct, direct,
+    op; DISPATCH_ROUNDS times): every reading, and the median of each."""
+    from merlot_tpu_torch.ops import named_ops
+    readings = {"op": [], "direct": []}
+    for way in ("op", "direct"):
+        with named_ops.through_ops() if way == "op" else contextlib.nullcontext():
+            call()
+    for _ in range(DISPATCH_ROUNDS):
+        for way in ("op", "direct", "direct", "op"):
+            with named_ops.through_ops() if way == "op" else contextlib.nullcontext():
+                readings[way].append(host_ms(call, n))
+    op, direct = (statistics.median(readings[w]) for w in ("op", "direct"))
+    return {"readings_ms": readings, "op_ms": op, "direct_ms": direct,
+            "op_minus_direct_ms": op - direct}
+
+
+def dispatch_cost_phase(dev) -> dict:
+    """What K1's and K5's forwards cost by going through their dispatcher
+    ops (so that a remat policy can name them; the port takes them only
+    inside such a checkpoint) against calling the same functions
+    directly, on one host in turns: host ms per call at the
+    decode step's K1 (8 x 1 over 512 slots) and at a small K5 (64 rows,
+    q/k/v), where the host's work outlasts the card's; then per
+    pretrain_4seg forward and backward (bench.py's batch, remat off,
+    unfused and fused) and per zero-shot batch (pretrain_5seg)."""
+    import torch
+    from merlot_tpu_torch.downstream.sort_story.zero_shot import make_zero_shot_fn
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.merlot import MerlotModel
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.nn.layers import init_params
+    from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.ops import cuda_ln_matmul as lm
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    hd = HEADS * D_HEAD
+    q = torch.randn((DECODE_B, 1, HEADS, D_HEAD), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((DECODE_B, DECODE_LEN, HEADS, D_HEAD), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    mask = torch.ones((DECODE_B, 1, DECODE_LEN), device=dev)
+    x = torch.randn((64, hd), generator=g, device=dev).to(torch.bfloat16)
+    gamma, beta = torch.ones(hd, device=dev), torch.zeros(hd, device=dev)
+    ws = [0.02 * torch.randn((hd, hd), generator=g, device=dev) for _ in range(3)]
+    bs = [torch.zeros(hd, device=dev) for _ in range(3)]
+    out = {"per_call": {
+        "k1_decode": op_vs_direct(lambda: ca.flash_attention(q, k, v, mask),
+                                  DISPATCH_CALLS),
+        "k5_qkv_64_rows": op_vs_direct(lambda: lm.ln_matmul(x, gamma, beta, ws, bs),
+                                       DISPATCH_CALLS)}}
+    del q, k, v, mask, x, ws, bs
+
+    cfg = MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL)
+    batch = pretrain_batch(cfg, dev)
+    for fused in (False, True):
+        model = MerlotPretrainModel(MerlotConfig.from_dict(
+            dict(PRETRAIN_4SEG_MODEL, fuse_ln_matmul=fused)), device=dev)
+        init_params(model, torch.Generator(device=dev).manual_seed(0))
+        with fused_norms() if fused else contextlib.nullcontext():
+            out["fused_step" if fused else "step"] = op_vs_direct(
+                lambda: remat_step(model, batch, dev), DISPATCH_STEPS)
+        del model
+        torch.cuda.empty_cache()
+    del batch
+
+    zcfg = MerlotConfig.from_dict(PRETRAIN_5SEG_MODEL).eval_mode()
+    model = MerlotModel(zcfg, device=dev).eval()
+    init_params(model, torch.Generator(device=dev).manual_seed(0))
+    fn = make_zero_shot_fn(STORIES, CHUNKS)
+    stories = synthetic_stories(0, zcfg.image_size, dev)
+    out["zero_shot_batch"] = op_vs_direct(lambda: fn(model, *stories), DISPATCH_STEPS)
+    for name, r in out["per_call"].items():
+        check(r["op_ms"] > 0 and r["direct_ms"] > 0, f"dispatch cost {name}: {r}")
+    return out
+
+
+def rect_attn_bound(b, sq, sk, masked: bool, backward: bool, heads=HEADS, d=D_HEAD,
+                    pairs=None, keys=None) -> tuple:
+    """bound() of one bf16 K1 (K2 with ``backward``) call with Sq queries
+    over Sk keys: the products over the (query, key) pairs (``pairs``, all
+    b*sq*sk by default), each input read once and each output written once.
+    ``keys``: the key rows (summed over the batch) the call needs, all b*sk
+    by default; K/V and the mask are counted over those rows only (past a
+    decode step's live slots the mask is 0 and the probs exactly 0)."""
+    pairs = b * sq * sk if pairs is None else pairs
+    keys = b * sk if keys is None else keys
+    flops = 2 * (5 if backward else 2) * heads * pairs * d
+    q_side, k_side = b * sq * heads * d * 2, keys * heads * d * 2
+    nbytes = (3 * q_side + 4 * k_side) if backward else (2 * q_side + 2 * k_side)
+    nbytes += 4 * sq * keys if masked else 0
+    return bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+def rect_kernel_rows(dev) -> tuple:
+    """K1 and K2 at cross-attention's shape (Sq 256, Sk 396, a rectangular
+    validity mask with fully masked rows) and K1 at the decode step's (Sq 1
+    over the 512-slot cache, each element's live slots masked in), bf16
+    softmax, against their plain versions under the kernel phases' bounds,
+    with their fault probes (the other softmax mode), beside the plain
+    versions', SDPA's and the bound's times."""
+    import torch
+    import torch.nn.functional as F
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    hd = HEADS * D_HEAD
+    b, sq, sk = CROSS_B, CROSS_SQ, CROSS_SK
+    q = torch.randn((b, sq, hd), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, sk, hd), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    valid_q = torch.rand((b, sq), generator=g, device=dev) > 0.15
+    valid_k = torch.rand((b, sk), generator=g, device=dev) > 0.15
+    valid_k[:, 0] = True
+    mask = (valid_q[:, :, None] & valid_k[:, None]).float()
+    do = (0.1 * torch.randn((b, sq, hd), generator=g, device=dev)).to(torch.bfloat16)
+    kw = dict(num_heads=HEADS, softmax_fp32=False)
+    stats = ca.new_stats(q, HEADS)
+    ctx, _ = ca.attention_fwd_cuda(q, k, v, mask, collect_colsum=False, stats=stats, **kw)
+    grads = ca.attention_bwd_cuda(q, k, v, mask, do, None, stats=stats, **kw)
+    torch.cuda.synchronize()
+    ref, _ = ca.flash_attention_plain(q, k, v, mask, collect_colsum=False, **kw)
+    other, _ = ca.flash_attention_plain(q, k, v, mask, collect_colsum=False, num_heads=HEADS,
+                                        softmax_fp32=True)
+    ref_g = ca.attention_bwd_plain(q, k, v, mask, do, None, **kw)
+    other_g = ca.attention_bwd_plain(q, k, v, mask, do, None, num_heads=HEADS,
+                                     softmax_fp32=True)
+    diff = (ctx.float() - ref.float()).abs()
+    bi, qi = torch.nonzero(~valid_q, as_tuple=True)
+    uniform = v.float().mean(dim=1)[bi]      # over the true Sk, masked keys too
+    bias = ((mask - 1.0) * 1e10).to(q.dtype)[:, None]     # as sdpa_args makes it
+    views = [t.view(b, t.shape[1], HEADS, D_HEAD).transpose(1, 2) for t in (q, k, v)]
+    leaves = [t.detach().requires_grad_() for t in views]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    do4 = do.view(b, sq, HEADS, D_HEAD).transpose(1, 2)
+    cross_fwd = {
+        "shape": "cross_k1", "batch": b, "sq": sq, "sk": sk, "softmax": "bf16",
+        "max_abs_err": diff.max().item(),
+        "max_abs_err_bound": CTX_ULPS * bf16_ulp(ref.float().abs().max().item()),
+        "mean_abs_err": diff.mean().item(),
+        "other_softmax_mean_abs_diff": (other.float() - ref.float()).abs().mean().item(),
+        "masked_row_uniform_err": (ctx[bi, qi].float() - uniform).abs().max().item(),
+        "masked_row_uniform_bound": UNIFORM_ULPS * bf16_ulp(uniform.abs().max().item()),
+        "ms": cuda_ms(lambda: ca.attention_fwd_cuda(q, k, v, mask, collect_colsum=False,
+                                                    stats=stats, **kw)),
+        "plain_ms": cuda_ms(lambda: ca.flash_attention_plain(q, k, v, mask,
+                                                             collect_colsum=False, **kw)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*views, attn_mask=bias)),
+        "library_note": "fp32 softmax (not the bf16-softmax rounding)"}
+    cross_fwd["bound_ms"], cross_fwd["bound_by"] = rect_attn_bound(b, sq, sk, True, False)
+    cross_bwd = {
+        "shape": "cross_k2", "batch": b, "sq": sq, "sk": sk, "softmax": "bf16",
+        "grads": grad_errors(grads, ref_g),
+        "other_softmax_mean_abs_diff": min(e["mean_abs_err"] for e in
+                                           grad_errors(other_g, ref_g).values()),
+        "dq_masked_rows_max_abs": grads[0][bi, qi].float().abs().max().item(),
+        "ms": cuda_ms(lambda: ca.attention_bwd_cuda(q, k, v, mask, do, None, stats=stats,
+                                                    **kw)),
+        "plain_ms": cuda_ms(lambda: ca.attention_bwd_plain(q, k, v, mask, do, None, **kw)),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, do4,
+                                                          retain_graph=True)),
+        "library_note": "backward of scaled_dot_product_attention: fp32 softmax; "
+                        "not the same rounding"}
+    cross_bwd["max_abs_err"] = max(e["max_abs_err"] for e in cross_bwd["grads"].values())
+    cross_bwd["bound_ms"], cross_bwd["bound_by"] = rect_attn_bound(b, sq, sk, True, True)
+
+    # the decode step: one query per element over the cache's 512 slots,
+    # live slots up to a position that differs by element
+    b, sk = DECODE_B, DECODE_LEN
+    pos = DECODE_PREFIX + torch.arange(b, device=dev) * 8
+    qd = torch.randn((b, 1, hd), generator=g, device=dev).to(torch.bfloat16)
+    kd, vd = (torch.randn((b, sk, hd), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    dmask = (torch.arange(sk, device=dev)[None, None] <= pos[:, None, None]).float()
+    dctx, _ = ca.attention_fwd_cuda(qd, kd, vd, dmask, collect_colsum=False, **kw)
+    torch.cuda.synchronize()
+    dref, _ = ca.flash_attention_plain(qd, kd, vd, dmask, collect_colsum=False, **kw)
+    dother, _ = ca.flash_attention_plain(qd, kd, vd, dmask, collect_colsum=False,
+                                         num_heads=HEADS, softmax_fp32=True)
+    ddiff = (dctx.float() - dref.float()).abs()
+    dbias = ((dmask - 1.0) * 1e10).to(qd.dtype)[:, None]
+    dviews = [t.view(b, t.shape[1], HEADS, D_HEAD).transpose(1, 2) for t in (qd, kd, vd)]
+    decode = {
+        "shape": "decode_k1", "batch": b, "sq": 1, "sk": sk, "softmax": "bf16",
+        "max_abs_err": ddiff.max().item(),
+        "max_abs_err_bound": CTX_ULPS * bf16_ulp(dref.float().abs().max().item()),
+        "mean_abs_err": ddiff.mean().item(),
+        "other_softmax_mean_abs_diff": (dother.float() - dref.float()).abs().mean().item(),
+        "ms": queued_ms(lambda: ca.attention_fwd_cuda(qd, kd, vd, dmask, collect_colsum=False,
+                                                      **kw)),
+        "plain_ms": queued_ms(lambda: ca.flash_attention_plain(qd, kd, vd, dmask,
+                                                               collect_colsum=False, **kw)),
+        "library_ms": queued_ms(lambda: F.scaled_dot_product_attention(*dviews,
+                                                                       attn_mask=dbias)),
+        "library_note": "fp32 softmax over all 512 slots"}
+    # over the live slots (what the step needs), and over the whole cache
+    live = int((pos + 1).sum().item())
+    decode["live_slots"] = live
+    decode["bound_ms"], decode["bound_by"] = rect_attn_bound(b, 1, sk, True, False,
+                                                             pairs=live, keys=live)
+    decode["bound_whole_cache_ms"], _ = rect_attn_bound(b, 1, sk, True, False)
+    rows = [cross_fwd, cross_bwd, decode]
+    for row in rows:
+        print(f"[kernel-rect] {json.dumps(row)}", flush=True)
+    for row in (cross_fwd, decode):
+        check(row["max_abs_err"] <= row["max_abs_err_bound"],
+              f"{row['shape']}: ctx max err {row['max_abs_err']} > {row['max_abs_err_bound']}")
+        check(row["mean_abs_err"] <= CTX_MEAN_TOL < row["other_softmax_mean_abs_diff"],
+              f"{row['shape']}: ctx mean err {row['mean_abs_err']} (bound {CTX_MEAN_TOL}), "
+              f"the other softmax mode {row['other_softmax_mean_abs_diff']}")
+    check(cross_fwd["masked_row_uniform_err"] <= cross_fwd["masked_row_uniform_bound"],
+          f"cross_k1: fully masked rows not uniform ({cross_fwd['masked_row_uniform_err']})")
+    for name, e in cross_bwd["grads"].items():
+        check(e["max_abs_err"] <= e["max_abs_err_bound"] and e["mean_abs_err"] <= GRAD_MEAN_TOL,
+              f"cross_k2: {name} errors {e}")
+    check(cross_bwd["other_softmax_mean_abs_diff"] > GRAD_MEAN_TOL,
+          f"cross_k2: the other softmax mode passes the mean bound "
+          f"({cross_bwd['other_softmax_mean_abs_diff']})")
+    check(cross_bwd["dq_masked_rows_max_abs"] == 0.0,
+          f"cross_k2: dQ on fully masked rows is not 0 ({cross_bwd['dq_masked_rows_max_abs']})")
+    return rows
+
+
+def hidden_gap(a, b) -> dict:
+    """The largest |a - b| over the largest |b|, and the mean |a - b| over
+    the mean |b|."""
+    diff, ref = (a.float() - b.float()).abs(), b.float().abs()
+    return {"max_rel": (diff.max() / ref.max()).item(),
+            "mean_rel": (diff.mean() / ref.mean()).item()}
+
+
+def cross_and_decode(dev) -> dict:
+    """A 12-layer encoder at the joint tower's width (seeded weights):
+    cross-attention forward and backward through K1/K2 against the plain
+    attention, and the cached decode through K1 at Sq = 1 against the full
+    causal forward and against the plain decode, each with a fault probe."""
+    import torch
+    from merlot_tpu_torch.nn.layers import init_params
+    from merlot_tpu_torch.nn.transformer import TransformerEncoder, TransformerHParams
+    from merlot_tpu_torch.ops import cuda_attention as ca
+
+    hp = TransformerHParams(hidden_size=HEADS * D_HEAD, num_layers=ENC_LAYERS, num_heads=HEADS,
+                            intermediate_size=4 * HEADS * D_HEAD, dtype=torch.bfloat16,
+                            softmax_fp32=False)
+    enc = TransformerEncoder(hp, device=dev)
+    init_params(enc, torch.Generator(device=dev).manual_seed(13))
+    g = torch.Generator(device=dev).manual_seed(14)
+    b, sq, sk, h = CROSS_B, CROSS_SQ, CROSS_SK, hp.hidden_size
+    x = torch.randn((b, sq, h), generator=g, device=dev)
+    x_enc = torch.randn((b, sk, h), generator=g, device=dev)
+    valid_q = torch.rand((b, sq), generator=g, device=dev) > 0.15
+    valid_k = torch.rand((b, sk), generator=g, device=dev) > 0.15
+    valid_k[:, 0] = True
+    mask = (valid_q[:, :, None] & valid_k[:, None]).float()
+    r = torch.randn((b, sq, h), generator=g, device=dev) * valid_q[..., None]
+
+    def fwd_bwd(backend, m=mask):
+        enc.zero_grad(set_to_none=True)
+        tx, te = (t.clone().requires_grad_() for t in (x, x_enc))
+        hid = enc(tx, m, x_enc=te, attn_backend=backend)["hidden_state"]
+        (hid.float() * r).sum().backward()
+        grads = {n: p.grad.float().clone() for n, p in enc.named_parameters()}
+        grads.update(x=tx.grad.float(), x_enc=te.grad.float())
+        return hid.detach(), grads
+
+    fwd_bwd("cuda")                                            # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k_hid, k_grads = fwd_bwd("cuda")
+    torch.cuda.synchronize()
+    cross_ms = 1e3 * (time.perf_counter() - t0)
+    cross_launches = counts()[:2]
+    p_hid, p_grads = fwd_bwd("plain")
+    check(counts()[:2] == cross_launches, "the plain cross-attention run launched a kernel")
+    nm_hid, nm_grads = fwd_bwd("plain", torch.ones_like(mask))
+    cross = {"layers": ENC_LAYERS, "batch": b, "sq": sq, "sk": sk,
+             "launches": list(cross_launches), "fwd_bwd_ms": cross_ms,
+             "hidden_vs_plain": hidden_gap(k_hid, p_hid),
+             "grads_vs_plain": grad_gap(k_grads, p_grads),
+             "mask_dropped_hidden_vs_plain": hidden_gap(nm_hid, p_hid),
+             "mask_dropped_grads_vs_plain": grad_gap(nm_grads, p_grads)}
+    del k_grads, p_grads, nm_grads
+    print(f"[cross] {json.dumps(cross)}", flush=True)
+    check(cross["launches"] == [ENC_LAYERS, ENC_LAYERS],
+          f"cross-attention K1/K2 launches {cross['launches']}, want {ENC_LAYERS} each")
+    check(cross["hidden_vs_plain"]["mean_rel"] <= CROSS_HIDDEN_TOL
+          < cross["mask_dropped_hidden_vs_plain"]["mean_rel"],
+          f"cross-attention hidden states: kernels {cross['hidden_vs_plain']}, mask dropped "
+          f"{cross['mask_dropped_hidden_vs_plain']} (bound {CROSS_HIDDEN_TOL})")
+    check(cross["grads_vs_plain"]["max_rel"] <= CROSS_GRAD_TOL
+          < cross["mask_dropped_grads_vs_plain"]["max_rel"],
+          f"cross-attention grads: kernels {cross['grads_vs_plain']}, mask dropped "
+          f"{cross['mask_dropped_grads_vs_plain']} (bound {CROSS_GRAD_TOL})")
+
+    # decode: the full causal forward, then a 448-token prefix and 64 tokens
+    # one at a time through the cache
+    b, n = DECODE_B, DECODE_LEN
+    xs = torch.randn((b, n, h), generator=g, device=dev)
+    ar = torch.arange(n, device=dev)
+
+    def rows_mask(t0, t1):  # query rows t0..t1-1 over the n slots
+        return (ar[None, None] <= ar[t0:t1, None][None]).float().expand(b, -1, -1).contiguous()
+
+    def decode(backend, future=False):
+        cache = enc.init_cache(b, n)
+        outs = [enc(xs[:, :DECODE_PREFIX], rows_mask(0, DECODE_PREFIX), cache=cache,
+                    cache_pos=0, attn_backend=backend)["hidden_state"]]
+        spans = []
+        for t in range(DECODE_PREFIX, n):
+            m = torch.ones((b, 1, n), device=dev) if future else rows_mask(t, t + 1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs.append(enc(xs[:, t:t + 1], m, cache=cache, cache_pos=t,
+                            attn_backend=backend)["hidden_state"])
+            end.record()
+            spans.append((start, end))
+        torch.cuda.synchronize()
+        return torch.cat(outs, dim=1), spans_ms(spans) / (n - DECODE_PREFIX)
+
+    with torch.no_grad():
+        full = enc(xs, rows_mask(0, n), attn_backend="cuda")["hidden_state"]
+        reset_counts()
+        k_dec, k_ms = decode("cuda")
+        dec_launches = counts()[0]
+        p_dec, p_ms = decode("plain")
+        bad, _ = decode("cuda", future=True)
+    tail = slice(DECODE_PREFIX, n)
+    dec = {"layers": ENC_LAYERS, "batch": b, "prefix": DECODE_PREFIX, "max_len": n,
+           "k1_launches": dec_launches, "ms_per_token": k_ms, "plain_ms_per_token": p_ms,
+           "prefix_vs_full": hidden_gap(k_dec[:, :DECODE_PREFIX], full[:, :DECODE_PREFIX]),
+           "decoded_tokens_vs_full": hidden_gap(k_dec[:, tail], full[:, tail]),
+           "decoded_tokens_vs_plain_decode": hidden_gap(k_dec[:, tail], p_dec[:, tail]),
+           "future_slots_attended_vs_full": hidden_gap(bad[:, tail], full[:, tail])}
+    print(f"[decode] {json.dumps(dec)}", flush=True)
+    check(dec_launches == ENC_LAYERS * (1 + n - DECODE_PREFIX),
+          f"decode K1 launches {dec_launches}, want {ENC_LAYERS * (1 + n - DECODE_PREFIX)}")
+    check(max(dec["decoded_tokens_vs_full"]["mean_rel"],
+              dec["decoded_tokens_vs_plain_decode"]["mean_rel"])
+          <= DECODE_HIDDEN_TOL < dec["future_slots_attended_vs_full"]["mean_rel"],
+          f"decode: against the full forward {dec['decoded_tokens_vs_full']}, against the "
+          f"plain decode {dec['decoded_tokens_vs_plain_decode']}, future slots attended "
+          f"{dec['future_slots_attended_vs_full']} (bound {DECODE_HIDDEN_TOL})")
+    return {"cross": cross, "decode": dec}
+
+
+def remat_and_cross_phase(dev, weights) -> dict:
+    """Per-layer remat at pretrain_4seg (``remat_cases``), then K1/K2 at
+    cross-attention's and decode's shapes (``rect_kernel_rows``) and both
+    paths through the encoder (``cross_and_decode``)."""
+    result = {"remat": remat_cases(dev, weights), "kernel_rows": rect_kernel_rows(dev)}
+    result.update(cross_and_decode(dev))
     return result
 
 
@@ -5806,11 +6347,28 @@ def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict
             for k in ("plain_ms", "library_ms", "bound_ms")}
 
 
+def remat_launches(rc: dict, i: int) -> dict:
+    """Launches of kernel ``i`` (K1, K2, K4, K5) over each remat case's
+    timed steps, where it launched."""
+    return {f"remat_{name}": c["launches"][i] for name, c in rc["remat"].items()
+            if c["launches"][i]}
+
+
+def rect_row(rc: dict, shape: str) -> dict:
+    """A cross-attention or decode kernel row's times and bound per call."""
+    row = {r["shape"]: r for r in rc["kernel_rows"]}[shape]
+    return {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "bound_whole_cache_ms") if k in row}
+
+
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
+    k1_rc = {**remat_launches(rc, 0), "cross_attention": rc["cross"]["launches"][0],
+             "encoder_cache_decode": rc["decode"]["k1_launches"]}
+    k2_rc = {**remat_launches(rc, 1), "cross_attention": rc["cross"]["launches"][1]}
     first = {k: fd["per_path"][k]["first_design_ms"] if fd else None
              for k in ("k1_zero_shot_batch", "k1_train_step", "k2_train_step", "k3_prefill",
                        "k3_decode_step", "k4_train_step", "k4_zero_shot_batch",
@@ -5829,8 +6387,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         + vcr["launches"]["attention_fwd"] + sum(e["launches"] for e in vcr["eval"].values())
         + gt["launches"]["attention_fwd"] + gt["roundtrip"]["launches"]["attention_fwd"]
         + sum(k1 for _, k1, _ in cp["launches_per_step"]) + dp["launches"]["attention_fwd"]
-        + tp["launches"]["attention_fwd"] + ppl["launches"]["attention_fwd"],
-        "launches_by_path": {"zero_shot": sl["launches"],
+        + tp["launches"]["attention_fwd"] + ppl["launches"]["attention_fwd"]
+        + sum(k1_rc.values()),
+        "launches_by_path": {**k1_rc, "zero_shot": sl["launches"],
                              "train": tr["launches"]["attention_fwd"],
                              "pretrain_cli": cli["launches"]["attention_fwd"],
                              "zero_shot_cli": zs_cli["launches"],
@@ -5851,7 +6410,14 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                                  tp["launches"]["attention_fwd"],
                              "pipeline_parallel_grover_both_ranks":
                                  ppl["launches"]["attention_fwd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
+        "max_abs_err": max([r["max_abs_err"] for r in k1_rows]
+                           + [r["max_abs_err"] for r in rc["kernel_rows"]
+                              if r["shape"] != "cross_k2"]),
+        # per call at cross-attention's shape (8 x 256 queries over 396
+        # keys, a rectangular mask) and at the encoder cache's decode step
+        # (8 x 1 query over 512 slots), from the remat_and_cross phase
+        "cross_per_call": rect_row(rc, "cross_k1"),
+        "decode_per_call": rect_row(rc, "decode_k1"),
         # per zero-shot batch on the main path (24 launches), median over
         # the batches: the kernel, and the plain attention in the same
         # model's plain run
@@ -5913,8 +6479,9 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "launches": tr["launches"]["attention_bwd"] + cli["launches"]["attention_bwd"]
         + vcr["launches"]["attention_bwd"] + gt["launches"]["attention_bwd"]
         + sum(k2 for _, _, k2 in cp["launches_per_step"]) + dp["launches"]["attention_bwd"]
-        + tp["launches"]["attention_bwd"] + ppl["launches"]["attention_bwd"],
-        "launches_by_path": {"train": tr["launches"]["attention_bwd"],
+        + tp["launches"]["attention_bwd"] + ppl["launches"]["attention_bwd"]
+        + sum(k2_rc.values()),
+        "launches_by_path": {**k2_rc, "train": tr["launches"]["attention_bwd"],
                              "pretrain_cli": cli["launches"]["attention_bwd"],
                              "vcr_train": vcr["launches"]["attention_bwd"],
                              "grover_train": gt["launches"]["attention_bwd"],
@@ -5928,7 +6495,10 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                                  tp["launches"]["attention_bwd"],
                              "pipeline_parallel_grover_both_ranks":
                                  ppl["launches"]["attention_bwd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "max_abs_err": max([r["max_abs_err"] for r in k2_rows]
+                           + [{r["shape"]: r for r in rc["kernel_rows"]}["cross_k2"]
+                              ["max_abs_err"]]),
+        "cross_per_call": rect_row(rc, "cross_k2"),
         "ms": tr["k2_ms"], "plain_ms": tr["plain_k2_ms_per_step"],
         "bound_ms": 12 * sum(tb[n]["bound_ms"] for n in train_shapes),
         "bound_by": tb["pretrain_vit"]["bound_by"],
@@ -6025,9 +6595,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "name": "groupnorm", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/groupnorm.cu",
         "replaces": "merlot_tpu/ops/pallas_groupnorm.py:151",
-        "launches": fsl["launches"]["groupnorm"] + ftr["launches"]["groupnorm"],
+        "launches": fsl["launches"]["groupnorm"] + ftr["launches"]["groupnorm"]
+        + sum(remat_launches(rc, 2).values()),
         "launches_by_path": {"zero_shot_fused": fsl["launches"]["groupnorm"],
-                             "train_fused": ftr["launches"]["groupnorm"]},
+                             "train_fused": ftr["launches"]["groupnorm"],
+                             **remat_launches(rc, 2)},
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
         "ms": fprof["families"]["K4 groupnorm"]["ms"] / fprof["steps"],
         "event_ms": ftr["k4_ms"],
@@ -6051,9 +6623,11 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "name": "ln_matmul", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/ln_matmul.cu",
         "replaces": "merlot_tpu/ops/pallas_ln_matmul.py:117",
-        "launches": fsl["launches"]["ln_matmul"] + ftr["launches"]["ln_matmul"],
+        "launches": fsl["launches"]["ln_matmul"] + ftr["launches"]["ln_matmul"]
+        + sum(remat_launches(rc, 3).values()),
         "launches_by_path": {"zero_shot_fused": fsl["launches"]["ln_matmul"],
-                             "train_fused": ftr["launches"]["ln_matmul"]},
+                             "train_fused": ftr["launches"]["ln_matmul"],
+                             **remat_launches(rc, 3)},
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         "ms": fprof["families"]["K5 ln_matmul"]["ms"] / fprof["steps"],
         "event_ms": ftr["k5_ms"],
@@ -6104,6 +6678,9 @@ def main() -> int:
                          "--pp-dir; the phase starts both)")
     ap.add_argument("--pp-ports", help="with --pp-child: the process groups' ports")
     ap.add_argument("--pp-dir", help="with --pp-child: the phase's directory")
+    ap.add_argument("--dispatch-cost", action="store_true",
+                    help="only K1's and K5's forwards through their dispatcher ops against "
+                         "direct calls, in turns (dispatch_cost_phase)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -6119,6 +6696,17 @@ def main() -> int:
     if args.pp_child is not None:
         return pp_child(args.pp_child, args.pp_ports, args.pp_dir)
     from merlot_tpu_torch import _build
+    if args.dispatch_cost:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = card_line()
+        print(card, flush=True)
+        _build.build_libraries(("attention_fwd", "attention_bwd", "groupnorm", "ln_matmul"))
+        result = {"card": card, "dispatch_cost": dispatch_cost_phase(torch.device("cuda", 0))}
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps(result), flush=True)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6174,9 +6762,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("train")
     ftr, fprof = fused_train_phase(dev, ref)
-    del ref
     torch.cuda.empty_cache()
     lap("fused_train")
+    rc = remat_and_cross_phase(dev, ref["state"])
+    del ref
+    torch.cuda.empty_cache()
+    lap("remat_and_cross")
     ab = ab_phase(dev)
     lap("train_ab")
     gv = grover_phase(dev)
@@ -6207,7 +6798,7 @@ def main() -> int:
     lap("pipeline_parallel")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6218,7 +6809,8 @@ def main() -> int:
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
-             "fused_train": ftr, "fused_profile": fprof, "train_ab": ab,
+             "fused_train": ftr, "fused_profile": fprof, "remat_and_cross": rc,
+             "train_ab": ab,
              "grover": gv, "server": sv, "cli": cli, "zero_shot_cli": zs_cli,
              "vcr": vcr, "data_parallel": dp, "grover_train": gt, "corpus": cp,
              "tensor_parallel": tp, "pipeline_parallel": ppl,

@@ -3,11 +3,12 @@
 Copied rather than imported because importing anything under ``merlot_tpu``
 loads jax and flax (``merlot_tpu/__init__.py``), and this package never
 does. The fields, defaults and ``from_dict`` are identical, so a config
-built for one package builds the other. Execution-strategy fields that the
-PyTorch port does not implement (``scan_layers``, ``remat``,
-``fused_qkv*``, ``stem_space_to_depth``) are kept so that configs parse
-unchanged; the modules refuse or ignore them. ``fuse_ln_matmul`` is ported
-(K5, ``ops/cuda_ln_matmul.py``).
+built for one package builds the other. Of the execution-strategy fields,
+``fuse_ln_matmul`` (K5, ``ops/cuda_ln_matmul.py``) and ``remat`` with
+``remat_policy`` (``nn/transformer.py``) are ported; ``scan_layers`` and
+``fused_qkv_params`` change the parameter tree and are refused;
+``fused_qkv`` and ``stem_space_to_depth`` are the same math over the same
+parameters, which the port runs in their unfused form.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ class MerlotConfig:
     remat: bool = False         # checkpoint each layer in backward
     # remat policy: None (recompute all) | 'dots' (save matmul outputs,
     # recompute elementwise) | 'dots_no_batch' (save weight-stationary only)
+    # | 'probs' (save the attention's probs) | 'probs_dots' (both)
     remat_policy: Optional[str] = None
     # fp32 softmax (default, safer) vs compute-dtype softmax (the
     # reference's bf16 behaviour; halves attention HBM traffic)

@@ -96,8 +96,8 @@ class MerlotModel(nn.Module):
         dtype = torch.bfloat16 if c.use_bfloat16 else torch.float32
         self.compute_dtype = dtype
         # fused_qkv and stem_space_to_depth are the same math over the same
-        # parameters; the port runs the unfused form. fuse_ln_matmul is
-        # passed on to all three towers (K5).
+        # parameters; the port runs the unfused form. fuse_ln_matmul, remat
+        # and remat_policy are passed on to all three towers.
 
         vit_hp = TransformerHParams(
             hidden_size=c.hidden_size, num_layers=c.vit_num_layers,
@@ -108,7 +108,7 @@ class MerlotModel(nn.Module):
                                  else c.hidden_dropout_prob),
             attention_probs_dropout_prob=c.attention_probs_dropout_prob,
             dtype=dtype, softmax_fp32=c.attention_softmax_fp32,
-            fuse_ln_matmul=c.fuse_ln_matmul)
+            fuse_ln_matmul=c.fuse_ln_matmul, remat=c.remat, remat_policy=c.remat_policy)
         self.vision_backbone = VisionBackbone(
             patch_size=c.patch_size, hidden_size=c.hidden_size,
             num_cls_emb=c.num_cls_emb, resnet_layers=tuple(c.resnet_layers),

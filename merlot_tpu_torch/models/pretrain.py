@@ -161,17 +161,21 @@ class MerlotPretrainModel(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 deterministic: bool = False,
+                collect_attention: str = "none",
                 attn_backend: str = "auto",
                 generator: Optional[torch.Generator] = None,
                 masking_draws: Optional[Dict[str, torch.Tensor]] = None,
                 mesh: Optional[Mesh] = None):
         """``mesh``: the batch is this rank's rows of the global batch and
         the loss and metrics are this rank's shares of the global ones
-        (the module docstring)."""
+        (the module docstring). ``collect_attention='probs'`` adds the
+        joint encoder's cross-modal attention mass to the metrics under
+        ``attn/``."""
         cfg = self.cfg
         fwd = self.merlot(
             batch["images"], batch["input_ids"], mask_input=True,
-            shuffled_idx_img=batch["shuffled_idx_img"], deterministic=deterministic,
+            shuffled_idx_img=batch["shuffled_idx_img"],
+            collect_attention=collect_attention, deterministic=deterministic,
             attn_backend=attn_backend, generator=generator,
             masking_draws=masking_draws)
 
@@ -187,5 +191,24 @@ class MerlotPretrainModel(nn.Module):
         metrics = {f"lang/{k}": v for k, v in lang_m.items()}
         metrics.update({f"contr/{k}": v for k, v in contr_m.items()})
         metrics.update({f"temporal/{k}": v for k, v in temp_m.items()})
+        if "attention_log" in fwd:
+            metrics.update({f"attn/{k}": v for k, v in fwd["attention_log"].items()})
         loss = lang_l + contr_l + temp_l
         return loss, metrics, fwd
+
+    def debug_forward(self, batch: Dict[str, torch.Tensor],
+                      masking_draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, Any]:
+        """The PREDICT-mode debug export (reference model/modeling.py:759-787):
+        the forward with dropout off on the plain attention, collecting the
+        joint encoder's head-meaned probs; returns the loss, the metrics
+        (with the ``attn/`` telemetry), the lang tower's masked ids and
+        positions, and the joint encoder's hidden states. The masking draws
+        are ``masking_draws`` (``ops.masking.masking_draws``), else drawn
+        from the device's default generator."""
+        loss, metrics, fwd = self(batch, deterministic=True, collect_attention="probs",
+                                  attn_backend="plain", masking_draws=masking_draws)
+        return {"loss": loss, "metrics": metrics,
+                "masked_ids": fwd["lang_mask_info"]["masked_ids"],
+                "masked_idx": fwd["lang_mask_info"]["masked_idx"],
+                "encoder_hidden_states": fwd["encoder_hidden_states"]}

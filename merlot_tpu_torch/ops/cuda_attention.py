@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from merlot_tpu_torch._build import load_library
+from merlot_tpu_torch.ops import named_ops
 from merlot_tpu_torch.ops.attention import (_plain_attention, attention_probs,
                                             attention_scores)
 
@@ -570,30 +571,61 @@ def attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
             dv.reshape(b, sk, hd).to(v3.dtype))
 
 
+def attention_fwd_body(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                       mask: Optional[torch.Tensor], num_heads: int, softmax_fp32: bool,
+                       collect_colsum: bool, save_stats: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``FlashAttention``'s forward, also as one dispatcher op
+    (``attention_fwd_op``) so that torch's selective checkpoint can name
+    it (``nn.transformer``'s remat policy 'probs' keeps its outputs, and
+    the recompute then launches nothing; ``named_ops`` says when the op is
+    taken): K1 on CUDA tensors, its plain version on CPU tensors. Returns (ctx,
+    colsum, stats, tile_class); with ``save_stats`` on a card, stats is
+    K1's row max and sum (``new_stats``) and tile_class the mask's tile
+    classes (fp32 with a mask), which K2 reads. What is not made is an
+    empty tensor."""
+    kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32, collect_colsum=collect_colsum)
+    stats = tile_class = None
+    if q3.device.type == "cuda":
+        if save_stats:
+            stats = new_stats(q3, num_heads)
+            tile_class = _tile_class_for("flash_attention", None, q3, mask)
+        out, colsum = attention_fwd_cuda(q3, k3, v3, mask, stats=stats,
+                                         tile_class=tile_class, **kw)
+    elif q3.device.type == "cpu":
+        out, colsum = flash_attention_plain(q3, k3, v3, mask, **kw)
+    else:
+        raise ValueError(f"flash_attention: no path for device {q3.device}")
+    return tuple(q3.new_empty(0, dtype=torch.float32) if t is None else t
+                 for t in (out, colsum, stats, tile_class))
+
+
+attention_fwd_op = torch.library.custom_op("merlot_tpu_torch::attention_fwd",
+                                           attention_fwd_body, mutates_args=())
+# the op as the dispatcher names it (what a selective checkpoint sees)
+ATTENTION_FWD = torch.ops.merlot_tpu_torch.attention_fwd
+
+
+def _present(t: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if t.numel() == 0 else t
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with K1 as its forward and K2 as its backward on CUDA
     tensors, and their plain versions on CPU tensors (the custom_vjp
     ``_flash_p`` of the JAX package). Inputs as for ``attention_fwd_cuda``;
-    returns (ctx, colsum or None)."""
+    returns (ctx, colsum or None). The forward is ``attention_fwd_body``,
+    through its op inside ``named_ops.through_ops()``."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, mask, num_heads: int, softmax_fp32: bool,
                 collect_colsum: bool):
-        kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32,
-                  collect_colsum=collect_colsum)
-        stats = tile_class = None
-        if q3.device.type == "cuda":
-            # K2 takes the softmax's row max and sum from K1, and in fp32
-            # the mask's tile classes
-            if any(ctx.needs_input_grad[:3]):
-                stats = new_stats(q3, num_heads)
-                tile_class = _tile_class_for("flash_attention", None, q3, mask)
-            out, colsum = attention_fwd_cuda(q3, k3, v3, mask, stats=stats,
-                                             tile_class=tile_class, **kw)
-        elif q3.device.type == "cpu":
-            out, colsum = flash_attention_plain(q3, k3, v3, mask, **kw)
-        else:
-            raise ValueError(f"flash_attention: no path for device {q3.device}")
+        # K2 takes the softmax's row max and sum from K1, and in fp32 the
+        # mask's tile classes
+        fwd = ATTENTION_FWD if named_ops.active() else attention_fwd_body
+        out, colsum, stats, tile_class = (_present(t) for t in fwd(
+            q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
+            any(ctx.needs_input_grad[:3])))
         ctx.save_for_backward(q3, k3, v3, mask, stats, tile_class)
         ctx.num_heads, ctx.softmax_fp32 = num_heads, softmax_fp32
         ctx.set_materialize_grads(False)

@@ -32,7 +32,7 @@ from typing import Sequence, Tuple
 import torch
 
 from merlot_tpu_torch._build import load_library
-from merlot_tpu_torch.ops import norms
+from merlot_tpu_torch.ops import named_ops, norms
 
 MAX_K = 1024
 
@@ -173,6 +173,32 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+def ln_matmul_body(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   ws: torch.Tensor, bs: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """``LnMatmul``'s forward, also as one dispatcher op (``ln_matmul_op``)
+    so that torch's selective checkpoint can name it (``nn.transformer``'s
+    remat policies 'dots', 'dots_no_batch' and 'probs_dots' keep its
+    output; ``named_ops`` says when the op is taken): K5 on CUDA
+    tensors, the plain version on CPU tensors. x2 [M, K] in the compute
+    dtype; ws [J, N, K] and bs [J, N] fp32. Returns y [J, M, N] in x2's
+    dtype."""
+    j, n, k = ws.shape
+    cdtype = x2.dtype
+    if x2.device.type == "cuda":
+        return ln_matmul_cuda(x2, gamma, beta, ws.to(cdtype).view(j * n, k),
+                              bs.to(cdtype).view(j * n), num_out=j, epsilon=epsilon)
+    if x2.device.type == "cpu":
+        return torch.stack(norms.ln_matmul_plain(x2, gamma, beta, ws.unbind(0),
+                                                 bs.unbind(0), epsilon))
+    raise ValueError(f"ln_matmul: no path for device {x2.device}")
+
+
+ln_matmul_op = torch.library.custom_op("merlot_tpu_torch::ln_matmul", ln_matmul_body,
+                                       mutates_args=())
+# the op as the dispatcher names it (what a selective checkpoint sees)
+LN_MATMUL = torch.ops.merlot_tpu_torch.ln_matmul
+
+
 class LnMatmul(torch.autograd.Function):
     """``stack_j(layer_norm(x) @ W_j^T + b_j)`` with K5 as its forward on
     CUDA tensors and the plain version on CPU tensors. x [..., K] in the
@@ -183,16 +209,8 @@ class LnMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, ws, bs, epsilon: float):
         j, n, k = ws.shape
-        cdtype = x.dtype
-        x2 = x.view(-1, k)
-        if x.device.type == "cuda":
-            y = ln_matmul_cuda(x2, gamma, beta, ws.to(cdtype).view(j * n, k),
-                               bs.to(cdtype).view(j * n), num_out=j, epsilon=epsilon)
-        elif x.device.type == "cpu":
-            y = torch.stack(norms.ln_matmul_plain(x2, gamma, beta, ws.unbind(0),
-                                                  bs.unbind(0), epsilon))
-        else:
-            raise ValueError(f"ln_matmul: no path for device {x.device}")
+        fwd = LN_MATMUL if named_ops.active() else ln_matmul_body
+        y = fwd(x.view(-1, k), gamma, beta, ws, bs, epsilon)
         ctx.save_for_backward(x, gamma, beta, ws)
         ctx.epsilon = epsilon
         return y.view(j, *x.shape[:-1], n)

@@ -50,3 +50,22 @@ def sample_categorical(log_probs: torch.Tensor, shape, *,
     probs = torch.softmax(log_probs.float(), dim=-1).to(device)
     draws = torch.multinomial(probs, n, replacement=True, generator=generator)
     return draws.reshape(shape)
+
+
+def sample_bernoulli(p, shape=(), *, generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """Bernoulli(p) draws as bool: uniform [0, 1) draws below p (p a float
+    or a tensor broadcast against ``shape``)."""
+    return torch.rand(tuple(shape), generator=generator, device=device) < p
+
+
+def binomial_sample(n: int, p: float, *, generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """One Binomial(n, p) draw (int64 scalar) as a categorical over the counts
+    0..n, whose logits are the log-pmf from lgamma terms."""
+    counts = torch.arange(0, n + 1, dtype=torch.float32, device=device)
+    n_f = torch.tensor(float(n), device=device)
+    p_t = torch.tensor(float(p), device=device)
+    logits = (-torch.lgamma(1.0 + n_f - counts) - torch.lgamma(1.0 + counts)
+              + counts * torch.log(p_t) + (n_f - counts) * torch.log1p(-p_t))
+    return sample_categorical(logits, (), generator=generator, device=device)

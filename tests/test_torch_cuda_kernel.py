@@ -209,6 +209,81 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
         assert diff.max().item() <= 4 * _bf16_bound(r.float())
 
 
+# cross-attention (queries over an encoder source of another length) under
+# a rectangular validity mask [B, Sq, Sk], and the encoder cache's decode
+# step (one query over the cache's slots, those past each element's
+# position masked out): K1 and K2, bf16 and fp32, both softmax modes
+RECT_CASES = [(dt, sm, b, sq, sk) for dt, sm in [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)]
+    for b, sq, sk in [(8, 256, 396), (2, 70, 200), (3, 130, 64)]]
+
+
+def _rect_inputs(cuda, dtype, b, sq, sk, h=4, d=64, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, sq, h * d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, h * d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    valid_q = torch.rand((b, sq), generator=g, device=cuda) > 0.2
+    valid_k = torch.rand((b, sk), generator=g, device=cuda) > 0.2
+    valid_q[0, 1] = False                             # a fully masked row
+    valid_k[:, 0] = True
+    return q, k, v, (valid_q[:, :, None] & valid_k[:, None]).float(), valid_q
+
+
+def _within(got, ref, dtype, mean_tol):
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+    else:
+        assert diff.max().item() <= _bf16_bound(ref.float())
+        assert diff.mean().item() <= mean_tol
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32,b,sq,sk", RECT_CASES)
+def test_cross_attention_kernels_match_plain(cuda, dtype, softmax_fp32, b, sq, sk):
+    """K1 and K2 at Sq != Sk under a rectangular mask: ctx, dQ/dK/dV within
+    the bounds above, dQ 0 on the fully masked rows, and K2 from K1's saved
+    stats equal to K2 computing them."""
+    q, k, v, mask, valid_q = _rect_inputs(cuda, dtype, b, sq, sk)
+    do, _ = _bwd_extra(cuda, b, sq, sk, 4, 64, dtype, False)
+    kw = dict(num_heads=4, softmax_fp32=softmax_fp32)
+    stats = cuda_attention.new_stats(q, 4)
+    tile_class = cuda_attention.new_tile_class(mask) if dtype == torch.float32 else None
+    ctx, _ = cuda_attention.attention_fwd_cuda(q, k, v, mask, collect_colsum=False,
+                                               stats=stats, tile_class=tile_class, **kw)
+    got = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, None, stats=stats,
+                                            tile_class=tile_class, **kw)
+    again = cuda_attention.attention_bwd_cuda(q, k, v, mask, do, None, **kw)
+    torch.cuda.synchronize()
+    ref, _ = cuda_attention.flash_attention_plain(q, k, v, mask, collect_colsum=False, **kw)
+    _within(ctx, ref, dtype, BF16_MEAN_TOL)
+    for a, r, b_ in zip(got, cuda_attention.attention_bwd_plain(q, k, v, mask, do, None, **kw),
+                        again):
+        _within(a, r, dtype, BWD_MEAN_TOL)
+        assert torch.equal(a, b_)
+    assert not got[0][~valid_q].any()
+
+
+@pytest.mark.parametrize("dtype,softmax_fp32", [
+    (torch.float32, True), (torch.bfloat16, True), (torch.bfloat16, False)])
+@pytest.mark.parametrize("sk", [512, 200])
+def test_decode_step_kernel_matches_plain(cuda, dtype, softmax_fp32, sk):
+    """K1 at Sq = 1 over a cache of sk slots, each element attending the
+    slots up to its own position (zeros past it), against the plain
+    version."""
+    b, h, d = 8, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, 1, h * d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, h * d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    pos = torch.randint(0, sk, (b,), generator=g, device=cuda)
+    live = torch.arange(sk, device=cuda)[None, :, None] <= pos[:, None, None]
+    k, v = k * live, v * live
+    mask = live.transpose(1, 2).float().contiguous()
+    kw = dict(num_heads=h, softmax_fp32=softmax_fp32, collect_colsum=False)
+    ctx, _ = cuda_attention.attention_fwd_cuda(q, k, v, mask, **kw)
+    ref, _ = cuda_attention.flash_attention_plain(q, k, v, mask, **kw)
+    _within(ctx, ref, dtype, BF16_MEAN_TOL)
+
+
 @pytest.mark.parametrize("s", [200, 1536])
 def test_fp32_causal_kernels_at_grover_heads(cuda, s):
     """Grover training's attention (fp32 inputs and softmax, 16 heads of

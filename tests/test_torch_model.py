@@ -20,6 +20,7 @@ from merlot_tpu.models.merlot import MerlotModel as JaxModel
 from merlot_tpu_torch.convert import load_flax_params, params_from_flax
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.models.merlot import MerlotModel
+from merlot_tpu_torch.nn.layers import init_params
 
 FP32 = dict(atol=1e-4, rtol=1e-4)
 
@@ -145,10 +146,17 @@ def test_model_forward_matches_jax(pair):
 
 
 def test_model_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        MerlotModel(MerlotConfig(**dict(TINY, scan_layers=True)))
-    # attention-prob dropout (0 in every config) is refused in training
+    for kw in ({"scan_layers": True}, {"fused_qkv_params": True}):
+        with pytest.raises(NotImplementedError):
+            MerlotModel(MerlotConfig(**dict(TINY, **kw)))
+    # attention-prob dropout is ported: it acts in training only, drawn
+    # from the generator
     tm = MerlotModel(MerlotConfig(**dict(TINY, attention_probs_dropout_prob=0.1)))
+    init_params(tm, torch.Generator().manual_seed(0))
     imgs, ids, _ = _inputs()
-    with pytest.raises(NotImplementedError):
-        tm(torch.from_numpy(imgs), torch.from_numpy(ids), deterministic=False)
+    args = (torch.from_numpy(imgs), torch.from_numpy(ids))
+    with torch.no_grad():
+        eval_h = tm(*args)["encoder_hidden_states"]["lang"]
+        runs = [tm(*args, deterministic=False, generator=torch.Generator().manual_seed(0))
+                ["encoder_hidden_states"]["lang"] for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], eval_h)

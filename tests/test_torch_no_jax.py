@@ -51,7 +51,8 @@ assert {"merlot_tpu_torch.models.grover", "merlot_tpu_torch.tools.denoise_server
         "merlot_tpu_torch.parallel.pipeline",
         "merlot_tpu_torch.tools.convert_tf_checkpoint",
         "merlot_tpu_torch.tools.download_checkpoint",
-        "merlot_tpu_torch.tools.import_jax_checkpoint"} <= set(names), names
+        "merlot_tpu_torch.tools.import_jax_checkpoint",
+        "merlot_tpu_torch.ops.masks", "merlot_tpu_torch.ops.named_ops"} <= set(names), names
 print(len(names))
 """
 

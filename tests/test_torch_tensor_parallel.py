@@ -18,6 +18,8 @@ layers (tests/test_grover.py's TP test).
     single-device apply; then the pretraining CLI at (2, 2) with use_zero1;
   * two ranks, data 1 x model 2: one pretrain step with dropout on against
     one process (the same generator on every model rank: the same masks),
+    and one with attention-prob dropout on as well (each rank's heads'
+    share of the mask drawn over all heads),
     one step from JAX's weights and masking draws against JAX's
     ``make_train_step`` (test_torch_train_step.py's tolerances), Grover's
     logits against JAX (both cache layouts), ``Denoiser.run_batch`` at
@@ -68,6 +70,7 @@ from merlot_tpu_torch.train.train_step import (init_train_state, make_train_step
 
 TIMEOUT_S = 150
 RTOL = 1e-5
+REMAT_POLICIES = (None, "probs_dots")
 MERLOT = dict(hidden_size=64, vocab_size=400, num_hidden_layers=2, num_attention_heads=4,
               intermediate_size=128, image_size=(32, 32), patch_size=16, spatial_pool_size=1,
               use_bfloat16=False, num_vision_transformer_hidden_layers=2,
@@ -105,8 +108,8 @@ def one_torch_thread():
 # ----------------------------------------------------------------------
 # inputs and the runs both sides make
 
-def merlot_cfg(dropout=0.0):
-    return MerlotConfig(**MERLOT, hidden_dropout_prob=dropout)
+def merlot_cfg(dropout=0.0, **kw):
+    return MerlotConfig(**MERLOT, hidden_dropout_prob=dropout, **kw)
 
 
 def pretrain_batch(seed=0):
@@ -131,10 +134,10 @@ def rows(batch, mesh):
     return torch_batch(pm.shard_batch(batch, mesh) if mesh is not None else batch)
 
 
-def seeded_step(mesh=None, dropout=0.1):
+def seeded_step(mesh=None, dropout=0.1, **cfg_kw):
     """One step of the seeded model (the whole model's init, cut over
     ``mesh``'s model axis): (metrics, gradients, new parameters), whole."""
-    model = MerlotPretrainModel(merlot_cfg(dropout))
+    model = MerlotPretrainModel(merlot_cfg(dropout, **cfg_kw))
     opt = MerlotAdamW(AdamWConfig(**OPT))
     state = init_train_state(model, opt, seed=0, tp=mesh)
     step = make_train_step(model, opt, device="cpu", mesh=mesh)
@@ -221,6 +224,12 @@ def _rank_main(world: int, rank: int, port: int, d: Path, cli_port: int) -> None
     else:
         mesh = pm.make_mesh(model=2)
         out = {"step": seeded_step(mesh), "jax_step": jax_weights_step(d, mesh),
+               # attention-prob dropout: each rank's heads' share of one mask
+               "step_prob_dropout": seeded_step(mesh, attention_probs_dropout_prob=0.1),
+               # per-layer remat: the recompute replays the model axis's
+               # collectives and the dropout masks
+               "remat_steps": {p: seeded_step(mesh, remat=True, remat_policy=p)
+                               for p in REMAT_POLICIES},
                "grover": grover_logits(d, mesh), "grover_fused": grover_logits(d, mesh, True)}
         from merlot_tpu_torch.tools.denoise_server import Denoiser
         den = Denoiser(str(d / "server.json"), None, tp=2, device="cpu", mesh=mesh, **SERVE)
@@ -446,6 +455,7 @@ def two(four):
     procs = _launch(2, d)
     try:
         out = {"step": seeded_step(), "jax_step": jax_weights_step(d),
+               "step_prob_dropout": seeded_step(attention_probs_dropout_prob=0.1),
                "jax": four["jax"]()}
         den = Denoiser(str(d / "server.json"), None, tp=1, device="cpu", **SERVE)
         out["run_batch"] = den.run_batch(serve_ctxs(), den.tok.end_article)
@@ -621,6 +631,36 @@ def test_step_with_dropout_equals_one_process(two):
         np.testing.assert_allclose(m_got[k], m_want[k], rtol=RTOL, atol=1e-7, err_msg=k)
     _grads_close({n: g.numpy() for n, g in g_got.items()},
                  {n: g.numpy() for n, g in g_want.items()})
+
+
+def test_step_with_attention_prob_dropout_equals_one_process(two):
+    """Hidden and attention-prob dropout on: each rank keeps its heads'
+    share of the keep mask drawn over all heads, so the step equals one
+    process's (ranks that each drew a mask over their own heads would drop
+    heads 0-1's pattern on heads 2-3 too)."""
+    (m_got, g_got, _) = two["tp"]["step_prob_dropout"]
+    (m_want, g_want, _) = two["step_prob_dropout"]
+    assert m_want["loss"] != two["step"][0]["loss"]        # the dropout acts
+    for k in m_want:
+        np.testing.assert_allclose(m_got[k], m_want[k], rtol=RTOL, atol=1e-7, err_msg=k)
+    _grads_close({n: g.numpy() for n, g in g_got.items()},
+                 {n: g.numpy() for n, g in g_want.items()})
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_step_at_model_2_equals_one_process(two, policy):
+    """Per-layer remat at model=2 with dropout on: the step equals the same
+    ranks' step without remat bit for bit (every rank recomputes with the
+    same collectives in the same order and replays the same masks), and so
+    one process within the bounds of the step without remat."""
+    got, tp, one = two["tp"]["remat_steps"][policy], two["tp"]["step"], two["step"]
+    assert got[0] == tp[0]
+    for a, b in zip(got[1:], tp[1:]):
+        assert set(a) == set(b) and all(torch.equal(a[n], b[n]) for n in b)
+    for k in one[0]:
+        np.testing.assert_allclose(got[0][k], one[0][k], rtol=RTOL, atol=1e-7, err_msg=k)
+    _grads_close({n: g.numpy() for n, g in got[1].items()},
+                 {n: g.numpy() for n, g in one[1].items()})
 
 
 def test_step_matches_jax(two):
