@@ -1,0 +1,8 @@
+"""The train step's backward: the port's ``step.backward`` span, its host
+milliseconds a step, on the host's clock (``harness/spans.py``)."""
+
+from benchmark.harness.spans import span_ms
+
+
+def read(r):
+    return span_ms(r, "step.backward", "host_ms")

@@ -1,0 +1,8 @@
+"""AdamW's update: the port's ``step.update`` span, its host milliseconds a
+step, on the host's clock (``harness/spans.py``)."""
+
+from benchmark.harness.spans import span_ms
+
+
+def read(r):
+    return span_ms(r, "step.update", "host_ms")

@@ -5450,7 +5450,7 @@ def with_zero1(text: str, values: dict, name: str) -> str:
 def metrics_gap(got: dict, want: dict) -> float:
     """The largest relative gap between two runs' logged metrics (every key
     but the timings) at ``got``'s steps."""
-    timing = {"step", "time", "steps_per_sec", "perf/steps_per_sec"}
+    timing = {"step", "time", "perf/steps_per_sec", "perf/data_wait_s"}
     gap = 0.0
     for s, row in got.items():
         check(set(row) - timing == set(want[s]) - timing, f"step {s}: other metrics")

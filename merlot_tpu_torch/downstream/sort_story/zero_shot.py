@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from merlot_tpu_torch.core import threefry
+from merlot_tpu_torch.core import threefry, trace
 from merlot_tpu_torch.models.merlot import MerlotModel
 from merlot_tpu_torch.ops.attention import inference_backend
 from merlot_tpu_torch.parallel.mesh import Mesh
@@ -96,25 +96,26 @@ def make_zero_shot_fn(batch_size: int, num_chunks: int,
 
     @torch.no_grad()
     def fn(model: MerlotModel, images: torch.Tensor, sentences: torch.Tensor):
-        group = model.cfg.num_chunks_in_group or num_chunks
-        if group != num_chunks:
-            raise ValueError("zero-shot uses one group per story")
-        imgs, sents = duplicate_inputs(images, sentences, duplication_factor)
-        backend = attn_backend or inference_backend(images.device)
-        logits = zero_shot_logits(model, imgs, sents,
-                                  shuffled_idx.to(images.device), backend)
-        out = {}
-        for name, lg in logits.items():
-            probs = torch.softmax(lg, dim=-1)[:, 1:]      # classes 1..3
-            # Known fault kept for parity with the JAX package: the rows were
-            # tiled [s0, s1, ..., s0, s1, ...] but are read back here as
-            # [s0, s0, s1, s1, ...], so for batch_size > 1 every story gets
-            # the mean over all stories of the batch. ROADMAP Queue 3 tracks
-            # the fix, to land in both packages together.
-            probs = probs.reshape(batch_size, duplication_factor,
-                                  num_chunks, num_chunks, 3)
-            out[f"{name}_probs"] = probs.mean(dim=1)
-        return out
+        with trace.span("step"):
+            group = model.cfg.num_chunks_in_group or num_chunks
+            if group != num_chunks:
+                raise ValueError("zero-shot uses one group per story")
+            imgs, sents = duplicate_inputs(images, sentences, duplication_factor)
+            backend = attn_backend or inference_backend(images.device)
+            logits = zero_shot_logits(model, imgs, sents,
+                                      shuffled_idx.to(images.device), backend)
+            out = {}
+            for name, lg in logits.items():
+                probs = torch.softmax(lg, dim=-1)[:, 1:]      # classes 1..3
+                # Known fault kept for parity with the JAX package: the rows were
+                # tiled [s0, s1, ..., s0, s1, ...] but are read back here as
+                # [s0, s0, s1, s1, ...], so for batch_size > 1 every story gets
+                # the mean over all stories of the batch. ROADMAP Queue 3 tracks
+                # the fix, to land in both packages together.
+                probs = probs.reshape(batch_size, duplication_factor,
+                                      num_chunks, num_chunks, 3)
+                out[f"{name}_probs"] = probs.mean(dim=1)
+            return out
 
     return fn
 

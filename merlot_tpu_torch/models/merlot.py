@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from merlot_tpu_torch.core import trace
 from merlot_tpu_torch.models.config import MerlotConfig
 from merlot_tpu_torch.nn.layers import (DenseTN, LayerNorm, _param, dropout,
                                         trunc_normal_)
@@ -245,78 +246,82 @@ class MerlotModel(nn.Module):
         L = lang_chunk_len * group
 
         # ---------------- vision tower --------------------------------
-        vinfo = self.vision_backbone(image, attn_backend=attn_backend, **drop)
-        num_h, num_w = vinfo["num_h"], vinfo["num_w"]
-        viz_chunk_len = num_h * num_w + 1
-        P = viz_chunk_len * group
+        with trace.span("model.vision"):
+            vinfo = self.vision_backbone(image, attn_backend=attn_backend, **drop)
+            num_h, num_w = vinfo["num_h"], vinfo["num_w"]
+            viz_chunk_len = num_h * num_w + 1
+            P = viz_chunk_len * group
 
-        img_trg_h = vinfo["cls"][:, 1].float()
-        image_feats = torch.cat([vinfo["cls"][:, 0:1], vinfo["seq"]], dim=1).float()
+            img_trg_h = vinfo["cls"][:, 1].float()
+            image_feats = torch.cat([vinfo["cls"][:, 0:1], vinfo["seq"]], dim=1).float()
 
-        img_batch_size = batch_size // c.num_texts
-        if img_mask is None:
-            img_mask2 = torch.ones((B // c.num_texts, c.num_imgs), dtype=torch.bool,
-                                   device=dev)
-        else:
-            img_mask2 = img_mask.reshape(B // c.num_texts, c.num_imgs).bool()
-        if c.num_imgs > 1 or c.num_texts > 1:
-            image_feats = image_feats.reshape(img_batch_size, c.num_imgs,
-                                              *image_feats.shape[1:])
-            if c.num_texts > 1:
-                image_feats = image_feats[:, None].expand(
-                    -1, c.num_texts, *image_feats.shape[1:])
-                image_feats = image_feats.reshape(B, c.num_imgs,
-                                                  *image_feats.shape[3:])
-                img_mask2 = img_mask2[:, None].expand(-1, c.num_texts, -1)
-                img_mask2 = img_mask2.reshape(B, c.num_imgs)
+            img_batch_size = batch_size // c.num_texts
+            if img_mask is None:
+                img_mask2 = torch.ones((B // c.num_texts, c.num_imgs), dtype=torch.bool,
+                                       device=dev)
+            else:
+                img_mask2 = img_mask.reshape(B // c.num_texts, c.num_imgs).bool()
+            if c.num_imgs > 1 or c.num_texts > 1:
+                image_feats = image_feats.reshape(img_batch_size, c.num_imgs,
+                                                  *image_feats.shape[1:])
+                if c.num_texts > 1:
+                    image_feats = image_feats[:, None].expand(
+                        -1, c.num_texts, *image_feats.shape[1:])
+                    image_feats = image_feats.reshape(B, c.num_imgs,
+                                                      *image_feats.shape[3:])
+                    img_mask2 = img_mask2[:, None].expand(-1, c.num_texts, -1)
+                    img_mask2 = img_mask2.reshape(B, c.num_imgs)
 
-        image_feats = image_feats.reshape(B, P * c.num_imgs, c.hidden_size)
-        img_valid = img_mask2[:, :, None].expand(-1, -1, P).reshape(B, P * c.num_imgs)
-        image_feats = image_feats + self.vision_pos_emb(
-            B, group, viz_chunk_len, num_h, num_w, shuffled_idx_img)
-        image_feats = self.viz_final_ln(image_feats).to(self.compute_dtype)
+            image_feats = image_feats.reshape(B, P * c.num_imgs, c.hidden_size)
+            img_valid = img_mask2[:, :, None].expand(-1, -1, P).reshape(B, P * c.num_imgs)
+            image_feats = image_feats + self.vision_pos_emb(
+                B, group, viz_chunk_len, num_h, num_w, shuffled_idx_img)
+            image_feats = self.viz_final_ln(image_feats).to(self.compute_dtype)
 
         # ---------------- language tower + masking --------------------
         out: Dict[str, Any] = {}
         ids_to_use = input_ids3.reshape(B, L)
         if mask_input:
-            lang_trg_h, attn_mass = self._langonly(
-                input_ids3, batch_size, num_chunks, lang_chunk_len,
-                attn_backend=attn_backend, **drop)
+            with trace.span("model.language"):
+                lang_trg_h, attn_mass = self._langonly(
+                    input_ids3, batch_size, num_chunks, lang_chunk_len,
+                    attn_backend=attn_backend, **drop)
             out["lang_trg_h"] = lang_trg_h
             # the mass only ranks tokens (JAX's top_k passes it no gradient)
-            masked_ids, masked_idx = attention_guided_span_mask(
-                ids_to_use, attn_mass.detach().reshape(B, L),
-                vocab_size=c.vocab_size, masking_rate=c.masking_rate,
-                topk_perc=c.masking_use_topk_from_attn_perc,
-                choose_topk_prob=c.masking_choose_topk_prob,
-                do_spanbert=c.masking_do_spanbert,
-                spanbert_len_probs=c.masking_spanbert_len_probs,
-                use_attn=c.masking_use_attn, generator=generator,
-                draws=masking_draws)
+            with trace.span("model.masking"):
+                masked_ids, masked_idx = attention_guided_span_mask(
+                    ids_to_use, attn_mass.detach().reshape(B, L),
+                    vocab_size=c.vocab_size, masking_rate=c.masking_rate,
+                    topk_perc=c.masking_use_topk_from_attn_perc,
+                    choose_topk_prob=c.masking_choose_topk_prob,
+                    do_spanbert=c.masking_do_spanbert,
+                    spanbert_len_probs=c.masking_spanbert_len_probs,
+                    use_attn=c.masking_use_attn, generator=generator,
+                    draws=masking_draws)
             out["lang_mask_info"] = {"masked_ids": masked_ids,
                                      "masked_idx": masked_idx}
             ids_to_use = masked_ids
-        lang_embs = self.embed_words(ids_to_use, which="joint", **drop)
-        lang_valid = ids_to_use != 0
 
         # ---------------- joint encoder -------------------------------
-        encoder_input = torch.cat([image_feats, lang_embs], dim=1)
-        is_valid = torch.cat([img_valid, lang_valid], dim=1)
-        attention_mask = (is_valid[:, None] & is_valid[:, :, None]).float()
-        if c.disable_pairwise_lang_attn:
-            # vision attends everywhere; lang chunks only within their segment
-            seg = torch.cat([
-                torch.zeros(P * c.num_imgs, dtype=torch.int64, device=dev),
-                1 + torch.arange(L, device=dev) // lang_chunk_len])
-            can = ((seg[:, None] == seg[None]) | (seg == 0)[None]
-                   | (seg == 0)[:, None])
-            attention_mask = attention_mask * can.float()[None]
+        with trace.span("model.joint"):
+            lang_embs = self.embed_words(ids_to_use, which="joint", **drop)
+            lang_valid = ids_to_use != 0
+            encoder_input = torch.cat([image_feats, lang_embs], dim=1)
+            is_valid = torch.cat([img_valid, lang_valid], dim=1)
+            attention_mask = (is_valid[:, None] & is_valid[:, :, None]).float()
+            if c.disable_pairwise_lang_attn:
+                # vision attends everywhere; lang chunks only within their segment
+                seg = torch.cat([
+                    torch.zeros(P * c.num_imgs, dtype=torch.int64, device=dev),
+                    1 + torch.arange(L, device=dev) // lang_chunk_len])
+                can = ((seg[:, None] == seg[None]) | (seg == 0)[None]
+                       | (seg == 0)[:, None])
+                attention_mask = attention_mask * can.float()[None]
 
-        einfo = self.encoder(encoder_input, attention_mask,
-                             collect="probs" if collect_attention == "probs" else "none",
-                             attn_backend=attn_backend, **drop)
-        hidden = einfo["hidden_state"]
+            einfo = self.encoder(encoder_input, attention_mask,
+                                 collect="probs" if collect_attention == "probs" else "none",
+                                 attn_backend=attn_backend, **drop)
+            hidden = einfo["hidden_state"]
         out.update({
             "encoder_hidden_states": {
                 "viz": hidden[:, :P * c.num_imgs].float(),

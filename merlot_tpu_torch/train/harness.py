@@ -3,7 +3,9 @@ TPUEstimator.train replacement.
 
 Owns the loop around the train step: init-or-restore, warm start, the
 host data iteration, metrics copied to the host every ``log_every`` steps
-(the outfeed analogue), step-numbered checkpoints
+(the outfeed analogue; beside them ``perf/steps_per_sec`` and
+``perf/data_wait_s``, the host's seconds waiting on the batches since the
+last log, inside a ``data.wait`` span), step-numbered checkpoints
 every ``checkpoint_every`` steps (``iterations_per_loop``, like the
 reference), an optional ``torch.profiler`` window, and a NaN guard on
 logging and on saving (a poisoned state is never checkpointed).
@@ -52,6 +54,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from merlot_tpu_torch.core import trace
 from merlot_tpu_torch.ops.attention import inference_backend
 from merlot_tpu_torch.parallel.mesh import Mesh
 from merlot_tpu_torch.train.checkpoint import CheckpointManager, warm_start
@@ -170,8 +173,14 @@ class Trainer:
         # (train -> eval -> resume) never enters perf/steps_per_sec
         tp_step, tp_time = start_step, t_start
         prof = None
-        for batch in batches:
-            if step >= num_steps:
+        wait_s = 0.0  # the host's seconds in next(batches) since the last log
+        batches = iter(batches)
+        while step < num_steps:  # no batch is fetched past the last step
+            t_wait = time.perf_counter()
+            with trace.span("data.wait"):
+                batch = next(batches, None)
+            wait_s += time.perf_counter() - t_wait
+            if batch is None:
                 break
             if (self.profile_dir and self.profile_steps and self.is_chief
                     and step == self.profile_steps.start):
@@ -196,15 +205,14 @@ class Trainer:
                 now = time.time()
                 if step > tp_step:
                     host_metrics["perf/steps_per_sec"] = (step - tp_step) / (now - tp_time)
-                tp_step, tp_time = step, now
+                    host_metrics["perf/data_wait_s"] = wait_s
+                tp_step, tp_time, wait_s = step, now, 0.0
                 self._log(step, host_metrics)
 
             if step % self.checkpoint_every == 0 or step == num_steps:
                 # guard the write even when checkpoint_every < log_every
                 self._guard(step, metrics, "; refusing to checkpoint")
                 self.save(step, opt_state)
-            if step >= num_steps:  # no batch is fetched past the last step
-                break
         if prof is not None:
             prof.stop()
 

@@ -131,7 +131,7 @@ class TensorBoardWriter:
 
 
 class MetricsLogger:
-    """JSONL + TensorBoard + stdout, with steps/sec tracking."""
+    """JSONL + TensorBoard + stdout."""
 
     def __init__(self, output_dir: str, also_tensorboard: bool = True,
                  name: str = "train"):
@@ -139,18 +139,11 @@ class MetricsLogger:
         self._jsonl = open(os.path.join(output_dir, f"{name}_metrics.jsonl"), "a")
         self._tb = TensorBoardWriter(os.path.join(output_dir, name)) \
             if also_tensorboard else None
-        self._last_time = None
-        self._last_step = None
 
     def log(self, step: int, metrics: Dict[str, Any],
             echo: bool = True) -> None:
         now = time.time()
         scalars = {k: float(v) for k, v in metrics.items()}
-        if self._last_time is not None and step > self._last_step:
-            scalars["steps_per_sec"] = ((step - self._last_step)
-                                        / (now - self._last_time))
-        self._last_time, self._last_step = now, step
-
         self._jsonl.write(json.dumps({"step": step, "time": now, **scalars})
                           + "\n")
         self._jsonl.flush()

@@ -58,6 +58,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from merlot_tpu_torch.convert import flax_path, stage_leaf
+from merlot_tpu_torch.core import trace
 from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, tp_layout, zero1_axes
 
 MISSING_PRECISION = 1.00390625  # 1 + 2^-8
@@ -248,87 +249,89 @@ class MerlotAdamW:
         slices), the same on every data index. ``tp``: the parameters are
         cut over its model axis, ``pp``: one stage's (the module
         docstring)."""
-        c = self.cfg
-        plan = self._params_plan(tuple(params))
-        axes = self.zero1_axes(params, mesh) if mesh is not None else {}
-        names = [n for n, _, _ in plan]
-        step = state["step"]
-        scale = self.lr_scale(step)
+        with trace.span("step.update"):
+            c = self.cfg
+            plan = self._params_plan(tuple(params))
+            axes = self.zero1_axes(params, mesh) if mesh is not None else {}
+            names = [n for n, _, _ in plan]
+            step = state["step"]
+            scale = self.lr_scale(step)
 
-        # global-norm clip
-        split = tp is not None or pp is not None
-        if not split:
-            global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
-        else:
-            (sq,) = _tp_totals([names], {n: grads[n].float().square().sum() for n in names},
-                               params, tp, pp)
-            global_norm = torch.sqrt(sq)
-        g_all = {n: grads[n] for n in names}
-        if c.clip_norm > 0.0:
-            clip = torch.clamp(c.clip_norm / torch.clamp(global_norm, min=1e-12), max=1.0)
-            g_all = {n: g * clip.to(g.dtype) for n, g in g_all.items()}
-
-        metrics: Dict[str, Any] = {"learning_rate": c.learning_rate * scale,
-                                   "gradnorms/_overall": global_norm}
-        if c.verbose:
-            # per-scope gradient norms + the decoupled weight-decay "loss"
-            # of the parameters before this step
-            groups: Dict[str, Any] = {}
-            wd_loss = 0.0
+            # global-norm clip
+            split = tp is not None or pp is not None
             if not split:
-                for n, path, hp in plan:
-                    scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
-                    groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
-                    wd = hp["weight_decay_rate"]
-                    wd_loss = wd_loss + wd * 0.5 * params[n].float().square().sum()
+                global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
             else:
-                scopes: Dict[str, List[str]] = {}
-                for n, path, _ in plan:
-                    scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]), []).append(n)
-                sq = _tp_totals(list(scopes.values()),
-                                {n: g_all[n].float().square().sum() for n in names},
-                                params, tp, pp)
-                groups = dict(zip(scopes, sq))
-                (wd_loss,) = _tp_totals(
-                    [names], {n: hp["weight_decay_rate"] * 0.5 * params[n].float().square().sum()
-                              for n, _, hp in plan}, params, tp, pp)
-            for scope, sq in groups.items():
-                metrics[f"gradnorms/{scope}"] = torch.sqrt(sq)
-            metrics["weight_decay_loss"] = wd_loss
+                (sq,) = _tp_totals([names], {n: grads[n].float().square().sum() for n in names},
+                                   params, tp, pp)
+                global_norm = torch.sqrt(sq)
+            g_all = {n: grads[n] for n in names}
+            if c.clip_norm > 0.0:
+                clip = torch.clamp(c.clip_norm / torch.clamp(global_norm, min=1e-12), max=1.0)
+                g_all = {n: g * clip.to(g.dtype) for n, g in g_all.items()}
 
-        t = step + 1.0
-        for n, _, hp in plan:
-            if hp["learning_rate"] == 0.0:  # frozen
-                continue
-            p, m0, v0 = params[n], state["m"][n], state["v"][n]
-            g = g_all[n]
-            if n in axes:  # this rank's slice
-                p, g = shard_leaf(p, axes[n], mesh), shard_leaf(g, axes[n], mesh)
-            b1, b2, eps = hp["beta_1"], hp["beta_2"], hp["epsilon"]
-            lr = hp["learning_rate"] * scale
-            lr = lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)  # bias correction
+            metrics: Dict[str, Any] = {"learning_rate": c.learning_rate * scale,
+                                       "gradnorms/_overall": global_norm}
+            if c.verbose:
+                # per-scope gradient norms + the decoupled weight-decay "loss"
+                # of the parameters before this step
+                groups: Dict[str, Any] = {}
+                wd_loss = 0.0
+                if not split:
+                    for n, path, hp in plan:
+                        scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
+                        groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
+                        wd = hp["weight_decay_rate"]
+                        wd_loss = wd_loss + wd * 0.5 * params[n].float().square().sum()
+                else:
+                    scopes: Dict[str, List[str]] = {}
+                    for n, path, _ in plan:
+                        scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]), []).append(n)
+                    sq = _tp_totals(list(scopes.values()),
+                                    {n: g_all[n].float().square().sum() for n in names},
+                                    params, tp, pp)
+                    groups = dict(zip(scopes, sq))
+                    (wd_loss,) = _tp_totals(
+                        [names],
+                        {n: hp["weight_decay_rate"] * 0.5 * params[n].float().square().sum()
+                         for n, _, hp in plan}, params, tp, pp)
+                for scope, sq in groups.items():
+                    metrics[f"gradnorms/{scope}"] = torch.sqrt(sq)
+                metrics["weight_decay_loss"] = wd_loss
 
-            g32 = g.float()
-            m = m0.float() if c.use_bfloat16_adam else m0
-            v = decode_v(v0) if c.use_bfloat16_adam else v0
-            m = b1 * m + (1.0 - b1) * g32
-            v = b2 * v + (1.0 - b2) * (g32.square() + 1e-30)
-            upd = m / (torch.sqrt(v) + eps)
-            if hp["weight_decay_rate"] > 0:
-                upd = upd + hp["weight_decay_rate"] * p.float()
-            p.copy_(p.float() - lr * upd)
-            if c.use_bfloat16_adam:
-                m0.copy_(m.to(torch.bfloat16))
-                v0.copy_(encode_v(v))
-            else:
-                m0.copy_(m)
-                v0.copy_(v)
+            t = step + 1.0
+            for n, _, hp in plan:
+                if hp["learning_rate"] == 0.0:  # frozen
+                    continue
+                p, m0, v0 = params[n], state["m"][n], state["v"][n]
+                g = g_all[n]
+                if n in axes:  # this rank's slice
+                    p, g = shard_leaf(p, axes[n], mesh), shard_leaf(g, axes[n], mesh)
+                b1, b2, eps = hp["beta_1"], hp["beta_2"], hp["epsilon"]
+                lr = hp["learning_rate"] * scale
+                lr = lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)  # bias correction
 
-        live = [n for n, _, hp in plan if n in axes and hp["learning_rate"] != 0.0]
-        if live:
-            whole = mesh.gather_shards(
-                {n: shard_leaf(params[n], axes[n], mesh).contiguous() for n in live}, axes)
-            for n in live:
-                params[n].copy_(whole[n])
-        state["step"] = step + 1
-        return metrics
+                g32 = g.float()
+                m = m0.float() if c.use_bfloat16_adam else m0
+                v = decode_v(v0) if c.use_bfloat16_adam else v0
+                m = b1 * m + (1.0 - b1) * g32
+                v = b2 * v + (1.0 - b2) * (g32.square() + 1e-30)
+                upd = m / (torch.sqrt(v) + eps)
+                if hp["weight_decay_rate"] > 0:
+                    upd = upd + hp["weight_decay_rate"] * p.float()
+                p.copy_(p.float() - lr * upd)
+                if c.use_bfloat16_adam:
+                    m0.copy_(m.to(torch.bfloat16))
+                    v0.copy_(encode_v(v))
+                else:
+                    m0.copy_(m)
+                    v0.copy_(v)
+
+            live = [n for n, _, hp in plan if n in axes and hp["learning_rate"] != 0.0]
+            if live:
+                whole = mesh.gather_shards(
+                    {n: shard_leaf(params[n], axes[n], mesh).contiguous() for n in live}, axes)
+                for n in live:
+                    params[n].copy_(whole[n])
+            state["step"] = step + 1
+            return metrics

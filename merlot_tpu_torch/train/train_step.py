@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from merlot_tpu_torch.convert import stage_leaf
+from merlot_tpu_torch.core import trace
 from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
 from merlot_tpu_torch.nn.layers import init_params
 from merlot_tpu_torch.ops.attention import training_backend
@@ -141,14 +142,15 @@ def _apply_update(optimizer: MerlotAdamW, opt_state: Dict[str, Any],
                   zero1: bool = False) -> Dict[str, Any]:
     """Backward from ``loss``, the gradients summed over ``mesh``'s ranks,
     the AdamW update in place (ZeRO-1's with ``zero1``), the metrics."""
-    loss.backward()
-    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-             for n, p in params.items()}
-    metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
-    loss = loss.detach()
-    if mesh is not None:
-        mesh.all_reduce_(list(grads.values()))
-        loss, metrics = global_metrics(loss, metrics, mesh)
+    with trace.span("step.backward"):
+        loss.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
+        metrics = {k: v.detach() if torch.is_tensor(v) else v for k, v in metrics.items()}
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.all_reduce_(list(grads.values()))
+            loss, metrics = global_metrics(loss, metrics, mesh)
     opt_metrics = optimizer.update(grads, opt_state, params,
                                    mesh=mesh if zero1 else None,
                                    tp=mesh if mesh is not None and mesh.model > 1 else None)
@@ -191,17 +193,19 @@ def make_train_step(model: MerlotPretrainModel, optimizer: MerlotAdamW, *,
              batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
              masking_draws: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, Any]:
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        if mesh is not None and masking_draws is None:
-            generator, masking_draws = rank_draws(model.cfg, batch["input_ids"],
-                                                  generator, mesh)
-        loss, metrics, _ = model(batch, deterministic=False, attn_backend=backend,
-                                 generator=generator, masking_draws=masking_draws,
-                                 mesh=mesh)
-        return _apply_update(optimizer, opt_state, params, loss, metrics, mesh, zero1)
+        with trace.span("step"):
+            with trace.span("step.forward"):
+                params = dict(model.named_parameters())
+                for p in params.values():
+                    p.grad = None
+                batch = {k: v.to(dev) for k, v in batch.items()}
+                if mesh is not None and masking_draws is None:
+                    generator, masking_draws = rank_draws(model.cfg, batch["input_ids"],
+                                                          generator, mesh)
+                loss, metrics, _ = model(batch, deterministic=False, attn_backend=backend,
+                                         generator=generator, masking_draws=masking_draws,
+                                         mesh=mesh)
+            return _apply_update(optimizer, opt_state, params, loss, metrics, mesh, zero1)
 
     return step
 
@@ -220,14 +224,17 @@ def make_loss_train_step(loss_fn: Callable, optimizer: MerlotAdamW, *,
     def step(model: torch.nn.Module, opt_state: Dict[str, Any],
              batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]
              ) -> Dict[str, Any]:
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        if mesh is not None and mesh.data > 1:
-            generator = rank_generator(generator, mesh)
-        loss, metrics = loss_fn(model, batch, generator)
-        return _apply_update(optimizer, opt_state, params, loss, dict(metrics), mesh, zero1)
+        with trace.span("step"):
+            with trace.span("step.forward"):
+                params = dict(model.named_parameters())
+                for p in params.values():
+                    p.grad = None
+                batch = {k: v.to(dev) for k, v in batch.items()}
+                if mesh is not None and mesh.data > 1:
+                    generator = rank_generator(generator, mesh)
+                loss, metrics = loss_fn(model, batch, generator)
+            return _apply_update(optimizer, opt_state, params, loss, dict(metrics), mesh,
+                                 zero1)
 
     return step
 

@@ -483,7 +483,7 @@ def _ckpt(path):
     return params, mom["m"], mom["v"], meta["step"]
 
 
-TIMING = {"step", "time", "steps_per_sec", "perf/steps_per_sec"}
+TIMING = {"step", "time", "perf/steps_per_sec", "perf/data_wait_s"}
 
 
 def _same_run(got_dir, want_dir, steps):
