@@ -52,6 +52,13 @@
    train step and zero-shot (q/k/v J=3 and the MLP J=1, K=768, bf16; the
    zero-shot rows leave tails), with two fault probes (z kept in fp32,
    beta left out), beside F.layer_norm + F.linear and the operations bound;
+3d. AdamW phase (adamw_phase): the multi-tensor AdamW update at the
+   leaves of pretrain_4seg's MERLOT (bf16 moments, no clip) and of
+   grover-medium (fp32 moments, clip 1.0): one MerlotAdamW.update through
+   the kernels bit for bit against the plain loop given its clip factor,
+   2 launches and every non-frozen leaf, then the update, the sums kernel,
+   the plain loop and torch's fused AdamW timed in turns beside the bytes
+   bound;
 4. zero-shot phase: MerlotModel at the configs/pretrain_5seg.yaml model
    block (full width and depth, seeded random weights on the card) runs
    zero-shot story ordering on 3 batches of 2 synthetic stories, checks the
@@ -68,7 +75,8 @@
    model and optimizer blocks (full width and depth, seeded random weights
    on the card), bench.py's batch (8 x 16 chunks x 32 tokens, with padded
    chunk tails): one warm-up step, then 5 steps each timed alone, with
-   segments/s, K1 and K2 ms per step, 36 launches of each per step and the
+   segments/s, K1 and K2 ms per step, 36 launches of each per step, the
+   AdamW kernels' 2 launches over every non-frozen leaf per step, and the
    peak memory; the loss falls over steps on the repeated batch (no
    warmup); one step's loss and gradients through the kernels match the
    plain attention's within a bound, and a backward with the mask dropped
@@ -179,8 +187,8 @@
    write_lm_shard; padded rows, is_target on each row's tail): run A
    (`python -m merlot_tpu_torch.tools.grover_train` at its defaults of
    batch 8 x 1536; GT_REDUCED lists the cuts: 8 steps, checkpoints at 4
-   and 8), run B (in process from A's ckpt_4, with the counters: 24 K1 and
-   24 K2 per step) whose losses at steps 5-8 must equal A's; one step's
+   and 8), run B (in process from A's ckpt_4, with the counters: 24 K1,
+   24 K2 and the AdamW kernels' 2 over every leaf per step) whose losses at steps 5-8 must equal A's; one step's
    loss and grads through the kernels against the plain attention at full
    depth and batch 2, with the causal mask dropped on the kernel side
    failing both bounds; a profile of one more step of B's step function;
@@ -2131,11 +2139,19 @@ def grad_gap(grads: dict, ref: dict) -> dict:
     return out
 
 
+def live_leaves(opt, model) -> int:
+    """The leaves ``opt`` updates (not frozen) of ``model``'s parameters:
+    what the AdamW kernel's ``tensors`` counts per update."""
+    plan = opt._params_plan(tuple(n for n, _ in model.named_parameters()))
+    return sum(1 for _, _, hp in plan if hp["learning_rate"] != 0.0)
+
+
 def train_phase(dev) -> dict:
     import torch
     from merlot_tpu_torch.models import merlot as merlot_mod
     from merlot_tpu_torch.models.config import MerlotConfig
     from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_adamw
     from merlot_tpu_torch.ops import cuda_attention as ca
     from merlot_tpu_torch.ops.masking import masking_draws
     from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
@@ -2161,11 +2177,11 @@ def train_phase(dev) -> dict:
     check(all(math.isfinite(v) for v in first.values()), f"step 1 metrics {first}")
 
     # the timed steps: counts set to 0 just before, read just after
-    ca.launches = ca.bwd_launches = 0
-    seconds, k1_ms, k2_ms, per_step, losses = [], [], [], [], []
+    ca.launches = ca.bwd_launches = cuda_adamw.launches = cuda_adamw.tensors = 0
+    seconds, k1_ms, k2_ms, per_step, aw_per_step, losses = [], [], [], [], [], []
     for _ in range(TRAIN_STEPS):
         s1, s2 = [], []
-        before = (ca.launches, ca.bwd_launches)
+        before = (ca.launches, ca.bwd_launches, cuda_adamw.launches, cuda_adamw.tensors)
         t0 = time.perf_counter()
         with wrapped(ca, "attention_fwd_cuda", event_timed(s1)), \
                 wrapped(ca, "attention_bwd_cuda", event_timed(s2)):
@@ -2175,11 +2191,16 @@ def train_phase(dev) -> dict:
         k1_ms.append(spans_ms(s1))
         k2_ms.append(spans_ms(s2))
         per_step.append((ca.launches - before[0], ca.bwd_launches - before[1]))
+        aw_per_step.append((cuda_adamw.launches - before[2], cuda_adamw.tensors - before[3]))
         losses.append(metrics["loss"].item())
-    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                "adamw": cuda_adamw.launches}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check(per_step == [(LAUNCHES_PER_STEP, LAUNCHES_PER_STEP)] * TRAIN_STEPS,
           f"K1/K2 launches per step {per_step}, want {LAUNCHES_PER_STEP} each")
+    live = live_leaves(opt, model)
+    check(aw_per_step == [(2, live)] * TRAIN_STEPS,
+          f"AdamW (launches, leaves) per step {aw_per_step}, want (2, {live})")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
 
     # the loss falls on the repeated batch: no warmup (lr 3e-4 from the
@@ -2241,6 +2262,7 @@ def train_phase(dev) -> dict:
               "k1_ms_per_step": k1_ms, "k1_ms": statistics.median(k1_ms),
               "k2_ms_per_step": k2_ms, "k2_ms": statistics.median(k2_ms),
               "launches": launches, "launches_per_step": per_step,
+              "adamw_launches_and_leaves_per_step": aw_per_step,
               "peak_mem_gib": peak_gib, "step1_metrics": first,
               "timed_losses": losses, "loss_fall_no_warmup": fall,
               "kernel_loss": kernel_loss, "plain_loss": plain_loss,
@@ -2558,6 +2580,132 @@ def op_vs_direct(call, n: int) -> dict:
     op, direct = (statistics.median(readings[w]) for w in ("op", "direct"))
     return {"readings_ms": readings, "op_ms": op, "direct_ms": direct,
             "op_minus_direct_ms": op - direct}
+
+
+# the AdamW phase: bytes an element of the update (p, g, m, v read; p, m, v
+# written) by the moments' dtype, and of the norm's read of g
+ADAMW_BYTES = {"bf16": 20, "fp32": 28}
+NORM_BYTES = 4
+ADAMW_ITERS = 10
+
+
+def adamw_phase(dev) -> dict:
+    """The multi-tensor AdamW update (ops/cuda_adamw.py) at the leaves of
+    the two trained configurations, seeded on the card: pretrain_4seg's
+    MERLOT (597 leaves, bf16 moments, no clip) and grover-medium (388
+    leaves, fp32 moments, clip 1.0, grover_train's block). One
+    MerlotAdamW.update through the kernels against the plain loop on clones
+    of the same tensors, given the update's clip factor, bit for bit, and
+    the update's global norm (the kernel's fp64 per-leaf sums) against the
+    plain loop's (fp32) within 1e-5; the kernels' launches and leaves per update; then,
+    timed in turns (CUDA events over ADAMW_ITERS updates): the update
+    through the kernels (and the host's seconds to enqueue it), each kernel
+    alone, the plain loop, and torch.optim.AdamW(fused=True) over fp32
+    moments (a yardstick the port never calls), beside the bytes bound."""
+    import torch
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.grover import GroverConfig, GroverLM
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_adamw
+    from merlot_tpu_torch.tools import grover_train
+    from merlot_tpu_torch.train.optimizer import (AdamWConfig, MerlotAdamW, adamw_leaf,
+                                                  clip_factor, leaf_lr)
+
+    cases = {
+        "pretrain": (MerlotPretrainModel(MerlotConfig.from_dict(PRETRAIN_4SEG_MODEL),
+                                         device="meta"),
+                     lambda: MerlotAdamW(AdamWConfig.from_config(PRETRAIN_4SEG_OPTIMIZER)),
+                     "bf16"),
+        "grover": (GroverLM(GroverConfig.from_json_file(
+            str(ROOT / "configs" / "grover_medium.json")), device="meta"),
+                   lambda: grover_train.grover_optimizer(1e-5, 80000, 1000), "fp32"),
+    }
+    out = {}
+    for name, (meta, make_opt, state_dtype) in cases.items():
+        g = torch.Generator(device=dev).manual_seed(31)
+        shapes = {n: p.shape for n, p in meta.named_parameters()}
+        params = {n: 0.02 * torch.randn(s, generator=g, device=dev) for n, s in shapes.items()}
+        grads = {n: 1e-3 * torch.randn(s, generator=g, device=dev) for n, s in shapes.items()}
+        opt, ref = make_opt(), make_opt()
+        state = opt.init(params)
+        state["step"] = 5000
+        n_all = sum(p.numel() for p in params.values())
+        plan = opt._params_plan(tuple(params))
+        n_live = sum(params[n].numel() for n, _, hp in plan if hp["learning_rate"] != 0.0)
+
+        # one update through the kernels; the plain loop on clones of the same
+        # tensors, given the kernel's clip factor
+        p2 = {n: p.clone() for n, p in params.items()}
+        s2 = {k: {n: t.clone() for n, t in state[k].items()} for k in "mv"}
+        step0 = state["step"]
+        cuda_adamw.launches = cuda_adamw.tensors = 0
+        norm = opt.update(grads, state, params)["gradnorms/_overall"]
+        torch.cuda.synchronize()
+        counts = {"launches": cuda_adamw.launches, "tensors": cuda_adamw.tensors}
+        clip = clip_factor(opt.cfg.clip_norm, norm)  # as the update took it
+        plain_norm = torch.sqrt(sum(gr.float().square().sum() for gr in grads.values()))
+        norm_gap = float((norm - plain_norm).abs() / plain_norm)
+        for n, _, hp in plan:
+            if hp["learning_rate"] != 0.0:
+                adamw_leaf(p2[n], grads[n] * clip if opt.cfg.clip_norm > 0 else grads[n],
+                           s2["m"][n], s2["v"][n], hp, leaf_lr(hp, opt.lr_scale(step0),
+                                                               step0 + 1.0),
+                           opt.cfg.use_bfloat16_adam)
+        torch.cuda.synchronize()
+        differ = {k: sum(int((a[n] != b[n]).sum()) for n in a)
+                  for k, a, b in (("p", params, p2), ("m", state["m"], s2["m"]),
+                                  ("v", state["v"], s2["v"]))}
+        check(not any(differ.values()), f"adamw {name}: kernel != plain loop: {differ}")
+        check(norm_gap < 1e-5, f"adamw {name}: norm {float(norm)} against the plain "
+                               f"{float(plain_norm)}")
+        check(counts == {"launches": 2, "tensors": sum(
+            1 for _, _, hp in plan if hp["learning_rate"] != 0.0)}, f"adamw {name}: {counts}")
+        del p2, s2
+
+        lists = cuda_adamw.Lists()
+        g_list = [grads[n] for n, _, _ in plan]
+        host = []
+
+        def kernel_update():
+            t0 = time.perf_counter()
+            opt.update(grads, state, params)
+            host.append(time.perf_counter() - t0)
+
+        def plain_update():
+            ref._step(grads, state, params, {}, None, None, None, kernel=False)
+
+        fused_params = [p.clone().requires_grad_() for p in params.values()]
+        for p, gr in zip(fused_params, grads.values()):
+            p.grad = gr
+        fused = torch.optim.AdamW(fused_params, lr=1e-5, betas=(0.9, 0.98), eps=1e-6,
+                                  weight_decay=0.01, fused=True)
+        timers = {"ms": kernel_update, "plain_ms": plain_update,
+                  "sumsq_ms": lambda: cuda_adamw.sumsq(g_list, lists),
+                  "library_ms": fused.step}
+        turns = {k: [] for k in timers}
+        for _ in range(2):
+            for k, fn in timers.items():
+                turns[k].append(cuda_ms(fn, iters=ADAMW_ITERS))
+        row = {k: statistics.median(v) for k, v in turns.items()}
+        row["adamw_kernel_ms"] = row["ms"] - row["sumsq_ms"]
+        del fused, fused_params
+        nbytes = ADAMW_BYTES[state_dtype] * n_live + NORM_BYTES * n_all
+        row.update(
+            leaves=len(params), live_leaves=counts["tensors"], params=n_all,
+            launches_per_update=counts["launches"], state=state_dtype,
+            host_enqueue_ms=1e3 * statistics.median(host),
+            bound_ms=1e3 * nbytes / PEAK_HBM_BYTES,
+            update_bound_ms=1e3 * ADAMW_BYTES[state_dtype] * n_live / PEAK_HBM_BYTES,
+            norm_bound_ms=1e3 * NORM_BYTES * n_all / PEAK_HBM_BYTES,
+            differ_from_plain=differ, norm_gap=norm_gap,
+            library_note="torch.optim.AdamW(fused=True), fp32 moments, no clip: not the "
+                         "same arithmetic")
+        row["bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
+        out[name] = row
+        print(f"[adamw] {name}: " + json.dumps(row), flush=True)
+        del params, grads, state, opt, ref, lists, g_list
+        torch.cuda.empty_cache()
+    return out
 
 
 def dispatch_cost_phase(dev) -> dict:
@@ -3980,10 +4128,11 @@ def run_module(module: str, args, cwd: Path, log: Path, env: dict = None) -> tup
     return proc.returncode, seconds, text
 
 
-def counting_steps(per_step: list, windows: list):
+def counting_steps(per_step: list, windows: list, adamw: list = None):
     """A wrapper for a step factory (``harness.make_train_step``,
     ``make_loss_train_step``): every step it builds appends (step, K1
-    launches, K2 launches) to ``per_step``, and the first step of each
+    launches, K2 launches) to ``per_step`` (and, with ``adamw``, the AdamW
+    kernels' launches and leaves to it), and the first step of each
     window of CLI_PROFILE_WINDOWS starts a torch.profiler that the window's
     last step stops (appended to ``windows``, its wall time taken from just
     after the start). The profiles are read after the run
@@ -3991,6 +4140,7 @@ def counting_steps(per_step: list, windows: list):
     steps after it."""
     import torch
     from torch.profiler import profile
+    from merlot_tpu_torch.ops import cuda_adamw
     from merlot_tpu_torch.ops import cuda_attention as ca
 
     def counting(make):
@@ -4005,9 +4155,13 @@ def counting_steps(per_step: list, windows: list):
                         prof = profile(activities=profile_activities())
                         prof.start()
                         windows.append({"steps": w, "prof": prof, "t0": time.perf_counter()})
-                before = (ca.launches, ca.bwd_launches)
+                before = (ca.launches, ca.bwd_launches, cuda_adamw.launches,
+                          cuda_adamw.tensors)
                 out = step(model, opt_state, batch, generator, **kw2)
                 per_step.append((n, ca.launches - before[0], ca.bwd_launches - before[1]))
+                if adamw is not None:
+                    adamw.append((cuda_adamw.launches - before[2],
+                                  cuda_adamw.tensors - before[3]))
                 if windows and n == windows[-1]["steps"][-1]:
                     torch.cuda.synchronize()
                     windows[-1]["wall_ms"] = 1e3 * (time.perf_counter() - windows[-1]["t0"])
@@ -5040,17 +5194,20 @@ def grover_train_phase(dev, tmp: Path, old=None) -> dict:
     (d / "b" / "checkpoints").mkdir(parents=True)
     shutil.copytree(a_ckpt.path(GT_CKPT_EVERY), d / "b" / "checkpoints" / f"ckpt_{GT_CKPT_EVERY}",
                     copy_function=os.link)  # hard links: no file is rewritten
-    per_step, windows = [], []
+    per_step, windows, aw_per_step = [], [], []
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     # the main path: counts set to 0 just before, read just after
     reset_counts()
-    with wrapped(grover_train, "make_loss_train_step", counting_steps(per_step, windows)):
+    with wrapped(grover_train, "make_loss_train_step",
+                 counting_steps(per_step, windows, aw_per_step)):
         t0 = time.perf_counter()
         b = grover_train.main([str(a) for a in argv(d / "b")])
         b_seconds = time.perf_counter() - t0
-    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches}
+    launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                "adamw": sum(n for n, _ in aw_per_step)}
+    aw_live = live_leaves(b["trainer"].optimizer, b["trainer"].model)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     # run B's own windows, the loader on: reported beside the side loop's
     # checked profile below, not checked (on the card a window of run B
@@ -5162,6 +5319,7 @@ def grover_train_phase(dev, tmp: Path, old=None) -> dict:
         "b_losses": {s: b_train[s]["loss"] for s in sorted(b_train)},
         "a_trg_loss": {s: a_train[s]["trg_loss"] for s in sorted(a_train)},
         "resume_loss_rel_gap": loss_gap, "launches": launches, "launches_per_step": per_step,
+        "adamw_launches_and_leaves_per_step": aw_per_step,
         "peak_mem_gib": peak_gib,
         "profile_source": f"side loop in a process of its own: {PROFILE_STEPS} step(s) of "
                           "grover_train's step function at A's step-8 weights on one "
@@ -5200,6 +5358,8 @@ def grover_train_phase(dev, tmp: Path, old=None) -> dict:
           f"ms per step (side loop's profile)", flush=True)
     check(all(k1 == k2 == GT_LAUNCHES_PER_STEP for _, k1, k2 in per_step),
           f"Grover run B's K1/K2 launches per step {per_step}, want {GT_LAUNCHES_PER_STEP} each")
+    check(aw_per_step == [(2, aw_live)] * len(per_step),
+          f"Grover run B's AdamW (launches, leaves) per step {aw_per_step}, want (2, {aw_live})")
     check(loss_gap <= RESUME_LOSS_RTOL, f"Grover run B's losses vs A's: {loss_gap}")
     check(loss_rel <= GT_LOSS_RTOL, f"Grover kernel vs plain loss: {loss_rel} > {GT_LOSS_RTOL}")
     check(gap["max_rel"] <= GT_GRAD_TOL,
@@ -6362,7 +6522,7 @@ def rect_row(rc: dict, shape: str) -> dict:
 
 
 def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc) -> list[dict]:
+                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc, aw) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -6650,7 +6810,29 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         # the sites from the per-shape times
         **{f"tp_train_{k}": ln_path("tp_pretrain", k)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
-    return [k1_record, k2_record, k3_record, k4_record, k5_record]
+    # per update (both launches) at pretrain_4seg's leaves; Grover's beside
+    pre, gro = aw["pretrain"], aw["grover"]
+    aw_record = {
+        "name": "adamw", "route": "cuda",
+        "source": "merlot_tpu_torch/csrc/adamw.cu",
+        "replaces": None,  # XLA fuses the JAX package's tree map; no Pallas kernel
+        "launches": tr["launches"]["adamw"] + gt["launches"]["adamw"]
+        + pre["launches_per_update"] + gro["launches_per_update"],
+        "launches_by_path": {"train": tr["launches"]["adamw"],
+                             "grover_train": gt["launches"]["adamw"],
+                             "adamw_phase": pre["launches_per_update"]
+                             + gro["launches_per_update"]},
+        "differ_from_plain": {"pretrain": pre["differ_from_plain"],
+                              "grover": gro["differ_from_plain"]},
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": "bytes", "library_ms": pre["library_ms"],
+        "sumsq_ms": pre["sumsq_ms"], "host_enqueue_ms": pre["host_enqueue_ms"],
+        "library_note": pre["library_note"],
+        "unit": f"per update: 2 launches over {pre['live_leaves']} leaves, "
+                f"{pre['params']} parameters, bf16 moments",
+        **{f"grover_{k}": gro[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                            "sumsq_ms", "host_enqueue_ms")}}
+    return [k1_record, k2_record, k3_record, k4_record, k5_record, aw_record]
 
 
 def main() -> int:
@@ -6718,7 +6900,7 @@ def main() -> int:
           flush=True)
 
     libs = ("attention_fwd", "attention_bwd", "attention_stacked", "groupnorm", "ln_matmul",
-            "jpeg")
+            "jpeg", "adamw")
     t0 = time.perf_counter()
     _build.build_libraries(libs)
     build_s = time.perf_counter() - t0
@@ -6746,6 +6928,8 @@ def main() -> int:
     lap("k4")
     k5_rows = ln_kernel_phase(dev)
     lap("k5")
+    aw = adamw_phase(dev)
+    lap("adamw")
     ab_rows = ablation_phase(dev)
     lap("ablation")
     old = parent_calls(parent_libraries(args.parent), dev) if args.parent else None
@@ -6798,7 +6982,8 @@ def main() -> int:
     lap("pipeline_parallel")
 
     records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc)
+                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc,
+                             aw)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6808,6 +6993,7 @@ def main() -> int:
              "kernel_shapes": k1_rows,
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
              "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
+             "adamw": aw,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "remat_and_cross": rc,
              "train_ab": ab,

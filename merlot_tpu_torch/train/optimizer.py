@@ -38,6 +38,16 @@ the model group and each replicated leaf's once (every model rank holds
 the same copy of it). ZeRO-1 then splits this model rank's slice over the
 data group.
 
+The update runs two ways. CUDA parameters update through the
+multi-tensor kernel (``ops/cuda_adamw.py``, ``csrc/adamw.cu``): one launch
+for the per-leaf sums of squares of the gradients, one for the AdamW step
+of every non-frozen leaf, with the plain loop's arithmetic bit for bit
+given the same clip factor; ZeRO-1's slices go in as views. CPU
+parameters take the plain loop, leaf by leaf in ATen (``adamw_leaf``):
+the path the tests hold against the JAX package, and the kernel's plain
+version. Both take the global norm, the clip factor and the metrics from
+one vector of per-leaf sums of squares, which stays on the device.
+
 Pipeline parallelism (``pp``, a mesh with a stage axis, given to
 ``update``): the parameters are one stage's (``models.grover.GroverStage``:
 its layers as ``stages.{j}.*`` and the replicated leaves, whose gradients
@@ -55,10 +65,12 @@ import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from merlot_tpu_torch.convert import flax_path, stage_leaf
 from merlot_tpu_torch.core import trace
+from merlot_tpu_torch.ops import cuda_adamw
 from merlot_tpu_torch.parallel.mesh import Mesh, shard_leaf, tp_layout, zero1_axes
 
 MISSING_PRECISION = 1.00390625  # 1 + 2^-8
@@ -143,6 +155,82 @@ def _tp_totals(groups: Sequence[Sequence[str]], sq: Mapping[str, torch.Tensor],
             for i, g in enumerate(groups)]
 
 
+def leaf_lr(hp: Mapping[str, float], scale: float, t: float) -> float:
+    """A leaf's step size at step ``t`` (1-based): its learning rate times
+    the schedule's ``scale``, the bias correction folded in."""
+    lr = hp["learning_rate"] * scale
+    return lr * math.sqrt(1.0 - hp["beta_2"] ** t) / (1.0 - hp["beta_1"] ** t)
+
+
+def clip_factor(clip_norm: float, global_norm: torch.Tensor) -> torch.Tensor:
+    """The global-norm clip's factor on the gradients."""
+    return torch.clamp(clip_norm / torch.clamp(global_norm, min=1e-12), max=1.0)
+
+
+def adamw_leaf(p: torch.Tensor, g: torch.Tensor, m0: torch.Tensor, v0: torch.Tensor,
+               hp: Mapping[str, float], lr: float, bf16_state: bool) -> None:
+    """One leaf's AdamW step in place, in ATen: p, and the moments m0 and v0
+    (bf16 with the sign-bit v, or fp32), from the gradient g (clipped
+    already) and the step size ``lr`` (``leaf_lr``). The plain version of
+    the multi-tensor kernel."""
+    b1, b2, eps = hp["beta_1"], hp["beta_2"], hp["epsilon"]
+    g32 = g.float()
+    m = m0.float() if bf16_state else m0
+    v = decode_v(v0) if bf16_state else v0
+    m = b1 * m + (1.0 - b1) * g32
+    v = b2 * v + (1.0 - b2) * (g32.square() + 1e-30)
+    upd = m / (torch.sqrt(v) + eps)
+    if hp["weight_decay_rate"] > 0:
+        upd = upd + hp["weight_decay_rate"] * p.float()
+    p.copy_(p.float() - lr * upd)
+    if bf16_state:
+        m0.copy_(m.to(torch.bfloat16))
+        v0.copy_(encode_v(v))
+    else:
+        m0.copy_(m)
+        v0.copy_(v)
+
+
+@dataclass
+class _LeafPlan:
+    """What the update keeps of a plan: the non-frozen leaves and the
+    hyperparameter group of each, the groups' hyperparameters, and for the
+    ``verbose`` metrics each leaf's scope and weight decay x 0.5 (their
+    tensors on each device in ``on_device``)."""
+    live: List[str]
+    group_of: List[int]
+    groups: List[Dict[str, float]]
+    scopes: List[str]
+    scope_of: List[int]
+    wd_half: List[float]
+    on_device: Dict[Any, Tuple[torch.Tensor, torch.Tensor]]
+
+    def tensors(self, dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``scope_of`` (int64) and ``wd_half`` (fp32) on ``dev``, made
+        once (from pinned memory without a sync on CUDA)."""
+        if dev not in self.on_device:
+            host = (torch.tensor(self.scope_of, dtype=torch.int64),
+                    torch.tensor(self.wd_half, dtype=torch.float32))
+            self.on_device[dev] = tuple(
+                t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+                for t in host)
+        return self.on_device[dev]
+
+
+def _leaf_plan(plan: Sequence[Tuple[str, str, Dict[str, float]]]) -> _LeafPlan:
+    keys: Dict[Tuple, int] = {}
+    scopes: Dict[str, int] = {}
+    live, group_of, scope_of = [], [], []
+    for n, path, hp in plan:
+        scope_of.append(scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]),
+                                          len(scopes)))
+        if hp["learning_rate"] != 0.0:  # not frozen
+            live.append(n)
+            group_of.append(keys.setdefault(tuple(sorted(hp.items())), len(keys)))
+    return _LeafPlan(live, group_of, [dict(k) for k in keys], list(scopes), scope_of,
+                     [hp["weight_decay_rate"] * 0.5 for _, _, hp in plan], {})
+
+
 class MerlotAdamW:
     """Per-parameter-hyperparameter AdamW over named parameters."""
 
@@ -152,6 +240,10 @@ class MerlotAdamW:
         self._plan: List[Tuple[str, str, Dict[str, float]]] = []
         self._axes_key: Tuple = ()
         self._axes: Dict[str, int] = {}
+        self._leaves: Optional[_LeafPlan] = None
+        # the kernels' device tables: the gradients' and the parameters'
+        # sums of squares, the update's leaves
+        self._lists = {k: cuda_adamw.Lists() for k in ("grads", "params", "update")}
 
     def _resolve(self, path: str) -> Dict[str, float]:
         """Hyperparameters of the parameter at flax path ``path``."""
@@ -175,6 +267,7 @@ class MerlotAdamW:
             self._plan = [(n, _resolve_path(n), self._resolve(_resolve_path(n)))
                           for n in sorted(names, key=_path_key)]
             self._plan_names = names
+            self._leaves = None
         return self._plan
 
     def zero1_axes(self, params: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, int]:
@@ -248,84 +341,16 @@ class MerlotAdamW:
         and ``grads`` are the whole gradients (of this model rank's
         slices), the same on every data index. ``tp``: the parameters are
         cut over its model axis, ``pp``: one stage's (the module
-        docstring)."""
+        docstring). CUDA parameters go through the multi-tensor kernel,
+        CPU ones through the plain loop."""
         with trace.span("step.update"):
-            c = self.cfg
             plan = self._params_plan(tuple(params))
             axes = self.zero1_axes(params, mesh) if mesh is not None else {}
-            names = [n for n, _, _ in plan]
-            step = state["step"]
-            scale = self.lr_scale(step)
-
-            # global-norm clip
-            split = tp is not None or pp is not None
-            if not split:
-                global_norm = torch.sqrt(sum(grads[n].float().square().sum() for n in names))
-            else:
-                (sq,) = _tp_totals([names], {n: grads[n].float().square().sum() for n in names},
-                                   params, tp, pp)
-                global_norm = torch.sqrt(sq)
-            g_all = {n: grads[n] for n in names}
-            if c.clip_norm > 0.0:
-                clip = torch.clamp(c.clip_norm / torch.clamp(global_norm, min=1e-12), max=1.0)
-                g_all = {n: g * clip.to(g.dtype) for n, g in g_all.items()}
-
-            metrics: Dict[str, Any] = {"learning_rate": c.learning_rate * scale,
-                                       "gradnorms/_overall": global_norm}
-            if c.verbose:
-                # per-scope gradient norms + the decoupled weight-decay "loss"
-                # of the parameters before this step
-                groups: Dict[str, Any] = {}
-                wd_loss = 0.0
-                if not split:
-                    for n, path, hp in plan:
-                        scope = "/".join(path.split("/")[:GRADNORM_DEPTH])
-                        groups[scope] = groups.get(scope, 0.0) + g_all[n].float().square().sum()
-                        wd = hp["weight_decay_rate"]
-                        wd_loss = wd_loss + wd * 0.5 * params[n].float().square().sum()
-                else:
-                    scopes: Dict[str, List[str]] = {}
-                    for n, path, _ in plan:
-                        scopes.setdefault("/".join(path.split("/")[:GRADNORM_DEPTH]), []).append(n)
-                    sq = _tp_totals(list(scopes.values()),
-                                    {n: g_all[n].float().square().sum() for n in names},
-                                    params, tp, pp)
-                    groups = dict(zip(scopes, sq))
-                    (wd_loss,) = _tp_totals(
-                        [names],
-                        {n: hp["weight_decay_rate"] * 0.5 * params[n].float().square().sum()
-                         for n, _, hp in plan}, params, tp, pp)
-                for scope, sq in groups.items():
-                    metrics[f"gradnorms/{scope}"] = torch.sqrt(sq)
-                metrics["weight_decay_loss"] = wd_loss
-
-            t = step + 1.0
-            for n, _, hp in plan:
-                if hp["learning_rate"] == 0.0:  # frozen
-                    continue
-                p, m0, v0 = params[n], state["m"][n], state["v"][n]
-                g = g_all[n]
-                if n in axes:  # this rank's slice
-                    p, g = shard_leaf(p, axes[n], mesh), shard_leaf(g, axes[n], mesh)
-                b1, b2, eps = hp["beta_1"], hp["beta_2"], hp["epsilon"]
-                lr = hp["learning_rate"] * scale
-                lr = lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)  # bias correction
-
-                g32 = g.float()
-                m = m0.float() if c.use_bfloat16_adam else m0
-                v = decode_v(v0) if c.use_bfloat16_adam else v0
-                m = b1 * m + (1.0 - b1) * g32
-                v = b2 * v + (1.0 - b2) * (g32.square() + 1e-30)
-                upd = m / (torch.sqrt(v) + eps)
-                if hp["weight_decay_rate"] > 0:
-                    upd = upd + hp["weight_decay_rate"] * p.float()
-                p.copy_(p.float() - lr * upd)
-                if c.use_bfloat16_adam:
-                    m0.copy_(m.to(torch.bfloat16))
-                    v0.copy_(encode_v(v))
-                else:
-                    m0.copy_(m)
-                    v0.copy_(v)
+            device = params[plan[0][0]].device
+            if device.type not in ("cuda", "cpu"):
+                raise ValueError(f"MerlotAdamW: no update for parameters on {device}")
+            metrics = self._step(grads, state, params, axes, mesh, tp, pp,
+                                 kernel=device.type == "cuda")
 
             live = [n for n, _, hp in plan if n in axes and hp["learning_rate"] != 0.0]
             if live:
@@ -333,5 +358,81 @@ class MerlotAdamW:
                     {n: shard_leaf(params[n], axes[n], mesh).contiguous() for n in live}, axes)
                 for n in live:
                     params[n].copy_(whole[n])
-            state["step"] = step + 1
+            state["step"] += 1
             return metrics
+
+    def _sumsq(self, xs: List[torch.Tensor], which: str, kernel: bool) -> torch.Tensor:
+        """Per-leaf sums of squares of ``xs`` (fp32 [len(xs)]): the kernel
+        with the table of list ``which``, or leaf by leaf in ATen."""
+        if kernel:
+            return cuda_adamw.sumsq(xs, self._lists[which])
+        return torch.stack([x.float().square().sum() for x in xs])
+
+    def _step(self, grads, state, params, axes, mesh, tp, pp, kernel: bool
+              ) -> Dict[str, Any]:
+        """The norms and the step of this rank's leaves (``update`` without
+        ZeRO-1's gather): through the multi-tensor kernel (``kernel``; no
+        host sync), or the plain loop leaf by leaf in ATen. Both take the
+        metrics and the clip factor from the gradients' per-leaf sums of
+        squares."""
+        c = self.cfg
+        plan = self._params_plan(tuple(params))
+        if self._leaves is None:
+            self._leaves = _leaf_plan(plan)
+        k = self._leaves
+        names = [n for n, _, _ in plan]
+        step = state["step"]
+        scale = self.lr_scale(step)
+        split = tp is not None or pp is not None
+
+        def group_sums(groups: List[List[str]], sq: torch.Tensor) -> List[torch.Tensor]:
+            return _tp_totals(groups, dict(zip(names, sq.unbind())), params, tp, pp)
+
+        # global-norm clip
+        sq = self._sumsq([grads[n] for n in names], "grads", kernel)
+        total = group_sums([names], sq)[0] if split else sq.sum()
+        global_norm = torch.sqrt(total)
+        clip = clip_factor(c.clip_norm, global_norm) if c.clip_norm > 0.0 else None
+
+        metrics: Dict[str, Any] = {"learning_rate": c.learning_rate * scale,
+                                   "gradnorms/_overall": global_norm}
+        if c.verbose:
+            # the clipped gradients' norms by scope, and the decoupled
+            # weight-decay "loss" of the parameters before this step
+            scope_of, wd_half = k.tensors(global_norm.device)
+            sq_g = sq if clip is None else sq * clip.square()
+            sq_p = wd_half * self._sumsq([params[n] for n in names], "params", kernel)
+            if not split:
+                by_scope = torch.zeros(len(k.scopes), device=sq.device).index_add_(
+                    0, scope_of, sq_g)
+                wd_loss = sq_p.sum()
+            else:
+                members: List[List[str]] = [[] for _ in k.scopes]
+                for n, s in zip(names, k.scope_of):
+                    members[s].append(n)
+                by_scope = torch.stack(group_sums(members, sq_g))
+                (wd_loss,) = group_sums([names], sq_p)
+            for scope, norm in zip(k.scopes, torch.sqrt(by_scope).unbind()):
+                metrics[f"gradnorms/{scope}"] = norm
+            metrics["weight_decay_loss"] = wd_loss
+
+        t = step + 1.0
+        views: List[torch.Tensor] = []  # p, g, m, v of each live leaf
+        for n in k.live:
+            p, g = params[n], grads[n]
+            if n in axes:  # this rank's slice
+                p, g = shard_leaf(p, axes[n], mesh), shard_leaf(g, axes[n], mesh)
+            views += (p, g, state["m"][n], state["v"][n])
+        if not kernel:
+            for i, gi in enumerate(k.group_of):
+                p, g, m, v = views[4 * i:4 * i + 4]
+                hp = k.groups[gi]
+                adamw_leaf(p, g if clip is None else g * clip.to(g.dtype), m, v, hp,
+                           leaf_lr(hp, scale, t), c.use_bfloat16_adam)
+        elif views:
+            table = np.stack([cuda_adamw.group_row(leaf_lr(hp, scale, t), hp["beta_1"],
+                                                   hp["beta_2"], hp["epsilon"],
+                                                   hp["weight_decay_rate"])
+                              for hp in k.groups])
+            cuda_adamw.adamw(views, k.group_of, table, clip, self._lists["update"])
+        return metrics
