@@ -14,6 +14,13 @@ records a timing event on the current stream at entry and at exit, and it
 takes the host's clock at both ends. The last ``RING`` root spans, each
 with the spans opened inside it, are kept in memory: ``recorded()`` gives
 them with the events resolved to milliseconds, ``clear()`` drops them.
+
+``count(name, value)`` is a counter: a device scalar (a tensor the step
+already made, such as the expert layer's picks of its held experts) kept
+with the root span open at the call, while a profiler records; nothing
+otherwise. Its value is not read during the step: ``counted()`` resolves
+each root's counters after the window, as ``recorded()`` resolves the
+spans' events.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import collections
 import contextlib
 import threading
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -43,7 +50,7 @@ class Record(NamedTuple):
 
 
 class _Span:
-    __slots__ = ("name", "parent", "tree", "ns", "events", "fn")
+    __slots__ = ("name", "parent", "tree", "ns", "events", "fn", "counters")
 
     def __init__(self, name: str):
         self.name = name
@@ -52,6 +59,7 @@ class _Span:
         stack = _open.__dict__.setdefault("stack", [])
         self.parent = stack[-1] if stack else None
         self.tree = self.parent.tree if self.parent else []
+        self.counters = None if self.parent else []
         self.tree.append(self)
         stack.append(self)
         self.fn = _record_function(self.name)
@@ -86,6 +94,28 @@ class _Span:
 def span(name: str):
     """A context that marks ``name``'s work while a profiler records."""
     return _Span(name) if _recording() else _NULL
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep ``value`` (a tensor scalar, not read now) as counter ``name`` of
+    the open root span, while a profiler records and a span is open."""
+    if not _recording():
+        return
+    stack = getattr(_open, "stack", None)
+    if stack:
+        stack[0].counters.append((name, value.detach()))
+
+
+def counted() -> List[Dict[str, List[float]]]:
+    """Each finished root span's counters (the same roots, in the same
+    order, as ``recorded()``): {name: [value of each call]}, resolved now."""
+    out = []
+    for tree in list(_roots):
+        values: Dict[str, List[float]] = {}
+        for name, v in tree[0].counters:
+            values.setdefault(name, []).append(float(v))
+        out.append(values)
+    return out
 
 
 def recorded() -> List[List[Record]]:

@@ -95,7 +95,8 @@ struct BwdArgs {
 };
 
 // S = Q . K^T and dP = dO . V^T of one 64-row q tile and one 64-key tile
-template <int D>
+// (Q and K D wide, dO and V DV wide)
+template <int D, int DV = D>
 __device__ __forceinline__ void score_and_dp(float (&s)[32], float (&dp)[32],
                                              const uint8_t* s_q, const uint8_t* s_k,
                                              const uint8_t* s_do, const uint8_t* s_v) {
@@ -107,24 +108,28 @@ __device__ __forceinline__ void score_and_dp(float (&s)[32], float (&dp)[32],
   for (int ks = 0; ks < D / 16; ++ks)
     Wgmma<64>::ss<0, 0>(s, desc_kmajor<D>(s_q, ks), desc_kmajor<D>(s_k, ks));
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    Wgmma<64>::ss<0, 0>(dp, desc_kmajor<D>(s_do, ks), desc_kmajor<D>(s_v, ks));
+  for (int ks = 0; ks < DV / 16; ++ks)
+    Wgmma<64>::ss<0, 0>(dp, desc_kmajor<DV>(s_do, ks), desc_kmajor<DV>(s_v, ks));
   wg_commit();
   wg_wait_all();
   reg_fence(s);
   reg_fence(dp);
 }
 
-// Q and dO, kRowStages x (K, V), barriers, mask bits
-template <int D>
-size_t rows_smem(int Sk) {
-  return sm90::kSmemAlign + (2 + 2 * kRowStages) * sm90::tile_bytes<D>() +
-         (kRowStages + 1) * sizeof(uint64_t) + mask_bits_bytes(Sk, kWgThreads);
+// Q and dO, kRowStages x (K, V), barriers, mask bits (MLA's launches leave
+// them out without a mask)
+template <int D, int DV = D>
+size_t rows_smem(int Sk, bool bits = true) {
+  return sm90::kSmemAlign +
+         (1 + kRowStages) * (sm90::tile_bytes<D>() + sm90::tile_bytes<DV>()) +
+         (kRowStages + 1) * sizeof(uint64_t) + (bits ? mask_bits_bytes(Sk, kWgThreads) : 0);
 }
 
 // one warpgroup per (64 q rows, head, batch element): two passes over the
-// K/V stream, the first for D, the second for dS and dQ = dS . K
-template <int D>
+// K/V stream, the first for D, the second for dS and dQ = dS . K. DV: V's
+// and dO's head dim (D's but for MLA); CAUSAL as in K1 (the q tiles last
+// first, each over its key tiles up to its own).
+template <int D, int DV = D, bool CAUSAL = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_bwd_rows_wgmma(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -132,26 +137,29 @@ attention_bwd_rows_wgmma(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
   using namespace sm90;
   constexpr uint32_t kTile = tile_bytes<D>();
+  constexpr uint32_t kVTile = tile_bytes<DV>();
+  constexpr uint32_t kStage = kTile + kVTile;  // a K tile and its V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* s_q = aligned_smem(smem_raw);    // Q, then dO
-  uint8_t* s_kv = s_q + 2 * kTile;          // stage st: K at 2 st, V at 2 st + 1
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_kv + 2 * kRowStages * kTile);
+  uint8_t* s_kv = s_q + kStage;             // stage st: K at st kStage, then V
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_kv + kRowStages * kStage);
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(bar + kRowStages + 1);  // [n_kt][threads]
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kTileRows;
   const int tid = threadIdx.x, t = tid % 4;
   uint8_t* s_do = s_q + kTile;
   const int Sq = a.Sq, Sk = a.Sk, H = a.H;
-  const int n_kt = (Sk + kKvTile - 1) / kKvTile, n_loads = 2 * n_kt;
+  const int n_kt = CAUSAL ? qt + 1 : (Sk + kKvTile - 1) / kKvTile, n_loads = 2 * n_kt;
 
   auto fetch = [&](int i) {
     if (i >= n_loads) return;
     const int st = i % kRowStages, k0 = (i % n_kt) * kKvTile;
-    uint8_t* dst = s_kv + 2 * st * kTile;
-    mbar_expect_tx(&bar[st], 2 * kTile);
+    uint8_t* dst = s_kv + st * kStage;
+    mbar_expect_tx(&bar[st], kStage);
     tma_tile<D>(dst, &tm_k, &bar[st], h * D, k0, b);
-    tma_tile<D>(dst + kTile, &tm_v, &bar[st], h * D, k0, b);
+    tma_tile<DV>(dst + kTile, &tm_v, &bar[st], h * DV, k0, b);
   };
   if (tid == 0) {
     for (int i = 0; i <= kRowStages; ++i) mbar_init(&bar[i], 1);
@@ -159,9 +167,9 @@ attention_bwd_rows_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bar[kRowStages], 2 * kTile);
+    mbar_expect_tx(&bar[kRowStages], kStage);
     tma_tile<D>(s_q, &tm_q, &bar[kRowStages], h * D, q0, b);
-    tma_tile<D>(s_do, &tm_do, &bar[kRowStages], h * D, q0, b);
+    tma_tile<DV>(s_do, &tm_do, &bar[kRowStages], h * DV, q0, b);
     for (int i = 0; i < kRowStages; ++i) fetch(i);
   }
 
@@ -191,15 +199,16 @@ attention_bwd_rows_wgmma(const __grid_constant__ CUtensorMap tm_q,
   for (int pass = 1; pass <= 2; ++pass) {
     for (int kt = 0; kt < n_kt; ++kt, ++i) {
       const int st = i % kRowStages, k0 = kt * kKvTile;
-      const uint8_t* s_k = s_kv + 2 * st * kTile;
+      const uint8_t* s_k = s_kv + st * kStage;
       const bool use_bits = pass == 2 && binary;
       uint32_t* bits = a.mask != nullptr && (pass == 1 || binary)
                            ? &s_bits[kt * kWgThreads + tid]
                            : nullptr;
       mbar_wait(&bar[st], (i / kRowStages) & 1);
       float s[32], dp[32];
-      score_and_dp<D>(s, dp, s_q, s_k, s_do, s_k + kTile);
+      score_and_dp<D, DV>(s, dp, s_q, s_k, s_do, s_k + kTile);
       mask_any_tile(s, mrow, k0, Sk, a.scale, a.sm_bf16, bits, use_bits, other);
+      if (CAUSAL && kt == qt) causal_tile(s, qrow, k0, Sk, a.sm_bf16);
       const uint32_t word = use_bits ? *bits : 0u;
       // P as the forward computed it, and dP + g_colsum / H, at real rows and keys
 #pragma unroll
@@ -275,16 +284,20 @@ attention_bwd_rows_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // K and V, kColStages x (Q, dO), P's and dS's bf16 terms, barriers
-template <int D>
+template <int D, int DV = D>
 constexpr size_t cols_smem() {
-  return sm90::kSmemAlign + (2 + 2 * kColStages) * sm90::tile_bytes<D>() + 6 * kTermBytes +
-         (kColStages + 1) * sizeof(uint64_t);
+  return sm90::kSmemAlign + (1 + kColStages) * (sm90::tile_bytes<D>() + sm90::tile_bytes<DV>()) +
+         6 * kTermBytes + (kColStages + 1) * sizeof(uint64_t);
 }
 
 // one warpgroup per (64 keys, head, batch element) with its K and V
 // resident: walks the q tiles 64 rows at a time and accumulates dV += P^T .
-// dO and dK += dS^T . Q, P and dS passed to wgmma through shared memory
-template <int D, bool SM_BF16>
+// dO and dK += dS^T . Q, P and dS passed to wgmma through shared memory.
+// DV as in the rows kernel; CAUSAL: the q tiles from the block's own key
+// tile on (the earlier ones see none of its keys). MLA's heads (D != DV)
+// take no colsum: its cotangent is read where it is used, not kept in
+// registers.
+template <int D, bool SM_BF16, int DV = D, bool CAUSAL = false>
 __global__ void __launch_bounds__(kWgThreads, 1)
 attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -292,11 +305,13 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_do, const BwdArgs a) {
   using namespace sm90;
   constexpr uint32_t kTile = tile_bytes<D>();
+  constexpr uint32_t kStage = kTile + tile_bytes<DV>();  // a Q tile and its dO tile
+  constexpr bool kKeepGcol = D == DV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* s_k = aligned_smem(smem_raw);        // K, then V
   const uint8_t* s_v = s_k + kTile;
-  uint8_t* s_qdo = s_k + 2 * kTile;              // stage st: Q at 2 st, dO at 2 st + 1
-  uint8_t* s_pt = s_qdo + 2 * kColStages * kTile;  // P's 3 terms, then dS's 3
+  uint8_t* s_qdo = s_k + kStage;                 // stage st: Q at st kStage, then dO
+  uint8_t* s_pt = s_qdo + kColStages * kStage;   // P's 3 terms, then dS's 3
   uint8_t* s_ds = s_pt + 3 * kTermBytes;
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_pt + 6 * kTermBytes);
 
@@ -305,15 +320,16 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int k0 = blockIdx.x * kKvTile;  // the block's first key
   const int Sq = a.Sq, Sk = a.Sk, H = a.H;
   const int n_qt = (Sq + kTileRows - 1) / kTileRows;
+  const int it0 = CAUSAL ? (int)blockIdx.x : 0;  // the first q tile that sees a key here
   constexpr int kPTerms = SM_BF16 ? 1 : 3;  // P is exact in bf16 only in that mode
 
-  auto fetch = [&](int i) {
-    if (i >= n_qt) return;
-    const int st = i % kColStages;
-    uint8_t* dst = s_qdo + 2 * st * kTile;
-    mbar_expect_tx(&bar[st], 2 * kTile);
-    tma_tile<D>(dst, &tm_q, &bar[st], h * D, i * kTileRows, b);
-    tma_tile<D>(dst + kTile, &tm_do, &bar[st], h * D, i * kTileRows, b);
+  auto fetch = [&](int i) {  // the block's i-th q tile, it0 + i
+    if (it0 + i >= n_qt) return;
+    const int st = i % kColStages, q0 = (it0 + i) * kTileRows;
+    uint8_t* dst = s_qdo + st * kStage;
+    mbar_expect_tx(&bar[st], kStage);
+    tma_tile<D>(dst, &tm_q, &bar[st], h * D, q0, b);
+    tma_tile<DV>(dst + kTile, &tm_do, &bar[st], h * DV, q0, b);
   };
   if (tid == 0) {
     for (int i = 0; i <= kColStages; ++i) mbar_init(&bar[i], 1);
@@ -321,23 +337,24 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bar[kColStages], 2 * kTile);
+    mbar_expect_tx(&bar[kColStages], kStage);
     tma_tile<D>(s_k, &tm_k, &bar[kColStages], h * D, k0, b);
-    tma_tile<D>(s_k + kTile, &tm_v, &bar[kColStages], h * D, k0, b);
+    tma_tile<DV>(s_k + kTile, &tm_v, &bar[kColStages], h * DV, k0, b);
     for (int i = 0; i < kColStages; ++i) fetch(i);
   }
 
   const size_t stat0 = ((size_t)b * H + h) * Sq;
+  const float* gb = a.gcol == nullptr ? nullptr : a.gcol + (size_t)b * Sk;
   float gt[16];  // g_colsum / H at this thread's 16 keys
+  if constexpr (kKeepGcol) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + acc_col(tid, j, e);
-      gt[2 * j + e] = key < Sk ? gcol_term(a.gcol == nullptr ? nullptr : a.gcol + (size_t)b * Sk,
-                                           key, H)
-                               : 0.f;
-    }
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + acc_col(tid, j, e);
+        gt[2 * j + e] = key < Sk ? gcol_term(gb, key, H) : 0.f;
+      }
+  }
   // the stats of this thread's two rows of a q tile, fetched a tile ahead
   auto stats_of = [&](int q0, float (&st3)[2][4]) {
     for (int half = 0; half < 2; ++half) {
@@ -350,15 +367,15 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
   };
   float next[2][4];
-  stats_of(0, next);
-  float dv[D / 2], dk[D / 2];
+  stats_of(it0 * kTileRows, next);
+  float dv[DV / 2], dk[D / 2];
   zero(dv);
   zero(dk);
 
   mbar_wait(&bar[kColStages], 0);
-  for (int it = 0; it < n_qt; ++it) {
-    const int st = it % kColStages, q0 = it * kTileRows;
-    const uint8_t* s_q = s_qdo + 2 * st * kTile;
+  for (int it = it0, n = 0; it < n_qt; ++it, ++n) {
+    const int st = n % kColStages, q0 = it * kTileRows;
+    const uint8_t* s_q = s_qdo + st * kStage;
     const uint8_t* s_do = s_q + kTile;
     float cur[2][4];
 #pragma unroll
@@ -376,14 +393,15 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        ? a.mask + ((size_t)b * Sq + qrow[half]) * Sk
                        : nullptr;
     }
-    mbar_wait(&bar[st], (it / kColStages) & 1);
+    mbar_wait(&bar[st], (n / kColStages) & 1);
     float s[32], dp[32];
-    score_and_dp<D>(s, dp, s_q, s_k, s_do, s_v);
+    score_and_dp<D, DV>(s, dp, s_q, s_k, s_do, s_v);
     // the mask read once: its 0/1 values kept as bits for dS (a thread that
     // meets another value reads it again)
     uint32_t word = 0u;
     bool other = false;
     mask_any_tile(s, mrow, k0, Sk, a.scale, SM_BF16, &word, false, other);
+    if (CAUSAL && it == it0) causal_tile(s, qrow, k0, Sk, SM_BF16);
     // P and dS of the tile into shared memory as bf16 terms, [q row][key]
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -396,7 +414,8 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
           p[e] = ds[e] = 0.f;
           if (real[half] && key < Sk) {
             p[e] = prob_rcp(s[x], cur[half][0], cur[half][1], cur[half][3], SM_BF16);
-            ds[e] = p[e] * (dp[x] + gt[2 * j + e] - cur[half][2]);
+            const float g = kKeepGcol ? gt[2 * j + e] : gcol_term(gb, key, H);
+            ds[e] = p[e] * (dp[x] + g - cur[half][2]);
             if (mrow[half] != nullptr)
               ds[e] *= other ? mrow[half][key] : (float)((word >> x) & 1u);
             ds[e] *= a.scale;
@@ -424,8 +443,8 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int c = 0; c < kPTerms; ++c)
-        Wgmma<D>::template ss<1, 1>(dv, desc_interleave_mn(s_pt + c * kTermBytes, kk),
-                                    desc_mnmajor<D>(s_do, kk));
+        Wgmma<DV>::template ss<1, 1>(dv, desc_interleave_mn(s_pt + c * kTermBytes, kk),
+                                     desc_mnmajor<DV>(s_do, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -437,45 +456,53 @@ attention_bwd_cols_wgmma(const __grid_constant__ CUtensorMap tm_q,
     reg_fence(dv);
     reg_fence(dk);
     __syncthreads();
-    if (tid == 0) fetch(it + kColStages);
+    if (tid == 0) fetch(n + kColStages);
   }
 
-  const size_t hd = (size_t)H * D;
+  const size_t hd = (size_t)H * D, hdv = (size_t)H * DV;
+  constexpr int kCols = (D > DV ? D : DV) / 8;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = k0 + acc_row(tid, half);
     if (key >= Sk) continue;
     const size_t off = ((size_t)b * Sk + key) * hd + (size_t)h * D;
+    const size_t off_v = ((size_t)b * Sk + key) * hdv + (size_t)h * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kCols; ++j) {
       const int c = acc_col(tid, j, 0);
-      *reinterpret_cast<uint32_t*>(a.dv + off + c) =
-          pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
-      *reinterpret_cast<uint32_t*>(a.dk + off + c) =
-          pack_bf16(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+      if (j < DV / 8)
+        *reinterpret_cast<uint32_t*>(a.dv + off_v + c) =
+            pack_bf16(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      if (j < D / 8)
+        *reinterpret_cast<uint32_t*>(a.dk + off + c) =
+            pack_bf16(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, int DV = D, bool CAUSAL = false>
 cudaError_t launch_bwd_wgmma(const CUtensorMap (&tm)[4], const BwdArgs& a, int B,
                              cudaStream_t st) {
   const dim3 rgrid((a.Sq + sm90::kTileRows - 1) / sm90::kTileRows, a.H, B);
   const dim3 cgrid((a.Sk + kKvTile - 1) / kKvTile, a.H, B);
-  cudaError_t err = launch(attention_bwd_rows_wgmma<D>, rgrid, kWgThreads, rows_smem<D>(a.Sk),
-                           st, tm[0], tm[1], tm[2], tm[3], a);
+  // MLA's launches hold the mask bits only with a mask
+  const bool bits = DV == D || a.mask != nullptr;
+  cudaError_t err = launch(attention_bwd_rows_wgmma<D, DV, CAUSAL>, rgrid, kWgThreads,
+                           rows_smem<D, DV>(a.Sk, bits), st, tm[0], tm[1], tm[2], tm[3], a);
   if (err != cudaSuccess) return err;
-  return launch(a.sm_bf16 ? attention_bwd_cols_wgmma<D, true>
-                           : attention_bwd_cols_wgmma<D, false>,
-                cgrid, kWgThreads, cols_smem<D>(), st, tm[0], tm[1], tm[2], tm[3], a);
+  return launch(a.sm_bf16 ? attention_bwd_cols_wgmma<D, true, DV, CAUSAL>
+                           : attention_bwd_cols_wgmma<D, false, DV, CAUSAL>,
+                cgrid, kWgThreads, cols_smem<D, DV>(), st, tm[0], tm[1], tm[2], tm[3], a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q/dout/dq: [B, Sq, H*D]; k/v/dk/dv: [B, Sk, H*D], all contiguous and
+// q/dq: [B, Sq, H*D]; k/dk: [B, Sk, H*D]; v/dv and dout as k and q with Dv
+// (D's but for MLA's heads: bf16, D 192, Dv 128), all contiguous and
 // 16-byte aligned, fp32 (is_bf16=0) or bf16 (is_bf16=1, D a multiple of 16).
+// causal: as K1's (MLA's heads, Sq = Sk, no gcol).
 // mask: [B, Sq, Sk] fp32 or NULL. gcol: [B, Sk] fp32 cotangent of the
 // colsum, or NULL. stats: 3 * B * H * Sq fp32, [row max, row sum, D] by
 // [B, H, Sq]: with stats_saved=1 its first two planes hold the forward's
@@ -487,11 +514,16 @@ extern "C" {
 int merlot_attention_bwd(const void* q, const void* k, const void* v,
                          const void* mask, const void* dout, const void* gcol,
                          void* dq, void* dk, void* dv, void* stats, int stats_saved,
-                         void* tile_class, int B, int Sq, int Sk, int H, int D, int is_bf16,
-                         int softmax_fp32, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > kMaxSeq ||
-      Sk > kMaxSeq || D > kMaxHeadDim || B > 65535 || H > 65535 ||
-      (is_bf16 && D % 16 != 0))
+                         void* tile_class, int B, int Sq, int Sk, int H, int D, int Dv,
+                         int is_bf16, int softmax_fp32, int causal, float scale,
+                         void* stream) {
+  const int max_seq = is_bf16 ? kMaxSeqBf16 : kMaxSeq;
+  const bool mla = Dv != D || causal;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > max_seq ||
+      Sk > max_seq || B > 65535 || H > 65535 ||
+      (mla ? !is_bf16 || D != kMlaQkDim || Dv != kMlaVDim || gcol != nullptr ||
+                 (causal && Sq != Sk)
+           : D > kMaxHeadDim || (is_bf16 && D % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);
@@ -505,18 +537,21 @@ int merlot_attention_bwd(const void* q, const void* k, const void* v,
     if (!stats_saved) {
       err = launch_fwd_tiles(q, k, v, 0, m, nullptr, nullptr, row_max, nullptr, B, Sq, Sk,
                              H, D, H * D, (size_t)Sq * Sk, true, sm_bf16, scale, st, kProd,
-                             true);
+                             true, Dv, causal != 0);
       if (err != cudaSuccess) return (int)err;
     }
     CUtensorMap tm[4];
     err = sm90::make_tile_map(&tm[0], q, B, Sq, H * D, D);
     if (err == cudaSuccess) err = sm90::make_tile_map(&tm[1], k, B, Sk, H * D, D);
-    if (err == cudaSuccess) err = sm90::make_tile_map(&tm[2], v, B, Sk, H * D, D);
-    if (err == cudaSuccess) err = sm90::make_tile_map(&tm[3], dout, B, Sq, H * D, D);
+    if (err == cudaSuccess) err = sm90::make_tile_map(&tm[2], v, B, Sk, H * Dv, Dv);
+    if (err == cudaSuccess) err = sm90::make_tile_map(&tm[3], dout, B, Sq, H * Dv, Dv);
     if (err != cudaSuccess) return (int)err;
     const BwdArgs a{m,       gc,      static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                     static_cast<bf16*>(dv), row_max, row_sum, row_d, Sq, Sk, H, scale,
                     sm_bf16};
+    if (mla)
+      return (int)(causal ? launch_bwd_wgmma<kMlaQkDim, kMlaVDim, true>(tm, a, B, st)
+                          : launch_bwd_wgmma<kMlaQkDim, kMlaVDim, false>(tm, a, B, st));
     switch (D) {
       case 16: return (int)launch_bwd_wgmma<16>(tm, a, B, st);
       case 32: return (int)launch_bwd_wgmma<32>(tm, a, B, st);

@@ -16,8 +16,14 @@
 namespace merlot {
 
 constexpr float kMaskPenalty = 1e10f;
+// the longest sequence of the fp32 routes and K3 (their tile lists are
+// sized by it), and of K1/K2's bf16 route
 constexpr int kMaxSeq = 2048;
+constexpr int kMaxSeqBf16 = 4096;
 constexpr int kMaxHeadDim = 128;
+// MLA's heads (K1/K2's bf16 route only): Q.K at 192, P.V at 128
+constexpr int kMlaQkDim = 192;
+constexpr int kMlaVDim = 128;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 typedef __nv_bfloat16 bf16;

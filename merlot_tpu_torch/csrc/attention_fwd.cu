@@ -101,7 +101,7 @@ __global__ void colsum_reduce_kernel(const float* __restrict__ part,
 
 extern "C" {
 
-// q/out: [B, Sq, H*D]; k/v: [B, Sk, H*D], all contiguous and 16-byte
+// q: [B, Sq, H*D]; k: [B, Sk, H*D]; v/out as k/q with Dv, all contiguous and 16-byte
 // aligned, fp32 (is_bf16=0) or bf16 (is_bf16=1, D a multiple of 16). mask:
 // [B, Sq, Sk] fp32 or NULL. colsum_part/colsum: workspace of B * H *
 // ceil(Sq / 64) * Sk floats and [B, Sk] fp32 output, both NULL when no
@@ -109,18 +109,24 @@ extern "C" {
 // fp32 that receives each row's softmax max and sum, which K2 takes
 // instead of recomputing them. tile_class: with fp32 inputs and a mask,
 // [B][q tiles][key tiles] bytes that receive the mask's tile classes (K2
-// takes them too); else ignored. variant: 0 (the kernel); 1 and 2 are
-// the ablation probe's mm_only and no_max (bf16, D = 64; wrong on purpose,
-// no model path asks for them). Launches on `stream` and returns a
-// cudaError_t (0 on success).
+// takes them too); else ignored. Dv: v's and out's head dim, D's but for
+// MLA's heads (bf16, D 192 and Dv 128: v [B, Sk, H*Dv], out [B, Sq, H*Dv]).
+// causal: key j seen by query rows i >= j only (MLA's heads, Sq = Sk, no
+// colsum). Sequences up to kMaxSeqBf16 in bf16, kMaxSeq in fp32. variant: 0
+// (the kernel); 1 and 2 are the ablation probe's mm_only and no_max (bf16,
+// D = 64; wrong on purpose, no model path asks for them). Launches on
+// `stream` and returns a cudaError_t (0 on success).
 int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
                                  const void* mask, void* out, void* colsum_part,
                                  void* colsum, void* stats, void* tile_class, int B, int Sq,
-                                 int Sk, int H, int D, int is_bf16, int softmax_fp32,
-                                 float scale, void* stream, int variant) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > kMaxSeq ||
-      Sk > kMaxSeq || D > kMaxHeadDim || B > 65535 || H > 65535 ||
-      (is_bf16 && D % 16 != 0))
+                                 int Sk, int H, int D, int Dv, int is_bf16, int softmax_fp32,
+                                 int causal, float scale, void* stream, int variant) {
+  const int max_seq = is_bf16 ? kMaxSeqBf16 : kMaxSeq;
+  const bool mla = Dv != D || causal;
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || Sq > max_seq ||
+      Sk > max_seq || B > 65535 || H > 65535 ||
+      (mla ? !is_bf16 || D != kMlaQkDim || Dv != kMlaVDim || colsum != nullptr
+           : D > kMaxHeadDim || (is_bf16 && D % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   if ((colsum_part == nullptr) != (colsum == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -129,7 +135,8 @@ int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
   const cudaError_t err = launch_fwd_tiles(
       q, k, v, 0, static_cast<const float*>(mask), out, part, static_cast<float*>(stats),
       static_cast<uint8_t*>(tile_class), B, Sq, Sk, H, D, H * D, (size_t)Sq * Sk,
-      is_bf16 != 0, is_bf16 != 0 && softmax_fp32 == 0, scale, st, variant);
+      is_bf16 != 0, is_bf16 != 0 && softmax_fp32 == 0, scale, st, variant, false, Dv,
+      causal != 0);
   if (err != cudaSuccess || colsum == nullptr) return (int)err;
   const int n_tiles = (Sq + sm90::kTileRows - 1) / sm90::kTileRows;
   const int threads = 256;
@@ -142,11 +149,11 @@ int merlot_attention_fwd_variant(const void* q, const void* k, const void* v,
 int merlot_attention_fwd(const void* q, const void* k, const void* v,
                          const void* mask, void* out, void* colsum_part,
                          void* colsum, void* stats, void* tile_class, int B, int Sq,
-                         int Sk, int H, int D, int is_bf16, int softmax_fp32, float scale,
-                         void* stream) {
+                         int Sk, int H, int D, int Dv, int is_bf16, int softmax_fp32,
+                         int causal, float scale, void* stream) {
   return merlot_attention_fwd_variant(q, k, v, mask, out, colsum_part, colsum, stats,
-                                      tile_class, B, Sq, Sk, H, D, is_bf16, softmax_fp32,
-                                      scale, stream, kProd);
+                                      tile_class, B, Sq, Sk, H, D, Dv, is_bf16, softmax_fp32,
+                                      causal, scale, stream, kProd);
 }
 
 }  // extern "C"

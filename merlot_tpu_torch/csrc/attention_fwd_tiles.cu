@@ -8,25 +8,30 @@
 namespace merlot {
 
 
-template <int D, int VAR>
+// DV: V's and ctx's head dim (D's but for MLA). CAUSAL (Sq = Sk): the q
+// tiles run last first (the longest rows start first) and each visits its
+// key tiles up to its own, the diagonal one masked by causal_tile.
+template <int D, int VAR, int DV = D, bool CAUSAL = false>
 __global__ void __launch_bounds__(kWgThreads, kFwdMinBlocks)
 attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const FwdArgs a) {
   using namespace sm90;
   constexpr uint32_t kTile = tile_bytes<D>();
+  constexpr uint32_t kStage = kTile + tile_bytes<DV>();  // a K tile and its V tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* s_q = aligned_smem(smem_raw);
-  uint8_t* s_kv = s_q + kTile;               // stage st: K at 2 st, V at 2 st + 1
-  float* s_cs = reinterpret_cast<float*>(s_kv + 2 * kFwdStages * kTile);  // [warps][64]
+  uint8_t* s_kv = s_q + kTile;               // stage st: K at st kStage, then V
+  float* s_cs = reinterpret_cast<float*>(s_kv + kFwdStages * kStage);  // [warps][64]
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_cs + 4 * kKvTile);  // stages, Q
   uint32_t* s_bits = reinterpret_cast<uint32_t*>(bar + kFwdStages + 1);  // [n_kt][threads]
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * kTileRows;
   const int tid = threadIdx.x, t = tid % 4;
   const int Sq = a.Sq, Sk = a.Sk;
-  const int n_kt = (Sk + kKvTile - 1) / kKvTile;
+  const int n_kt = CAUSAL ? qt + 1 : (Sk + kKvTile - 1) / kKvTile;
   // passes: 1 the row max and sum (the probe's variants skip it), 2 the
   // probs, colsum and ctx
   const int p0 = VAR == kProd ? 1 : 2;
@@ -38,10 +43,10 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (i >= n_loads) return;
     const int st = i % kFwdStages, k0 = (i % n_kt) * kKvTile;
     const bool with_v = p0 + i / n_kt == 2;
-    uint8_t* dst = s_kv + 2 * st * kTile;
-    mbar_expect_tx(&bar[st], (with_v ? 2 : 1) * kTile);
+    uint8_t* dst = s_kv + st * kStage;
+    mbar_expect_tx(&bar[st], with_v ? kStage : kTile);
     tma_tile<D>(dst, &tm_k, &bar[st], a.k_col0 + h * D, k0, b);
-    if (with_v) tma_tile<D>(dst + kTile, &tm_v, &bar[st], a.v_col0 + h * D, k0, b);
+    if (with_v) tma_tile<DV>(dst + kTile, &tm_v, &bar[st], a.v_col0 + h * DV, k0, b);
   };
   if (tid == 0) {
     for (int i = 0; i <= kFwdStages; ++i) mbar_init(&bar[i], 1);
@@ -84,8 +89,9 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       uint32_t* bits = a.mask != nullptr ? &s_bits[kt * kWgThreads + tid] : nullptr;
       float s[32];
       mbar_wait(&bar[st], (i / kFwdStages) & 1);
-      score_tile<D>(s, s_q, s_kv + 2 * st * kTile);
+      score_tile<D>(s, s_q, s_kv + st * kStage);
       mask_any_tile(s, mrow, kt * kKvTile, Sk, a.scale, a.sm_bf16, bits, false, other);
+      if (CAUSAL && kt == qt) causal_tile(s, qrow, kt * kKvTile, Sk, a.sm_bf16);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float m = mx[half];
@@ -132,11 +138,11 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   // pass 2: p in the softmax dtype (0 past Sk), the colsum partials, and
   // ctx += round_bf16(p) . V
-  float o[D / 2];
+  float o[DV / 2];
   zero(o);
   for (int kt = 0; kt < n_kt; ++kt, ++i) {
     const int st = i % kFwdStages, k0 = kt * kKvTile;
-    const uint8_t* s_k = s_kv + 2 * st * kTile;
+    const uint8_t* s_k = s_kv + st * kStage;
     // the variants read the mask here for the first time
     uint32_t* bits = a.mask != nullptr && (p0 == 2 || binary)
                          ? &s_bits[kt * kWgThreads + tid]
@@ -145,6 +151,7 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(&bar[st], (i / kFwdStages) & 1);
     score_tile<D>(s, s_q, s_k);
     mask_any_tile(s, mrow, k0, Sk, a.scale, a.sm_bf16, bits, p0 == 1 && binary, other);
+    if (CAUSAL && kt == qt) causal_tile(s, qrow, k0, Sk, a.sm_bf16);
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
       const int half = (x / 2) % 2;
@@ -178,7 +185,7 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Wgmma<D>::template rs<1>(o, pa[kk], desc_mnmajor<D>(s_k + kTile, kk));
+      Wgmma<DV>::template rs<1>(o, pa[kk], desc_mnmajor<DV>(s_k + kTile, kk));
     wg_commit();
     wg_wait_all();
     reg_fence(o);
@@ -187,25 +194,27 @@ attention_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) fetch(i + kFwdStages);
   }
 
-  const size_t hd = (size_t)a.H * D;
-  bf16* ob = a.out + (size_t)b * Sq * hd + (size_t)h * D;
+  const size_t hd = (size_t)a.H * DV;
+  bf16* ob = a.out + (size_t)b * Sq * hd + (size_t)h * DV;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     if (!real[half]) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<uint32_t*>(ob + (size_t)qrow[half] * hd + acc_col(tid, j, 0)) =
           pack_bf16(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
   }
 }
 
-template <int D, int VAR>
+template <int D, int VAR, int DV = D, bool CAUSAL = false>
 cudaError_t launch_fwd_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
                              const CUtensorMap& tv, const FwdArgs& a, int B,
                              cudaStream_t st) {
   const dim3 grid((a.Sq + sm90::kTileRows - 1) / sm90::kTileRows, a.H, B);
-  return launch(attention_fwd_wgmma<D, VAR>, grid, kWgThreads, fwd_smem<D>(a.Sk), st, tq, tk,
-                tv, a);
+  // MLA's launches hold the mask bits only with a mask
+  const bool bits = DV == D || a.mask != nullptr;
+  return launch(attention_fwd_wgmma<D, VAR, DV, CAUSAL>, grid, kWgThreads,
+                fwd_smem<D, DV>(a.Sk, bits), st, tq, tk, tv, a);
 }
 
 cudaError_t launch_fwd_tiles(const void* q, const void* k, const void* v,
@@ -214,7 +223,9 @@ cudaError_t launch_fwd_tiles(const void* q, const void* k, const void* v,
                              int B, int Sq, int Sk, int H, int D, int kv_ld,
                              size_t mask_bs, bool is_bf16, bool sm_bf16, float scale,
                              cudaStream_t st, int variant,
-                             bool stats_only) {
+                             bool stats_only, int Dv, bool causal) {
+  if (Dv == 0) Dv = D;
+  if (!is_bf16 && (Dv != D || causal)) return cudaErrorInvalidValue;
   if (!is_bf16) {
     if (variant != kProd || sm_bf16 || D > kMaxHeadDim) return cudaErrorInvalidValue;
     const f32::FwdArgs a{static_cast<const float*>(q),
@@ -234,6 +245,21 @@ cudaError_t launch_fwd_tiles(const void* q, const void* k, const void* v,
                          scale,
                          stats_only};
     return f32::launch_fwd_f32(a, tile_class, B, st);
+  }
+  if (Dv != D || causal) {
+    // MLA's heads: separate q, k [B, S, H*D] and v [B, Sk, H*Dv]
+    if (D != kMlaQkDim || Dv != kMlaVDim || variant != kProd || colsum_part != nullptr ||
+        kv_ld != H * D || v_col0 != 0 || (causal && Sq != Sk))
+      return cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    cudaError_t err = sm90::make_tile_map(&tq, q, B, Sq, H * D, D);
+    if (err == cudaSuccess) err = sm90::make_tile_map(&tk, k, B, Sk, kv_ld, D);
+    if (err == cudaSuccess) err = sm90::make_tile_map(&tv, v, B, Sk, H * Dv, Dv);
+    if (err != cudaSuccess) return err;
+    const FwdArgs a{mask, static_cast<bf16*>(out), nullptr, stats, Sq, Sk, H, 0, 0,
+                    mask_bs, scale, sm_bf16, stats_only};
+    return causal ? launch_fwd_wgmma<kMlaQkDim, kProd, kMlaVDim, true>(tq, tk, tv, a, B, st)
+                  : launch_fwd_wgmma<kMlaQkDim, kProd, kMlaVDim, false>(tq, tk, tv, a, B, st);
   }
   if (D % 16 != 0 || D > kMaxHeadDim) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;

@@ -57,12 +57,14 @@ inline size_t mask_bits_bytes(int Sk, int threads) {
 }
 
 // Q, kFwdStages x (K, V), colsum scratch [warps][64], barriers, mask bits
-// (one word per thread and key tile)
-template <int D>
-size_t fwd_smem(int Sk) {
-  return sm90::kSmemAlign + (1 + 2 * kFwdStages) * sm90::tile_bytes<D>() +
+// (one word per thread and key tile; MLA's launches leave them out without
+// a mask). DV: V's head dim (D's but for MLA)
+template <int D, int DV = D>
+size_t fwd_smem(int Sk, bool bits = true) {
+  return sm90::kSmemAlign + sm90::tile_bytes<D>() +
+         kFwdStages * (sm90::tile_bytes<D>() + sm90::tile_bytes<DV>()) +
          4 * kKvTile * sizeof(float) + (kFwdStages + 1) * sizeof(uint64_t) +
-         mask_bits_bytes(Sk, kWgThreads);
+         (bits ? mask_bits_bytes(Sk, kWgThreads) : 0);
 }
 
 // the score tile S = Q . K^T of the staged K tile: 64 q rows x 64 keys
@@ -126,6 +128,25 @@ __device__ __forceinline__ void mask_tile(float (&s)[32], const float* const (&m
   if (bits != nullptr && !use_bits) *bits = word;
 }
 
+// A causal launch's diagonal tile (Sq = Sk, the q tile's own keys): keys
+// past the query row take m = 0, round_sm(-1e10), as a causal mask gives
+// them; keys at or past Sk stay -inf. The tiles past the diagonal hold
+// only such keys: their p is exactly 0 and the kernels skip them.
+__device__ __forceinline__ void causal_tile(float (&s)[32], const int (&qrow)[2], int k0,
+                                            int Sk, bool sm_bf16) {
+  const int t = threadIdx.x % 4;
+  const float masked = round_sm(-kMaskPenalty, sm_bf16);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        if (key > qrow[half] && key < Sk) s[4 * j + 2 * half + e] = masked;
+      }
+}
+
 // mask_tile with the edge test only where the tile crosses Sk
 __device__ __forceinline__ void mask_any_tile(float (&s)[32], const float* const (&mrow)[2],
                                               int k0, int Sk, float scale, bool sm_bf16,
@@ -173,13 +194,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 // starting at v + v_col0; colsum_part and stats may be null. fp32 runs
 // attention_fp32.cuh's kernels and, with a mask, first sorts its tiles into
 // tile_class ([B or 1][q tiles][key tiles] bytes; the bf16 kernels ignore
-// it). variant: FwdVariant (bf16, D = 64 only for the probe's two).
+// it). variant: FwdVariant (bf16, D = 64 only for the probe's two). Dv: V's
+// and ctx's head dim (0: D); bf16 takes Dv != D only as MLA's pair (D 192,
+// Dv 128), whose separate V rows are H*Dv apart. causal: Sq = Sk, key j
+// seen by query rows i >= j only (bf16 at MLA's pair, no colsum).
 cudaError_t launch_fwd_tiles(const void* q, const void* k, const void* v,
                              int v_col0, const float* mask, void* out,
                              float* colsum_part, float* stats, uint8_t* tile_class,
                              int B, int Sq, int Sk, int H, int D, int kv_ld,
                              size_t mask_bs, bool is_bf16, bool sm_bf16, float scale,
                              cudaStream_t st, int variant = kProd,
-                             bool stats_only = false);
+                             bool stats_only = false, int Dv = 0, bool causal = false);
 
 }  // namespace merlot

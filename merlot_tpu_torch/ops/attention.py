@@ -21,6 +21,10 @@ of the heads (a tensor-parallel rank's, ``dropout_heads``) draws the mask
 over all heads and keeps its own, so the ranks together drop what one
 process would.
 
+``causal`` lets query row i see keys j <= i only (Sq = Sk), as a lower
+triangular mask would; V's head dim may differ from Q's and K's (MLA's
+heads: ``models/moe_lm.py``), the scale is still Q's head dim's.
+
 Backends: 'plain' is the PyTorch composition below (autograd through it);
 'cuda' is the hand-written attention kernels (ops/cuda_attention.py): the
 forward K1 and, when a gradient is taken, the backward K2; a shape or
@@ -59,11 +63,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    dropout_rate: float = 0.0,
                    generator: Optional[torch.Generator] = None,
                    dropout_heads: Optional[Tuple[int, int]] = None,
+                   causal: bool = False,
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Scaled dot-product attention.
 
     Args:
-      q: [B, Sq, H, D]; k, v: [B, Sk, H, D].
+      q: [B, Sq, H, D]; k: [B, Sk, H, D]; v: [B, Sk, H, Dv].
       mask: [B, Sq, Sk] (1 = attend) or None.
       collect: 'none' | 'colsum' | 'probs'.
       backend: 'auto' | 'plain' | 'cuda'.
@@ -72,8 +77,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       dropout_heads: (first, total) when q holds heads first.. of ``total``
         (a tensor-parallel rank's): the keep mask is drawn over all
         ``total`` heads and this call's are sliced out.
+      causal: query row i sees keys j <= i only (with ``mask``, both hold).
 
-    Returns (context [B, Sq, H, D] in q.dtype, extra) with extra None /
+    Returns (context [B, Sq, H, Dv] in q.dtype, extra) with extra None /
     colsum [B, Sk] fp32 / probs [B, Sq, Sk] fp32 per ``collect``.
     """
     if collect not in ("none", "colsum", "probs"):
@@ -85,15 +91,31 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # imported here: cuda_attention imports this module
         from merlot_tpu_torch.ops.cuda_attention import (flash_attention,
                                                          kernel_supported)
-        if not kernel_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype):
+        if not kernel_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype, v.shape[-1]):
             raise ValueError(f"attention_core: the kernels do not take Sq={q.shape[1]} "
-                             f"Sk={k.shape[1]} d={q.shape[-1]} {q.dtype}")
+                             f"Sk={k.shape[1]} d={q.shape[-1]} d_v={v.shape[-1]} {q.dtype}")
         return flash_attention(q, k, v, mask, collect=collect,
-                               softmax_fp32=softmax_fp32)
+                               softmax_fp32=softmax_fp32, causal=causal)
 
+    mask = with_causal(mask, causal, q.shape[1], k.shape[1], q.device)
     return _plain_attention(q, k, v, mask, collect=collect,
                             softmax_fp32=softmax_fp32, dropout_rate=dropout_rate,
                             generator=generator, dropout_heads=dropout_heads)
+
+
+def causal_mask(sq: int, sk: int, device) -> torch.Tensor:
+    """The [1, Sq, Sk] fp32 mask of causal attention: key j seen by query
+    rows i >= j."""
+    return torch.ones(sq, sk, device=device).tril_()[None]
+
+
+def with_causal(mask: Optional[torch.Tensor], causal: bool, sq: int, sk: int, device
+                ) -> Optional[torch.Tensor]:
+    """``mask``, and with ``causal`` the causal mask over it."""
+    if not causal:
+        return mask
+    tri = causal_mask(sq, sk, device)
+    return tri if mask is None else mask.to(tri.dtype) * tri
 
 
 def attention_scores(q, k, mask, *, softmax_fp32: bool) -> torch.Tensor:

@@ -24,6 +24,11 @@ The fp32 routes of K1 and K2 (``csrc/attention_fp32.cuh``) sort the mask's
 holds the classes) and skip the all-0 tiles wherever that changes nothing;
 the forward's classes and row max and sum go to the backward with it.
 
+MLA's heads (DeepSeek-V3's latent attention, ``models/moe_lm.py``) run on
+K1 and K2's bf16 route at a Q.K head dim of 192 and a V head dim of 128
+(``d_v``), with a causal flag in place of a mask tensor: the kernels visit
+each q tile's key tiles up to its own and mask the diagonal one by index.
+
 ``FlashAttention`` and ``flash_attention_stacked`` launch the kernels for
 CUDA tensors and use the plain versions for CPU tensors; they never fall
 back from one to the other. ``launches``, ``bwd_launches`` and
@@ -41,10 +46,12 @@ import torch
 from merlot_tpu_torch._build import load_library
 from merlot_tpu_torch.ops import named_ops
 from merlot_tpu_torch.ops.attention import (_plain_attention, attention_probs,
-                                            attention_scores)
+                                            attention_scores, with_causal)
 
-MAX_KERNEL_SEQ = 2048
+MAX_KERNEL_SEQ = 2048       # fp32 route and K3
+MAX_KERNEL_SEQ_BF16 = 4096  # K1/K2's bf16 route
 MAX_HEAD_DIM = 128
+MLA_DIMS = (192, 128)       # (Q.K, V) head dims of MLA's kernels (bf16)
 TILE = 64  # query rows and keys of the kernels' tiles
 
 # launches of K1, K2 and K3 since the last reset (set them to 0 to reset)
@@ -61,15 +68,22 @@ VARIANTS = {"mm_only": 1, "no_max": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_supported(sq: int, sk: int, d_head: int, dtype: torch.dtype) -> bool:
+def kernel_supported(sq: int, sk: int, d_head: int, dtype: torch.dtype,
+                     d_v: Optional[int] = None) -> bool:
     """Shapes and dtypes the kernels take (the wrappers and
     ``attention_core(backend='cuda')`` raise on any other). bf16 runs on the tensor cores in 16-wide head-dim steps, so
-    its head dim must be a multiple of 16; fp32 takes any head dim."""
+    its head dim must be a multiple of 16; fp32 takes any head dim. ``d_v``
+    (V's head dim; None: d_head) differs from d_head only as MLA's pair,
+    in bf16. Sequences up to 4096 in bf16, 2048 in fp32."""
     if dtype not in _DTYPE_CODE:
         return False
+    if d_v is not None and d_v != d_head:
+        return dtype == torch.bfloat16 and (d_head, d_v) == MLA_DIMS and \
+            sq <= MAX_KERNEL_SEQ_BF16 and sk <= MAX_KERNEL_SEQ_BF16
     if dtype == torch.bfloat16 and d_head % 16:
         return False
-    return sq <= MAX_KERNEL_SEQ and sk <= MAX_KERNEL_SEQ and d_head <= MAX_HEAD_DIM
+    longest = MAX_KERNEL_SEQ_BF16 if dtype == torch.bfloat16 else MAX_KERNEL_SEQ
+    return sq <= longest and sk <= longest and d_head <= MAX_HEAD_DIM
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -78,7 +92,7 @@ def load_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_fwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 9 + [i] * 7 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 9 + [i] * 9 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
         var = lib.merlot_attention_fwd_variant
         var.argtypes = fn.argtypes + [i]
@@ -92,7 +106,7 @@ def load_bwd_kernel() -> ctypes.CDLL:
     fn = lib.merlot_attention_bwd
     if fn.argtypes is None:
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 10 + [i, ptr] + [i] * 7 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 10 + [i, ptr] + [i] * 9 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -199,11 +213,12 @@ def _check_decode_plan(device_index: int, sq: int, sk: int, d: int, is_bf16: int
 
 
 def _check_inputs(name: str, q3, k3, v3, mask, num_heads: int,
-                  like_q=(), fp32=()) -> Tuple[int, int, int, int]:
-    """Validate a launch's tensors; returns (B, Sq, Sk, d_head). ``like_q``
-    must match q3's shape and dtype; ``fp32`` are fp32 tensors of any
-    shape (their shapes are the caller's to check)."""
-    present = [t for t in (q3, k3, v3, mask, *like_q, *fp32) if t is not None]
+                  like_ctx=(), fp32=(), causal: bool = False) -> Tuple[int, int, int, int, int]:
+    """Validate a launch's tensors; returns (B, Sq, Sk, d_head, d_v).
+    ``like_ctx`` must match the context's shape [B, Sq, H*d_v] and q3's
+    dtype; ``fp32`` are fp32 tensors of any shape (their shapes are the
+    caller's to check). ``causal`` needs Sq = Sk and MLA's heads."""
+    present = [t for t in (q3, k3, v3, mask, *like_ctx, *fp32) if t is not None]
     if any(t.device.type != "cuda" or t.device != q3.device for t in present):
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
     if q3.dtype not in _DTYPE_CODE or k3.dtype != q3.dtype or v3.dtype != q3.dtype:
@@ -213,28 +228,31 @@ def _check_inputs(name: str, q3, k3, v3, mask, num_heads: int,
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in present):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    if q3.dim() != 3 or k3.dim() != 3 or v3.shape != k3.shape:
+    if q3.dim() != 3 or k3.dim() != 3 or v3.dim() != 3 or v3.shape[:2] != k3.shape[:2]:
         raise ValueError(f"{name}: bad shapes {tuple(q3.shape)}, "
                          f"{tuple(k3.shape)}, {tuple(v3.shape)}")
     b, sq, hd = q3.shape
     sk = k3.shape[1]
-    if k3.shape[0] != b or k3.shape[2] != hd or hd % num_heads != 0:
+    if (k3.shape[0] != b or k3.shape[2] != hd or hd % num_heads != 0
+            or v3.shape[2] % num_heads != 0):
         raise ValueError(f"{name}: bad shapes {tuple(q3.shape)}, "
-                         f"{tuple(k3.shape)} for {num_heads} heads")
-    d = hd // num_heads
-    if not kernel_supported(sq, sk, d, q3.dtype):
-        raise ValueError(f"{name}: unsupported Sq={sq} Sk={sk} d={d} for {q3.dtype}")
+                         f"{tuple(k3.shape)}, {tuple(v3.shape)} for {num_heads} heads")
+    d, d_v = hd // num_heads, v3.shape[2] // num_heads
+    if not kernel_supported(sq, sk, d, q3.dtype, d_v) or (
+            causal and (sq != sk or (d, d_v) != MLA_DIMS)):
+        raise ValueError(f"{name}: unsupported Sq={sq} Sk={sk} d={d} d_v={d_v} "
+                         f"causal={causal} for {q3.dtype}")
     if mask is not None and (mask.dtype != torch.float32
                              or tuple(mask.shape) != (b, sq, sk)):
         raise ValueError(f"{name}: mask must be fp32 {(b, sq, sk)}, "
                          f"got {mask.dtype} {tuple(mask.shape)}")
-    for t in like_q:
-        if t.shape != q3.shape or t.dtype != q3.dtype:
+    for t in like_ctx:
+        if tuple(t.shape) != (b, sq, num_heads * d_v) or t.dtype != q3.dtype:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does not match "
-                             f"q {tuple(q3.shape)} {q3.dtype}")
+                             f"the context {(b, sq, num_heads * d_v)} {q3.dtype}")
     if any(t is not None and t.dtype != torch.float32 for t in fp32):
         raise ValueError(f"{name}: expected fp32")
-    return b, sq, sk, d
+    return b, sq, sk, d, d_v
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -245,20 +263,22 @@ def attention_fwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], *, num_heads: int,
                        softmax_fp32: bool, collect_colsum: bool,
                        stats: Optional[torch.Tensor] = None,
-                       tile_class: Optional[torch.Tensor] = None
+                       tile_class: Optional[torch.Tensor] = None, causal: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch K1. q3 [B, Sq, H*D]; k3/v3 [B, Sk, H*D], contiguous CUDA
     tensors of one dtype (fp32, or bf16 with a head dim that is a multiple
-    of 16); mask [B, Sq, Sk] contiguous fp32 or None. stats: None, or a
+    of 16), or MLA's heads in bf16: q3/k3 at D 192, v3 [B, Sk, H*128];
+    mask [B, Sq, Sk] contiguous fp32 or None; causal: key j seen by query
+    rows i >= j only (MLA's heads, Sq = Sk, no colsum). stats: None, or a
     [3, B, H, Sq] fp32 buffer (``new_stats``) whose first two planes
     receive each row's softmax max and sum, for ``attention_bwd_cuda``.
     tile_class: for fp32 with a mask, a ``new_tile_class`` buffer that
     receives the mask's tile classes (for ``attention_bwd_cuda``), or None
     (one is made). Returns (ctx [B, Sq, H*D] in q3.dtype, colsum [B, Sk]
-    fp32 or None)."""
+    fp32 or None); ctx is [B, Sq, H*d_v]."""
     global launches
     out = _fwd_launch("attention_fwd_cuda", q3, k3, v3, mask, num_heads, softmax_fp32,
-                      collect_colsum, None, stats, tile_class)
+                      collect_colsum, None, stats, tile_class, causal)
     launches += 1
     return out
 
@@ -320,13 +340,15 @@ def attention_fwd_variant_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Ten
 
 
 def _fwd_launch(name, q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
-                variant, stats=None, tile_class=None):
-    b, sq, sk, d = _check_inputs(name, q3, k3, v3, mask, num_heads)
+                variant, stats=None, tile_class=None, causal=False):
+    b, sq, sk, d, d_v = _check_inputs(name, q3, k3, v3, mask, num_heads, causal=causal)
+    if causal and collect_colsum:
+        raise ValueError(f"{name}: a causal launch takes no colsum")
     if stats is not None:
         _check_stats(name, stats, q3, num_heads)
     tile_class = _tile_class_for(name, tile_class, q3, mask)
     lib = load_kernel()
-    out = torch.empty_like(q3)
+    out = q3.new_empty((b, sq, num_heads * d_v))
     part = colsum = None
     if collect_colsum:
         n_tiles = -(-sq // TILE)
@@ -335,8 +357,8 @@ def _fwd_launch(name, q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
         colsum = torch.empty((b, sk), dtype=torch.float32, device=q3.device)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     args = (_ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(out), _ptr(part),
-            _ptr(colsum), _ptr(stats), _ptr(tile_class), b, sq, sk, num_heads, d,
-            _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+            _ptr(colsum), _ptr(stats), _ptr(tile_class), b, sq, sk, num_heads, d, d_v,
+            _DTYPE_CODE[q3.dtype], int(softmax_fp32), int(causal), 1.0 / (d ** 0.5), stream)
     err = (lib.merlot_attention_fwd(*args) if variant is None
            else lib.merlot_attention_fwd_variant(*args, variant))
     if err != 0:
@@ -348,20 +370,20 @@ def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], g3: torch.Tensor,
                        gcol: Optional[torch.Tensor], *, num_heads: int,
                        softmax_fp32: bool, stats: Optional[torch.Tensor] = None,
-                       tile_class: Optional[torch.Tensor] = None
+                       tile_class: Optional[torch.Tensor] = None, causal: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch K2. q3/k3/v3/mask as for ``attention_fwd_cuda``; g3 the
-    cotangent of ctx (like q3, contiguous); gcol the cotangent of the
+    """Launch K2. q3/k3/v3/mask/causal as for ``attention_fwd_cuda``; g3 the
+    cotangent of ctx (like ctx, contiguous); gcol the cotangent of the
     colsum [B, Sk] fp32 or None; stats the buffer K1 filled with the row max
     and sum on the same inputs, and for fp32 with a mask tile_class the
     classes K1 wrote beside them; or None for both: K2 then computes them
     first (K1's stats-only pass). Returns (dq, dk, dv) in the input
     dtype."""
     global bwd_launches
-    b, sq, sk, d = _check_inputs("attention_bwd_cuda", q3, k3, v3, mask, num_heads,
-                                 like_q=(g3,), fp32=(gcol,))
-    if gcol is not None and tuple(gcol.shape) != (b, sk):
-        raise ValueError(f"attention_bwd_cuda: gcol must be {(b, sk)}, "
+    b, sq, sk, d, d_v = _check_inputs("attention_bwd_cuda", q3, k3, v3, mask, num_heads,
+                                      like_ctx=(g3,), fp32=(gcol,), causal=causal)
+    if gcol is not None and (causal or tuple(gcol.shape) != (b, sk)):
+        raise ValueError(f"attention_bwd_cuda: gcol must be {(b, sk)} (none when causal), "
                          f"got {tuple(gcol.shape)}")
     saved = stats is not None
     if saved:
@@ -378,7 +400,8 @@ def attention_bwd_cuda(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     err = lib.merlot_attention_bwd(
         _ptr(q3), _ptr(k3), _ptr(v3), _ptr(mask), _ptr(g3), _ptr(gcol),
         _ptr(dq), _ptr(dk), _ptr(dv), _ptr(stats), int(saved), _ptr(tile_class), b, sq, sk,
-        num_heads, d, _DTYPE_CODE[q3.dtype], int(softmax_fp32), 1.0 / (d ** 0.5), stream)
+        num_heads, d, d_v, _DTYPE_CODE[q3.dtype], int(softmax_fp32), int(causal),
+        1.0 / (d ** 0.5), stream)
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel failed: cudaError_t {err}")
     bwd_launches += 1
@@ -406,8 +429,10 @@ def _check_stacked(q3, kv3, mask, num_heads: int) -> Tuple[int, int, int, int]:
     if tuple(kv3.shape) != (b, sk, 2 * hd):
         raise ValueError(f"{name}: kv must be {(b, sk, 2 * hd)}, got {tuple(kv3.shape)}")
     d = hd // num_heads
-    # the decode path reads a head's row in 16-byte vectors
-    if not kernel_supported(sq, sk, d, q3.dtype) or d % (16 // q3.element_size()):
+    # the decode path reads a head's row in 16-byte vectors; K3 takes 2048
+    # tokens in either dtype
+    if (not kernel_supported(sq, sk, d, q3.dtype) or d % (16 // q3.element_size())
+            or max(sq, sk) > MAX_KERNEL_SEQ):
         raise ValueError(f"{name}: unsupported Sq={sq} Sk={sk} d={d} for {q3.dtype}")
     if mask is not None and (mask.dtype != torch.float32 or mask.dim() != 3
                              or mask.shape[0] not in (1, b)
@@ -512,19 +537,20 @@ def flash_attention_stacked(q: torch.Tensor, kv: torch.Tensor,
 
 def flash_attention_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                           mask: Optional[torch.Tensor], *, num_heads: int,
-                          softmax_fp32: bool, collect_colsum: bool
+                          softmax_fp32: bool, collect_colsum: bool, causal: bool = False
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1's function in plain PyTorch, same arguments and results (the
-    saved stats' plain version is ``softmax_stats_plain``)."""
+    saved stats' plain version is ``softmax_stats_plain``); ``causal`` as
+    ``attention.causal_mask``, and v3's head dim may differ from q3's."""
     b, sq, hd = q3.shape
     sk = k3.shape[1]
-    d = hd // num_heads
+    d, d_v = hd // num_heads, v3.shape[2] // num_heads
     ctx, colsum = _plain_attention(
         q3.reshape(b, sq, num_heads, d), k3.reshape(b, sk, num_heads, d),
-        v3.reshape(b, sk, num_heads, d), mask,
+        v3.reshape(b, sk, num_heads, d_v), with_causal(mask, causal, sq, sk, q3.device),
         collect="colsum" if collect_colsum else "none",
         softmax_fp32=softmax_fp32)
-    return ctx.reshape(b, sq, hd), colsum
+    return ctx.reshape(b, sq, num_heads * d_v), colsum
 
 
 def softmax_stats_plain(q3: torch.Tensor, k3: torch.Tensor, mask: Optional[torch.Tensor],
@@ -544,17 +570,19 @@ def softmax_stats_plain(q3: torch.Tensor, k3: torch.Tensor, mask: Optional[torch
 def attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         mask: Optional[torch.Tensor], g3: torch.Tensor,
                         gcol: Optional[torch.Tensor], *, num_heads: int,
-                        softmax_fp32: bool
+                        softmax_fp32: bool, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2's function in plain PyTorch (the TPU kernel's ``_attn_bwd_kernel``),
     same arguments and results: P recomputed as the forward computes it and
-    held in fp32, every product on fp32 operands."""
+    held in fp32, every product on fp32 operands. ``causal`` and V's head
+    dim as in ``flash_attention_plain``."""
     b, sq, hd = q3.shape
     sk = k3.shape[1]
-    d = hd // num_heads
+    d, d_v = hd // num_heads, v3.shape[2] // num_heads
     scale = 1.0 / (d ** 0.5)
-    q, do = (t.reshape(b, sq, num_heads, d) for t in (q3, g3))
-    k, v = (t.reshape(b, sk, num_heads, d) for t in (k3, v3))
+    mask = with_causal(mask, causal, sq, sk, q3.device)
+    q, do = q3.reshape(b, sq, num_heads, d), g3.reshape(b, sq, num_heads, d_v)
+    k, v = k3.reshape(b, sk, num_heads, d), v3.reshape(b, sk, num_heads, d_v)
     p = attention_probs(q, k, mask, softmax_fp32=softmax_fp32).float()
     do, q, k, v = do.float(), q.float(), k.float(), v.float()
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
@@ -568,12 +596,12 @@ def attention_bwd_plain(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
     return (dq.reshape(b, sq, hd).to(q3.dtype), dk.reshape(b, sk, hd).to(k3.dtype),
-            dv.reshape(b, sk, hd).to(v3.dtype))
+            dv.reshape(b, sk, num_heads * d_v).to(v3.dtype))
 
 
 def attention_fwd_body(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                        mask: Optional[torch.Tensor], num_heads: int, softmax_fp32: bool,
-                       collect_colsum: bool, save_stats: bool
+                       collect_colsum: bool, save_stats: bool, causal: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``FlashAttention``'s forward, also as one dispatcher op
     (``attention_fwd_op``) so that torch's selective checkpoint can name
@@ -584,7 +612,8 @@ def attention_fwd_body(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     K1's row max and sum (``new_stats``) and tile_class the mask's tile
     classes (fp32 with a mask), which K2 reads. What is not made is an
     empty tensor."""
-    kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32, collect_colsum=collect_colsum)
+    kw = dict(num_heads=num_heads, softmax_fp32=softmax_fp32, collect_colsum=collect_colsum,
+              causal=causal)
     stats = tile_class = None
     if q3.device.type == "cuda":
         if save_stats:
@@ -619,47 +648,49 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q3, k3, v3, mask, num_heads: int, softmax_fp32: bool,
-                collect_colsum: bool):
+                collect_colsum: bool, causal: bool = False):
         # K2 takes the softmax's row max and sum from K1, and in fp32 the
         # mask's tile classes
         fwd = ATTENTION_FWD if named_ops.active() else attention_fwd_body
         out, colsum, stats, tile_class = (_present(t) for t in fwd(
             q3, k3, v3, mask, num_heads, softmax_fp32, collect_colsum,
-            any(ctx.needs_input_grad[:3])))
+            any(ctx.needs_input_grad[:3]), causal))
         ctx.save_for_backward(q3, k3, v3, mask, stats, tile_class)
-        ctx.num_heads, ctx.softmax_fp32 = num_heads, softmax_fp32
+        ctx.num_heads, ctx.softmax_fp32, ctx.causal = num_heads, softmax_fp32, causal
         ctx.set_materialize_grads(False)
         return out, colsum
 
     @staticmethod
     def backward(ctx, g_ctx, g_colsum):
         q3, k3, v3, mask, stats, tile_class = ctx.saved_tensors
-        g3 = torch.zeros_like(q3) if g_ctx is None else g_ctx.contiguous()
+        g3 = (q3.new_zeros(q3.shape[:2] + v3.shape[2:]) if g_ctx is None
+              else g_ctx.contiguous())
         gcol = None if g_colsum is None else g_colsum.float().contiguous()
-        kw = dict(num_heads=ctx.num_heads, softmax_fp32=ctx.softmax_fp32)
+        kw = dict(num_heads=ctx.num_heads, softmax_fp32=ctx.softmax_fp32, causal=ctx.causal)
         if q3.device.type == "cuda":
             dq, dk, dv = attention_bwd_cuda(q3, k3, v3, mask, g3, gcol, stats=stats,
                                             tile_class=tile_class, **kw)
         else:
             dq, dk, dv = attention_bwd_plain(q3, k3, v3, mask, g3, gcol, **kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor], *, collect: str = "none",
-                    softmax_fp32: bool = False
+                    softmax_fp32: bool = False, causal: bool = False
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """attention_core-compatible entry. q [B, Sq, H, D]; k/v [B, Sk, H, D];
-    mask [B, Sq, Sk] (1 = attend) or None. Returns (ctx [B, Sq, H, D],
-    colsum [B, Sk] fp32 or None), differentiable through
+    """attention_core-compatible entry. q [B, Sq, H, D]; k [B, Sk, H, D];
+    v [B, Sk, H, Dv] (Dv = D but for MLA's heads); mask [B, Sq, Sk] (1 =
+    attend) or None; causal as for ``attention_fwd_cuda``. Returns (ctx
+    [B, Sq, H, Dv], colsum [B, Sk] fp32 or None), differentiable through
     ``FlashAttention``."""
     if collect not in ("none", "colsum"):
         raise ValueError(f"bad collect={collect}")
     b, sq, h, d = q.shape
-    sk = k.shape[1]
+    sk, d_v = k.shape[1], v.shape[3]
     if mask is not None:
         mask = mask.to(torch.float32).contiguous()
     ctx, colsum = FlashAttention.apply(
-        q.reshape(b, sq, h * d), k.reshape(b, sk, h * d), v.reshape(b, sk, h * d),
-        mask, h, softmax_fp32, collect == "colsum")
-    return ctx.reshape(b, sq, h, d), colsum
+        q.reshape(b, sq, h * d), k.reshape(b, sk, h * d), v.reshape(b, sk, h * d_v),
+        mask, h, softmax_fp32, collect == "colsum", causal)
+    return ctx.reshape(b, sq, h, d_v), colsum

@@ -19,6 +19,17 @@ starting at the checkpoint's batch. A checkpoint's ``params.npz`` is what
 The run is on the CUDA device unless ``--device cpu`` asks for the CPU; on
 a card the attention is K1 forward and K2 backward.
 
+A ``--config`` whose ``model_type`` is ``deepseek_v3`` (a Hugging Face
+config.json of that type, e.g. Moonlight-16B-A3B's, optionally with
+``experts_held`` [first, count] and a sliced ``vocab_size``) trains
+``models.moe_lm.MoeLM`` instead, on the same shards, Trainer and
+checkpoints: the next-token loss over every position plus the balance
+losses (``moe_lm_loss``; ``--target_bonus`` does not apply), and
+DeepSeek-V3's AdamW block (``moe_lm_optimizer``: beta_2 0.95, weight decay
+0.1 but on the norms, epsilon 1e-8, clip 1.0) at ``--learning_rate``,
+``--num_warmup_steps`` and ``--num_train_steps``. Its correction biases are
+checkpointed with the parameters. No ``--pp``.
+
 Pipeline parallelism, ``--pp N`` (> 1) with ``--microbatches M`` (4 N by
 default), one process per stage under torchrun:
 
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import sys
 from typing import Any, Dict, Optional, Sequence
@@ -155,6 +167,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     files = sorted(glob.glob(args.train_files))
     if not files:
         raise ValueError(f"no files match {args.train_files}")
+    with open(args.config) as f:
+        model_type = json.load(f).get("model_type")
+    if model_type == "deepseek_v3":
+        if args.pp > 1:
+            raise ValueError("--pp: the deepseek_v3 model trains in one process")
+        return _train_moe_lm(args, files)
     cfg = GroverConfig.from_json_file(args.config)
     optimizer = grover_optimizer(args.learning_rate, args.num_train_steps,
                                  args.num_warmup_steps)
@@ -186,6 +204,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         opt_state = trainer.run(opt_state, batches, num_steps=args.num_train_steps)
     finally:
         leave(mesh)
+    return {"trainer": trainer, "opt_state": opt_state}
+
+
+def _train_moe_lm(args, files) -> Dict[str, Any]:
+    """The deepseek_v3 branch of ``main``: one process, the Trainer's loop."""
+    from merlot_tpu_torch.models.moe_lm import (MoeLM, MoeLMConfig, moe_lm_optimizer,
+                                                moe_lm_train_step)
+    cfg = MoeLMConfig.from_json_file(args.config)
+    optimizer = moe_lm_optimizer(args.learning_rate, args.num_train_steps,
+                                 args.num_warmup_steps)
+    device = _device(args.device)
+    model = MoeLM(cfg, device=device)
+    trainer = Trainer(model, optimizer, output_dir=args.output_dir, log_every=args.log_every,
+                      checkpoint_every=args.checkpoint_every, device=device)
+    trainer.step_fn = moe_lm_train_step(optimizer, device=device)
+    opt_state = trainer.init_state()
+    batches = ({k: torch.from_numpy(v) for k, v in b.items()}
+               for b in lm_batches(files, args.seq_length, args.batch_size,
+                                   start=int(opt_state["step"])))
+    opt_state = trainer.run(opt_state, batches, num_steps=args.num_train_steps)
     return {"trainer": trainer, "opt_state": opt_state}
 
 

@@ -142,6 +142,11 @@ class Trainer:
             whole = {"step": whole["step"],
                      **{g: self.pp.gather_stages(whole[g]) for g in ("m", "v")}}
         if self.is_chief:
+            # the persistent buffers (the expert layers' correction biases)
+            # beside the parameters: the restore loads the state dict whole
+            own = self.model.state_dict()
+            params = {**params, **{n: b for n, b in self.model.named_buffers()
+                                   if n in own and n not in params}}
             self.ckpt.save(step, params, whole)
         if self.mesh is not None:
             self.mesh.barrier()

@@ -127,7 +127,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (2048, 2048, 128, torch.bfloat16, True),
     (2048, 2048, 128, torch.float32, True),
     (578, 578, 64, torch.bfloat16, True),
-    (2049, 16, 64, torch.bfloat16, False),
+    (4096, 4096, 64, torch.bfloat16, True),    # the bf16 route takes 4096
+    (4097, 16, 64, torch.bfloat16, False),
+    (2049, 16, 64, torch.float32, False),      # the fp32 route stays at 2048
     (16, 16, 129, torch.float32, False),
     (16, 16, 40, torch.bfloat16, False),    # bf16 head dim not a multiple of 16
     (16, 16, 40, torch.float32, True),
@@ -135,6 +137,17 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 ])
 def test_kernel_supported(sq, sk, d, dtype, supported):
     assert cuda_attention.kernel_supported(sq, sk, d, dtype) is supported
+
+
+@pytest.mark.parametrize("sq,d,d_v,dtype,supported", [
+    (4096, 192, 128, torch.bfloat16, True),     # MLA's heads
+    (4097, 192, 128, torch.bfloat16, False),
+    (64, 192, 128, torch.float32, False),       # bf16 only
+    (64, 128, 64, torch.bfloat16, False),       # no other pair
+    (64, 192, 192, torch.bfloat16, False),
+])
+def test_kernel_supported_mla(sq, d, d_v, dtype, supported):
+    assert cuda_attention.kernel_supported(sq, sq, d, dtype, d_v) is supported
 
 
 @pytest.mark.parametrize("d,dtype", [(144, "float32"), (40, "bfloat16")])
