@@ -47,7 +47,12 @@
    and the 13 of zero-shot's (20 frames of 384x384), bf16, with fault probes
    that must fail the bounds (channels grouped by c mod 32, the residual
    left out, the ReLU left out, where they apply), and times K4, the plain
-   version and F.group_norm (+ add, ReLU) beside the bytes bound;
+   version and F.group_norm (+ add, ReLU) beside the bytes bound; then K4B
+   at the same shapes on K4's saved (x, mean, rstd, out) against the plain
+   saved-stats backward (dx, dgamma, dbeta, dresidual), with fault probes
+   (the ReLU's mask dropped where the site has one, gamma left out), timed
+   beside the plain backward, autograd through the composition and the
+   bytes bound;
 3c. K5 phase: the same for K5 at the ten LayerNorm+matmul shapes of the
    train step and zero-shot (q/k/v J=3 and the MLP J=1, K=768, bf16; the
    zero-shot rows leave tails), with two fault probes (z kept in fp32,
@@ -62,30 +67,33 @@
 4. zero-shot phase: MerlotModel at the configs/pretrain_5seg.yaml model
    block (full width and depth, seeded random weights on the card) runs
    zero-shot story ordering on 3 batches of 2 synthetic stories, checks the
-   outputs and that every batch launched K1 24 times, compares the batches
+   outputs and that every batch launched K1 24 times and K4 54 times (the
+   default GroupNorm backend, 'auto'), compares the batches
    with the same model on the plain attention, shows that this comparison
    sees a broken attention (the joint mask dropped), and reports stories/s
    and K1's time per batch (CUDA events around its launches), both as the
    median over the batches;
-4b. fused zero-shot phase: the same weights with both fused norms on
-   (fuse_ln_matmul, the GroupNorm backend on K4): 24 K1, 54 K4 and 48 K5
+4b. fused zero-shot phase: the same weights with K5 on (fuse_ln_matmul;
+   "fused" and "unfused" differ by K5 alone, the GroupNorm runs on K4 in
+   both): 24 K1, 54 K4 and 48 K5
    launches per batch, probs against the unfused kernel run, stories/s and
    K4/K5 ms per batch;
 5. train phase: MerlotPretrainModel and AdamW at the configs/pretrain_4seg.yaml
    model and optimizer blocks (full width and depth, seeded random weights
    on the card), bench.py's batch (8 x 16 chunks x 32 tokens, with padded
    chunk tails): one warm-up step, then 5 steps each timed alone, with
-   segments/s, K1 and K2 ms per step, 36 launches of each per step, the
+   segments/s, K1, K2, K4 and K4B ms per step, 36 launches of K1 and K2
+   and 54 of K4 and K4B per step, the
    AdamW kernels' 2 launches over every non-frozen leaf per step, and the
    peak memory; the loss falls over steps on the repeated batch (no
    warmup); one step's loss and gradients through the kernels match the
    plain attention's within a bound, and a backward with the mask dropped
    exceeds it; then torch.profiler over one more step gives the device
    time by kernel family and the device's idle share;
-5b. fused train phase: the train step with both fused norms on: 36 K1,
-   36 K2, 54 K4 and 72 K5 launches per step, segments/s, K4 and K5 ms per
+5b. fused train phase: the train step with K5 on: 36 K1, 36 K2, 54 K4,
+   54 K4B and 72 K5 launches per step, segments/s, K4, K4B and K5 ms per
    step, peak memory, the loss falling; one step's loss and grads against
-   the unfused kernel step's at its weights and masking (a K4 backward
+   the unfused kernel step's at its weights and masking (a K4B backward
    without the ReLU mask and a K5 backward without dgamma must exceed the
    bounds), and torch.profiler over one step; then the A/B: unfused and
    fused steps in turns, fresh models, 3 warm-up and 8 timed steps each,
@@ -251,8 +259,9 @@
    'dots', 'probs', 'probs_dots', and the fused configuration off and under
    None, each a warm-up and REMAT_STEPS timed forward+backward runs held
    bit for bit against its run without remat (loss, masked positions,
-   every grad, the generator's state), with K1/K2/K4/K5 launches per step
-   (K1 72 under None and 'dots', 36 under 'probs'), step ms and peak memory;
+   every grad, the generator's state), with K1/K2/K4/K4B/K5 launches per
+   step (K1 72 under None and 'dots', 36 under 'probs'; K4 and K4B 54 in
+   every case), step ms and peak memory;
    the probe (the recompute drawing new dropout masks) must fail the
    grads' bound. K1 and K2 at cross-attention's shape (8 x 256 queries over
    396 keys, a rectangular validity mask) and K1 at the encoder cache's
@@ -451,6 +460,26 @@ GN_GROUPS, GN_EPS = 32, 1e-4
 GN_ULPS = 1
 GN_MEAN_TOL = 1e-6
 GN_STAT_TOL = 1e-5
+# K4B at the same 26 shapes, fed K4's saved (x, mean, rstd, out) and dy ~
+# N(0, 1) bf16, against the plain saved-stats backward
+# (norms.group_norm_act_bwd) on the same tensors. Both run the same fp32
+# steps on each element and differ only in the order of the sums behind
+# m1 and m2, so dx (bf16) differs from the plain version's by at most
+# GN_ULPS ulps of the largest |dx| and by GN_BWD_MEAN_TOL on average;
+# dgamma and dbeta (fp32, sums of B * HW terms in another order) within
+# GN_SUM_TOL of each channel's sum of |terms|; dresidual (dy under the
+# mask) bit for bit. Fault probes that must fail the dx bounds: the ReLU's
+# mask dropped (where the site has one), gamma left out.
+# On the H100 the largest dx error was 0.25 ulp of the largest |dx|, the
+# mean 1.4e-10 to 2.0e-9, dgamma and dbeta 2.4e-8 and 9.9e-9 of their sums
+# of |terms|; the probes moved the mean by 2.0e-2 or more. So
+# GN_BWD_MEAN_TOL is 50x the kernel's largest mean and GN_SUM_TOL 40x its
+# largest sum error.
+GN_BWD_MEAN_TOL = 1e-7
+GN_SUM_TOL = 1e-6
+# GroupNorm sites of the LiteResNet [3, 4, 9] per ViT forward: K4 launches
+# per zero-shot batch and per train step, and K4B calls per train step
+GN_SITES = 54
 # K5 at every LayerNorm+matmul site, K = 768: (name, rows M, consumers J,
 # N): the train step's ViT (128 frames x 266 tokens), joint (32 x 396) and
 # lang (8 x 512) towers, and zero-shot's ViT (20 x 578) and joint (4 x 885),
@@ -478,19 +507,21 @@ LN_EPS = 1e-5
 # the mean by 7.4e-4, beta left out by 4.2e-2.
 LN_ULPS = 1
 LN_MEAN_TOL = 1e-5
-# the fused paths' launches: K1, K4, K5 per zero-shot batch; K1, K2, K4, K5
-# per train step
 # the A/B of the unfused and fused steps: warm-up and timed steps per run
 AB_WARMUP, AB_STEPS = 2, 2
-FUSED_LAUNCHES_PER_BATCH = (24, 54, 48)
-FUSED_LAUNCHES_PER_STEP = (36, 36, 54, 72)
-# fused vs unfused zero-shot probs: two more sums in another order in every
-# layer (the GroupNorm statistics, the LayerNorm statistics and products)
-# than the kernel-vs-plain attention comparison, through 24 bf16 layers:
-# 3.1e-3 to 6.2e-3 on the H100, so 2.4x margin; K4 with the residual left
-# out must exceed it
+# the fused paths' launches ("fused" is K5, fuse_ln_matmul: the GroupNorm
+# runs on K4 and K4B in both configurations): K1, K4, K5 per zero-shot
+# batch; K1, K2, K4, K4B calls, K5 per train step
+FUSED_LAUNCHES_PER_BATCH = (24, GN_SITES, 48)
+FUSED_LAUNCHES_PER_STEP = (36, 36, GN_SITES, GN_SITES, 72)
+# fused vs unfused zero-shot probs: the LayerNorm statistics and products
+# summed in another order in every layer, through 24 bf16 layers. Measured
+# on the H100 while the unfused side also ran the GroupNorm as the
+# composition: 3.1e-3 to 6.2e-3, so 2.4x margin; K4 with the residual left
+# out (on the fused side only) must exceed it
 FUSED_SLICE_TOL = 1.5e-2
-# fused vs unfused grads (grad_gap). The unfused path rounds dz and dW of
+# fused vs unfused grads (grad_gap; both sides run K4 and K4B, so this holds
+# K5 alone). The unfused path rounds dz and dW of
 # every pre-LN product to bf16 (autograd through bf16 matmuls), the fused
 # one keeps them fp32 as the JAX kernel's backward does: a ~2^-9 relative
 # difference in every grad that reaches the ViT's input. In the LiteResNet
@@ -498,9 +529,10 @@ FUSED_SLICE_TOL = 1.5e-2
 # weight-standardized conv kernels, and the GroupNorms that feed another
 # conv + GroupNorm, which make the loss blind to their scale): 1.13 of such
 # a tensor's largest |grad| on the H100 (stem_gn2's gamma; the median
-# tensor 0.0046). FUSED_RESNET_GRAD_TOL is 2.6x that, as TRAIN_GRAD_TOL is
-# for the attention comparison, and a K4 backward without the ReLU mask
-# must exceed it (1.1e6 on the H100). The other tensors read at most
+# tensor 0.0046, measured while the unfused side ran the GroupNorm as the
+# composition). FUSED_RESNET_GRAD_TOL is 2.6x that, as TRAIN_GRAD_TOL is
+# for the attention comparison, and a K4B backward without the ReLU mask
+# (on the fused side) must exceed it (1.1e6 on the H100). The other tensors read at most
 # 0.0091 (the position embeddings): FUSED_GRAD_TOL is 2.7x that, and a K5
 # backward without dgamma must exceed it (1.0).
 FUSED_RESNET_GRAD_TOL = 3.0
@@ -508,7 +540,7 @@ FUSED_GRAD_TOL = 0.025
 
 # remat_and_cross phase. Per-layer remat at pretrain_4seg's full width and
 # depth, bench.py's batch, one forward and backward with hidden dropout on
-# (one generator seed) per case: (name, remat, remat_policy, fused norms).
+# (one generator seed) per case: (name, remat, remat_policy, K5 on).
 # Each case is held against its run without remat (the unfused or the
 # fused one): the loss, the masked positions and every grad bit for bit,
 # since the recompute runs the same deterministic kernels on the same
@@ -518,13 +550,16 @@ REMAT_CASES = [
     ("off", False, None, False), ("none", True, None, False), ("dots", True, "dots", False),
     ("probs", True, "probs", False), ("probs_dots", True, "probs_dots", False),
     ("fused_off", False, None, True), ("fused_none", True, None, True)]
-# K1/K2/K4/K5 launches per step: K1 runs again in every layer's recompute
-# unless the policy keeps its outputs ('probs', 'probs_dots'), and so does
-# K5 in the fused configuration under None; K4 sits in the stem, outside
-# the checkpointed layers
-REMAT_LAUNCHES = {"off": (36, 36, 0, 0), "none": (72, 36, 0, 0), "dots": (72, 36, 0, 0),
-                  "probs": (36, 36, 0, 0), "probs_dots": (36, 36, 0, 0),
-                  "fused_off": (36, 36, 54, 72), "fused_none": (72, 36, 54, 144)}
+# K1/K2/K4/K4B/K5 launches per step (K4B: calls): K1 runs again in every
+# layer's recompute unless the policy keeps its outputs ('probs',
+# 'probs_dots'), and so does K5 in the fused configuration under None; K4
+# and K4B sit in the stem, outside the checkpointed layers, in every case
+REMAT_LAUNCHES = {
+    "off": (36, 36, GN_SITES, GN_SITES, 0), "none": (72, 36, GN_SITES, GN_SITES, 0),
+    "dots": (72, 36, GN_SITES, GN_SITES, 0), "probs": (36, 36, GN_SITES, GN_SITES, 0),
+    "probs_dots": (36, 36, GN_SITES, GN_SITES, 0),
+    "fused_off": (36, 36, GN_SITES, GN_SITES, 72),
+    "fused_none": (72, 36, GN_SITES, GN_SITES, 144)}
 REMAT_SEED = 7
 REMAT_STEPS = 3        # timed runs per case, after one warm-up
 # cross-attention and the encoder cache at the joint encoder's width (12
@@ -1749,19 +1784,104 @@ def check_gn_row(row: dict) -> None:
               f"K4 {name}: the {probe} fault passes the bounds, so they cannot see it")
 
 
-def gn_kernel_phase(dev) -> list[dict]:
-    """K4 against its plain version at the 26 GroupNorm shapes."""
+def gn_bwd_shape(dev, g, spec) -> dict:
+    """K4B and its plain version at one shape, on K4's saved (x, mean,
+    rstd, out): errors, fault probes, times (K4B, the plain saved-stats
+    backward, and autograd through the composition, the backward the port
+    ran before K4B)."""
+    import torch
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
+    from merlot_tpu_torch.ops import norms
+
+    name, b, hw, c, kind, sites = spec
+    relu, res = kind != "proj", kind == "res"
+    x, gamma, beta, r = gn_inputs(dev, g, b, hw, c, res)
+    dy = torch.randn((b, hw, c), generator=g, device=dev).to(torch.bfloat16)
+    out, mean, rstd = cg.group_norm_act_cuda(x, gamma, beta, r, num_groups=GN_GROUPS,
+                                             epsilon=GN_EPS, relu=relu)
+    saved = out if relu else None
+    args = (dy, x, gamma, mean, rstd, saved, res, GN_GROUPS)
+    dx, dgamma, dbeta, dres = cg.group_norm_act_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    ref_dx, ref_dgamma, ref_dbeta, ref_dres = norms.group_norm_act_bwd(*args)
+
+    def errs(o):
+        d = (o.float() - ref_dx.float()).abs()
+        return d.max().item(), d.mean().item()
+
+    ref_max = ref_dx.float().abs().max().item()
+    row = {"shape": name, "frames": b, "hw": hw, "channels": c, "kind": kind,
+           "sites_per_forward": sites, "ref_max_abs": ref_max,
+           "max_abs_err_bound": GN_ULPS * bf16_ulp(ref_max)}
+    row["max_abs_err"], row["mean_abs_err"] = errs(dx)
+    # dgamma's and dbeta's errors over each channel's sum of |terms|
+    dyg = (torch.where(out > 0, dy, 0) if relu else dy).float().reshape(-1, c)
+    x_hat = ((x.float().view(b, hw, GN_GROUPS, -1) - mean[:, None, :, None])
+             * rstd[:, None, :, None]).reshape(-1, c)
+    for key, got, want, terms in (("dbeta", dbeta, ref_dbeta, dyg),
+                                  ("dgamma", dgamma, ref_dgamma, dyg * x_hat)):
+        row[f"{key}_max_rel_err"] = ((got - want).abs() / terms.abs().sum(0)).max().item()
+    del dyg, x_hat
+    row["dresidual_equal"] = (dres is None and ref_dres is None) or torch.equal(dres, ref_dres)
+    probes = {}
+    if relu:
+        probes["relu_mask_dropped"] = errs(cg.group_norm_act_bwd_cuda(
+            dy, x, gamma, mean, rstd, None, res, GN_GROUPS)[0])
+    probes["gamma_left_out"] = errs(cg.group_norm_act_bwd_cuda(
+        dy, x, torch.ones_like(gamma), mean, rstd, saved, res, GN_GROUPS)[0])
+    row["probes"] = {k: {"max_abs_diff": a, "mean_abs_diff": m} for k, (a, m) in probes.items()}
+    row["ms"] = cuda_ms(lambda: cg.group_norm_act_bwd_cuda(*args))
+    row["plain_ms"] = cuda_ms(lambda: norms.group_norm_act_bwd(*args))
+    leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta, r) if t is not None]
+    comp = norms.group_norm_act(*leaves[:3], residual=leaves[3] if res else None, relu=relu,
+                                num_groups=GN_GROUPS, epsilon=GN_EPS)
+    row["autograd_ms"] = cuda_ms(lambda: torch.autograd.grad(comp, leaves, dy,
+                                                             retain_graph=True))
+    del comp, leaves
+    # x and dy read once, out read once with the ReLU, dx written once and
+    # dresidual with the residual; per element the mask, x_hat (2), the two
+    # sums (3) and dx (4), in fp32
+    n = b * hw * c
+    nbytes = 2 * n * (3 + relu + res) + 4 * (3 * c + 2 * b * GN_GROUPS + 4 * b * c)
+    row["bound_ms"], row["bound_by"] = bound((9 + relu) * n, nbytes, PEAK_FP32_FLOPS)
+    return row
+
+
+def check_gn_bwd_row(row: dict) -> None:
+    name = row["shape"]
+    check(row["max_abs_err"] <= row["max_abs_err_bound"]
+          and row["mean_abs_err"] <= GN_BWD_MEAN_TOL,
+          f"K4B {name}: dx max err {row['max_abs_err']} (bound {row['max_abs_err_bound']}), "
+          f"mean {row['mean_abs_err']} (bound {GN_BWD_MEAN_TOL})")
+    check(row["dgamma_max_rel_err"] <= GN_SUM_TOL and row["dbeta_max_rel_err"] <= GN_SUM_TOL,
+          f"K4B {name}: dgamma/dbeta err {row['dgamma_max_rel_err']}, "
+          f"{row['dbeta_max_rel_err']} of the sum of |terms| (bound {GN_SUM_TOL})")
+    check(row["dresidual_equal"], f"K4B {name}: dresidual differs from the plain version's")
+    for probe, d in row["probes"].items():
+        check(d["max_abs_diff"] > row["max_abs_err_bound"]
+              or d["mean_abs_diff"] > GN_BWD_MEAN_TOL,
+              f"K4B {name}: the {probe} fault passes the bounds, so they cannot see it")
+
+
+def gn_kernel_phase(dev) -> tuple[list[dict], list[dict]]:
+    """K4 and K4B against their plain versions at the 26 GroupNorm shapes:
+    (K4's rows, K4B's rows)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(5)
-    rows = []
+    rows, bwd_rows = [], []
     for spec in GN_SHAPES:
         row = gn_shape(dev, g, spec)
         print(f"[kernel4] {json.dumps(row)}", flush=True)
         check_gn_row(row)
         rows.append(row)
         torch.cuda.empty_cache()
-    return rows
+        row = gn_bwd_shape(dev, g, spec)
+        print(f"[kernel4b] {json.dumps(row)}", flush=True)
+        check_gn_bwd_row(row)
+        bwd_rows.append(row)
+        torch.cuda.empty_cache()
+    return rows, bwd_rows
 
 
 def ln_within(row: dict, max_err: float, mean_err: float) -> bool:
@@ -1857,38 +1977,33 @@ def ln_kernel_phase(dev) -> list[dict]:
     return rows
 
 
-@contextlib.contextmanager
-def fused_norms():
-    """Both GroupNorm backends on K4 inside the block (the port's defaults,
-    like the JAX package's, are the unfused composition)."""
-    from merlot_tpu_torch.ops import cuda_groupnorm as cg
-    with wrapped(cg, "BACKEND", lambda _: "cuda"), \
-            wrapped(cg, "TRAIN_BACKEND", lambda _: "cuda"):
-        yield
-
-
 def counts() -> tuple:
-    """(K1, K2, K4, K5) launches so far."""
+    """(K1, K2, K4, K4B, K5) launches so far (K4B: calls, two launches
+    each)."""
     from merlot_tpu_torch.ops import cuda_attention as ca
     from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops import cuda_ln_matmul as lm
-    return ca.launches, ca.bwd_launches, cg.launches, lm.launches
+    return ca.launches, ca.bwd_launches, cg.launches, cg.bwd_launches, lm.launches
 
 
 def reset_counts() -> None:
     from merlot_tpu_torch.ops import cuda_attention as ca
     from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops import cuda_ln_matmul as lm
-    ca.launches = ca.bwd_launches = ca.stacked_launches = cg.launches = lm.launches = 0
+    ca.launches = ca.bwd_launches = ca.stacked_launches = lm.launches = 0
+    cg.launches = cg.bwd_launches = 0
 
 
 @contextlib.contextmanager
-def norm_spans(s4: list, s5: list):
-    """CUDA events around every K4 and K5 launch inside the block."""
+def norm_spans(s4: list, s5: list, s4b: list | None = None):
+    """CUDA events around every K4 and K5 launch (and, given s4b, every K4B
+    call) inside the block."""
     from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops import cuda_ln_matmul as lm
     with wrapped(cg, "group_norm_act_cuda", event_timed(s4)), \
-            wrapped(lm, "ln_matmul_cuda", event_timed(s5)):
+            wrapped(lm, "ln_matmul_cuda", event_timed(s5)), \
+            (wrapped(cg, "group_norm_act_bwd_cuda", event_timed(s4b)) if s4b is not None
+             else contextlib.nullcontext()):
         yield
 
 
@@ -1920,22 +2035,24 @@ def max_diff(a: dict, b: dict) -> float:
 
 def run_batches(fn, model, batches, module, name: str):
     """Run the batches one by one, each timed on the host clock and with
-    CUDA events around every call of module.name."""
+    CUDA events around every call of module.name: (outputs, seconds, those
+    calls' ms, K1 launches, (K4 launches, K4B calls), each per batch)."""
     import torch
-    from merlot_tpu_torch.ops import cuda_attention as ca
 
-    outs, seconds, attn_ms, launches = [], [], [], []
+    outs, seconds, attn_ms, launches, gn_launches = [], [], [], [], []
     for images, sents in batches:
         spans: list = []
-        before = ca.launches
+        before = counts()
         t0 = time.perf_counter()
         with wrapped(module, name, event_timed(spans)):
             outs.append(fn(model, images, sents))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         attn_ms.append(spans_ms(spans))
-        launches.append(ca.launches - before)
-    return outs, seconds, attn_ms, launches
+        after = counts()
+        launches.append(after[0] - before[0])
+        gn_launches.append((after[2] - before[2], after[3] - before[3]))
+    return outs, seconds, attn_ms, launches, gn_launches
 
 
 def slice_phase(dev) -> dict:
@@ -1964,16 +2081,19 @@ def slice_phase(dev) -> dict:
     check_probs(plain_fn(model, *warm))
     torch.cuda.synchronize()
 
-    ca.launches = 0
-    outs, seconds, k1_ms, per_batch = run_batches(
+    reset_counts()                   # counts set to 0 just before, read just after
+    outs, seconds, k1_ms, per_batch, gn_per_batch = run_batches(
         fn, model, batches, ca, "attention_fwd_cuda")
     launches = ca.launches
     check(per_batch == [LAUNCHES_PER_BATCH] * BATCHES,
           f"kernel launches per batch {per_batch}, want {LAUNCHES_PER_BATCH}")
+    # the default GroupNorm backend, 'auto': K4 at every site, no backward
+    check(gn_per_batch == [(GN_SITES, 0)] * BATCHES,
+          f"K4 launches and K4B calls per batch {gn_per_batch}, want ({GN_SITES}, 0)")
     for out in outs:
         check_probs(out)
 
-    plains, plain_seconds, plain_ms, plain_launches = run_batches(
+    plains, plain_seconds, plain_ms, plain_launches, _ = run_batches(
         plain_fn, model, batches, attn_mod, "_plain_attention")
     check(plain_launches == [0] * BATCHES, "the plain run launched the kernel")
     diffs = [max_diff(o, p) for o, p in zip(outs, plains)]
@@ -1991,6 +2111,7 @@ def slice_phase(dev) -> dict:
     med = statistics.median(seconds)
     result = {"params": n_params, "init_s": init_s, "launches": launches,
               "launches_per_batch": per_batch,
+              "groupnorm_launches_per_batch": gn_per_batch,
               "batch_seconds": seconds,
               "stories_per_s": STORIES / med,
               "stories_per_s_spread": [STORIES / max(seconds), STORIES / min(seconds)],
@@ -2012,8 +2133,8 @@ def slice_phase(dev) -> dict:
 
 
 def fused_slice_phase(dev, model, warm, batches, outs) -> dict:
-    """Zero-shot with both fused norms on: the same weights in a model with
-    fuse_ln_matmul, the GroupNorm backend on K4; probs against the unfused
+    """Zero-shot with K5 on: the same weights in a model with
+    fuse_ln_matmul (the GroupNorm on K4 in both); probs against the unfused
     kernel run's on the same batches."""
     import dataclasses
     import torch
@@ -2023,25 +2144,24 @@ def fused_slice_phase(dev, model, warm, batches, outs) -> dict:
     fused = MerlotModel(dataclasses.replace(model.cfg, fuse_ln_matmul=True), device=dev).eval()
     fused.load_state_dict(model.state_dict())
     fn = make_zero_shot_fn(STORIES, CHUNKS)
-    with fused_norms():
-        check_probs(fn(fused, *warm))                # warm-up, not counted
+    check_probs(fn(fused, *warm))                # warm-up, not counted
+    torch.cuda.synchronize()
+    # the main path: counts set to 0 just before, read just after
+    reset_counts()
+    fouts, seconds, k4_ms, k5_ms, per_batch = [], [], [], [], []
+    for images, sents in batches:
+        s4, s5 = [], []
+        before = counts()
+        t0 = time.perf_counter()
+        with norm_spans(s4, s5):
+            fouts.append(fn(fused, images, sents))
         torch.cuda.synchronize()
-        # the main path: counts set to 0 just before, read just after
-        reset_counts()
-        fouts, seconds, k4_ms, k5_ms, per_batch = [], [], [], [], []
-        for images, sents in batches:
-            s4, s5 = [], []
-            before = counts()
-            t0 = time.perf_counter()
-            with norm_spans(s4, s5):
-                fouts.append(fn(fused, images, sents))
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            k4_ms.append(spans_ms(s4))
-            k5_ms.append(spans_ms(s5))
-            after = counts()
-            per_batch.append((after[0] - before[0], after[2] - before[2], after[3] - before[3]))
-        k1, _, k4, k5 = counts()
+        seconds.append(time.perf_counter() - t0)
+        k4_ms.append(spans_ms(s4))
+        k5_ms.append(spans_ms(s5))
+        after = counts()
+        per_batch.append((after[0] - before[0], after[2] - before[2], after[4] - before[4]))
+    k1, _, k4, _, k5 = counts()
     for out in fouts:
         check_probs(out)
     diffs = [max_diff(f, o) for f, o in zip(fouts, outs)]
@@ -2052,9 +2172,9 @@ def fused_slice_phase(dev, model, warm, batches, outs) -> dict:
     no_res = lambda f: lambda x, gamma, beta, residual, **kw: f(x, gamma, beta, None, **kw)
     no_mlp = lambda f: lambda *a, num_out, **kw: (
         f(*a, num_out=num_out, **kw) * (num_out != 1))
-    with fused_norms(), wrapped(cg, "group_norm_act_cuda", no_res):
+    with wrapped(cg, "group_norm_act_cuda", no_res):
         no_residual_diff = max_diff(fn(fused, *batches[0]), outs[0])
-    with fused_norms(), wrapped(lm, "ln_matmul_cuda", no_mlp):
+    with wrapped(lm, "ln_matmul_cuda", no_mlp):
         no_mlp_diff = max_diff(fn(fused, *batches[0]), outs[0])
     med = statistics.median(seconds)
     result = {"launches": {"attention_fwd": k1, "groupnorm": k4, "ln_matmul": k5},
@@ -2153,6 +2273,7 @@ def train_phase(dev) -> dict:
     from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
     from merlot_tpu_torch.ops import cuda_adamw
     from merlot_tpu_torch.ops import cuda_attention as ca
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops.masking import masking_draws
     from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
     from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
@@ -2177,27 +2298,39 @@ def train_phase(dev) -> dict:
     check(all(math.isfinite(v) for v in first.values()), f"step 1 metrics {first}")
 
     # the timed steps: counts set to 0 just before, read just after
-    ca.launches = ca.bwd_launches = cuda_adamw.launches = cuda_adamw.tensors = 0
+    reset_counts()
+    cuda_adamw.launches = cuda_adamw.tensors = 0
     seconds, k1_ms, k2_ms, per_step, aw_per_step, losses = [], [], [], [], [], []
+    k4_ms, k4b_ms, gn_per_step = [], [], []
     for _ in range(TRAIN_STEPS):
-        s1, s2 = [], []
-        before = (ca.launches, ca.bwd_launches, cuda_adamw.launches, cuda_adamw.tensors)
+        s1, s2, s4, s4b = [], [], [], []
+        before = (*counts(), cuda_adamw.launches, cuda_adamw.tensors)
         t0 = time.perf_counter()
         with wrapped(ca, "attention_fwd_cuda", event_timed(s1)), \
-                wrapped(ca, "attention_bwd_cuda", event_timed(s2)):
+                wrapped(ca, "attention_bwd_cuda", event_timed(s2)), \
+                wrapped(cg, "group_norm_act_cuda", event_timed(s4)), \
+                wrapped(cg, "group_norm_act_bwd_cuda", event_timed(s4b)):
             metrics = step(model, state, batch, g)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         k1_ms.append(spans_ms(s1))
         k2_ms.append(spans_ms(s2))
-        per_step.append((ca.launches - before[0], ca.bwd_launches - before[1]))
-        aw_per_step.append((cuda_adamw.launches - before[2], cuda_adamw.tensors - before[3]))
+        k4_ms.append(spans_ms(s4))
+        k4b_ms.append(spans_ms(s4b))
+        after = (*counts(), cuda_adamw.launches, cuda_adamw.tensors)
+        per_step.append((after[0] - before[0], after[1] - before[1]))
+        gn_per_step.append((after[2] - before[2], after[3] - before[3]))
+        aw_per_step.append((after[5] - before[5], after[6] - before[6]))
         losses.append(metrics["loss"].item())
     launches = {"attention_fwd": ca.launches, "attention_bwd": ca.bwd_launches,
+                "groupnorm": cg.launches, "groupnorm_bwd": cg.bwd_launches,
                 "adamw": cuda_adamw.launches}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     check(per_step == [(LAUNCHES_PER_STEP, LAUNCHES_PER_STEP)] * TRAIN_STEPS,
           f"K1/K2 launches per step {per_step}, want {LAUNCHES_PER_STEP} each")
+    # the default GroupNorm backend, 'auto': K4 and K4B at every site
+    check(gn_per_step == [(GN_SITES, GN_SITES)] * TRAIN_STEPS,
+          f"K4 launches and K4B calls per step {gn_per_step}, want {GN_SITES} each")
     live = live_leaves(opt, model)
     check(aw_per_step == [(2, live)] * TRAIN_STEPS,
           f"AdamW (launches, leaves) per step {aw_per_step}, want (2, {live})")
@@ -2261,7 +2394,10 @@ def train_phase(dev) -> dict:
               "segments_per_s_spread": [segments / max(seconds), segments / min(seconds)],
               "k1_ms_per_step": k1_ms, "k1_ms": statistics.median(k1_ms),
               "k2_ms_per_step": k2_ms, "k2_ms": statistics.median(k2_ms),
+              "k4_ms_per_step": k4_ms, "k4_ms": statistics.median(k4_ms),
+              "k4b_ms_per_step": k4b_ms, "k4b_ms": statistics.median(k4b_ms),
               "launches": launches, "launches_per_step": per_step,
+              "groupnorm_launches_per_step": gn_per_step,
               "adamw_launches_and_leaves_per_step": aw_per_step,
               "peak_mem_gib": peak_gib, "step1_metrics": first,
               "timed_losses": losses, "loss_fall_no_warmup": fall,
@@ -2281,18 +2417,19 @@ def train_phase(dev) -> dict:
 
 
 def fused_train_phase(dev, ref) -> dict:
-    """The train step with both fused norms on (fuse_ln_matmul, the
-    GroupNorm backend on K4): timed steps, launches, peak memory, the loss
-    falling, one step's loss and grads against the unfused kernel step's at
-    the same weights and masking (and a GroupNorm backward without the ReLU
-    mask checked to fail that bound), and torch.profiler over PROFILE_STEPS."""
+    """The train step with K5 on (fuse_ln_matmul; the GroupNorm on K4 and
+    K4B in both configurations): timed steps, launches, peak memory, the
+    loss falling, one step's loss and grads against the unfused kernel
+    step's at the same weights and masking (and a K4B backward without the
+    ReLU mask and a K5 backward without dgamma, each on this side alone,
+    checked to fail those bounds), and torch.profiler over PROFILE_STEPS."""
     import dataclasses
     import torch
     from merlot_tpu_torch.models import merlot as merlot_mod
     from merlot_tpu_torch.models.config import MerlotConfig
     from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.ops import cuda_groupnorm as cg
     from merlot_tpu_torch.ops import cuda_ln_matmul as lm
-    from merlot_tpu_torch.ops import norms
     from merlot_tpu_torch.ops.masking import masking_draws
     from merlot_tpu_torch.train.optimizer import AdamWConfig, MerlotAdamW
     from merlot_tpu_torch.train.train_step import init_train_state, make_train_step
@@ -2305,80 +2442,78 @@ def fused_train_phase(dev, ref) -> dict:
     step = make_train_step(model, opt)
     g = torch.Generator(device=dev).manual_seed(1)
     segments = TRAIN_BATCH * TRAIN_CHUNKS
-    with fused_norms():
-        torch.cuda.reset_peak_memory_stats(dev)
-        first = {k: float(v) for k, v in step(model, state, batch, g).items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    first = {k: float(v) for k, v in step(model, state, batch, g).items()}
+    torch.cuda.synchronize()
+    check(all(math.isfinite(v) for v in first.values()), f"fused step 1 metrics {first}")
+
+    # the timed steps, then one more with CUDA events around every K4, K4B
+    # and K5 call: counts set to 0 just before, read just after
+    reset_counts()
+    seconds, per_step, losses = [], [], []
+    s4, s4b, s5 = [], [], []
+    for i in range(TRAIN_STEPS + 1):
+        before = counts()
+        t0 = time.perf_counter()
+        with norm_spans(s4, s5, s4b) if i == TRAIN_STEPS else contextlib.nullcontext():
+            metrics = step(model, state, batch, g)
         torch.cuda.synchronize()
-        check(all(math.isfinite(v) for v in first.values()), f"fused step 1 metrics {first}")
+        if i < TRAIN_STEPS:
+            seconds.append(time.perf_counter() - t0)
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+        losses.append(metrics["loss"].item())
+    k4_ms, k4b_ms, k5_ms = spans_ms(s4), spans_ms(s4b), spans_ms(s5)
+    k1, k2, k4, k4b, k5 = counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(per_step == [FUSED_LAUNCHES_PER_STEP] * (TRAIN_STEPS + 1),
+          f"fused K1/K2/K4/K4B/K5 launches per step {per_step}, "
+          f"want {FUSED_LAUNCHES_PER_STEP}")
+    check(all(math.isfinite(x) for x in losses), f"fused losses {losses}")
 
-        # the timed steps, then one more with CUDA events around every K4
-        # and K5 launch: counts set to 0 just before, read just after
-        reset_counts()
-        seconds, per_step, losses = [], [], []
-        s4, s5 = [], []
-        for i in range(TRAIN_STEPS + 1):
-            before = counts()
-            t0 = time.perf_counter()
-            with norm_spans(s4, s5) if i == TRAIN_STEPS else contextlib.nullcontext():
-                metrics = step(model, state, batch, g)
-            torch.cuda.synchronize()
-            if i < TRAIN_STEPS:
-                seconds.append(time.perf_counter() - t0)
-            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
-            losses.append(metrics["loss"].item())
-        k4_ms, k5_ms = spans_ms(s4), spans_ms(s5)
-        k1, k2, k4, k5 = counts()
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-        check(per_step == [FUSED_LAUNCHES_PER_STEP] * (TRAIN_STEPS + 1),
-              f"fused K1/K2/K4/K5 launches per step {per_step}, "
-              f"want {FUSED_LAUNCHES_PER_STEP}")
-        check(all(math.isfinite(x) for x in losses), f"fused losses {losses}")
+    # the loss falls on the repeated batch (no warmup, fixed draws)
+    fall_opt = MerlotAdamW(AdamWConfig.from_config(
+        dict(PRETRAIN_4SEG_OPTIMIZER, num_warmup_steps=0)))
+    fall_state = fall_opt.init(dict(model.named_parameters()))
+    fall_step = make_train_step(model, fall_opt)
+    s = cfg.num_chunks_in_group
+    draws = masking_draws(segments // s, TRAIN_TOKENS * s, vocab_size=cfg.vocab_size,
+                          generator=torch.Generator(device=dev).manual_seed(2),
+                          device=dev)
+    fall = [fall_step(model, fall_state, batch,
+                      torch.Generator(device=dev).manual_seed(3),
+                      masking_draws=draws)["loss"].item()
+            for _ in range(LOSS_FALL_STEPS)]
+    check(fall[-1] < fall[0], f"the fused loss does not fall on a repeated batch: {fall}")
 
-        # the loss falls on the repeated batch (no warmup, fixed draws)
-        fall_opt = MerlotAdamW(AdamWConfig.from_config(
-            dict(PRETRAIN_4SEG_OPTIMIZER, num_warmup_steps=0)))
-        fall_state = fall_opt.init(dict(model.named_parameters()))
-        fall_step = make_train_step(model, fall_opt)
-        s = cfg.num_chunks_in_group
-        draws = masking_draws(segments // s, TRAIN_TOKENS * s, vocab_size=cfg.vocab_size,
-                              generator=torch.Generator(device=dev).manual_seed(2),
-                              device=dev)
-        fall = [fall_step(model, fall_state, batch,
-                          torch.Generator(device=dev).manual_seed(3),
-                          masking_draws=draws)["loss"].item()
-                for _ in range(LOSS_FALL_STEPS)]
-        check(fall[-1] < fall[0], f"the fused loss does not fall on a repeated batch: {fall}")
-
-        # one step's loss and grads against the unfused kernel step's, at its
-        # weights and with its masking
-        model.load_state_dict(ref["state"])
-        pin = lambda f: lambda *a, **kw: ref["masking"]
-        no_relu_mask = lambda f: lambda dy, x, gamma, mean, rstd, out, *a: f(
-            dy, x, gamma, mean, rstd, None, *a)
-        no_dgamma = lambda f: lambda *a: (lambda dx, dg, *rest: (dx, torch.zeros_like(dg),
-                                                                 *rest))(*f(*a))
-        with wrapped(merlot_mod, "attention_guided_span_mask", pin):
-            fused_loss, fused_grads = loss_and_grads(model, batch, ref["draws"])
-            with wrapped(norms, "group_norm_act_bwd", no_relu_mask):
-                broken = grad_gap(loss_and_grads(model, batch, ref["draws"])[1], ref["grads"])
-            with wrapped(lm, "ln_matmul_bwd", no_dgamma):
-                broken_ln = grad_gap(loss_and_grads(model, batch, ref["draws"])[1],
-                                     ref["grads"])
-        gap = grad_gap(fused_grads, ref["grads"])
-        loss_rel = abs(fused_loss - ref["loss"]) / abs(ref["loss"])
-        del fused_grads
-        # K4 and K5 launch one kernel per call
-        prof = profile_steps(dev, step, model, state, batch, label="fused-profile",
-                             counted={("K4 groupnorm",): lambda: counts()[2],
-                                      ("K5 ln_matmul",): lambda: counts()[3]})
+    # one step's loss and grads against the unfused kernel step's, at its
+    # weights and with its masking
+    model.load_state_dict(ref["state"])
+    pin = lambda f: lambda *a, **kw: ref["masking"]
+    no_relu_mask = lambda f: lambda dy, x, gamma, mean, rstd, out, *a: f(
+        dy, x, gamma, mean, rstd, None, *a)
+    no_dgamma = lambda f: lambda *a: (lambda dx, dg, *rest: (dx, torch.zeros_like(dg),
+                                                             *rest))(*f(*a))
+    with wrapped(merlot_mod, "attention_guided_span_mask", pin):
+        fused_loss, fused_grads = loss_and_grads(model, batch, ref["draws"])
+        with wrapped(cg, "group_norm_act_bwd_cuda", no_relu_mask):
+            broken = grad_gap(loss_and_grads(model, batch, ref["draws"])[1], ref["grads"])
+        with wrapped(lm, "ln_matmul_bwd", no_dgamma):
+            broken_ln = grad_gap(loss_and_grads(model, batch, ref["draws"])[1],
+                                 ref["grads"])
+    gap = grad_gap(fused_grads, ref["grads"])
+    loss_rel = abs(fused_loss - ref["loss"]) / abs(ref["loss"])
+    del fused_grads
+    # K4 and K5 launch one kernel per call, K4B two
+    prof = profile_steps(dev, step, model, state, batch, label="fused-profile",
+                         counted=GN_AND_LN_COUNTED)
 
     med = statistics.median(seconds)
     result = {"segments_per_step": segments, "step_seconds": seconds,
               "segments_per_s": segments / med,
               "segments_per_s_spread": [segments / max(seconds), segments / min(seconds)],
-              "k4_ms": k4_ms, "k5_ms": k5_ms,
+              "k4_ms": k4_ms, "k4b_ms": k4b_ms, "k5_ms": k5_ms,
               "launches": {"attention_fwd": k1, "attention_bwd": k2, "groupnorm": k4,
-                           "ln_matmul": k5},
+                           "groupnorm_bwd": k4b, "ln_matmul": k5},
               "launches_per_step": per_step, "peak_mem_gib": peak_gib,
               "step1_metrics": first, "timed_losses": losses, "loss_fall_no_warmup": fall,
               "fused_loss": fused_loss, "unfused_loss": ref["loss"],
@@ -2422,17 +2557,16 @@ def ab_phase(dev) -> dict:
         batch = pretrain_batch(cfg, dev)
         step = make_train_step(model, opt)
         g = torch.Generator(device=dev).manual_seed(1)
-        with fused_norms() if fused else contextlib.nullcontext():
-            for _ in range(AB_WARMUP):
-                step(model, state, batch, g)
+        for _ in range(AB_WARMUP):
+            step(model, state, batch, g)
+        torch.cuda.synchronize()
+        wall, enqueue = [], []
+        for _ in range(AB_STEPS):
+            t0 = time.perf_counter()
+            step(model, state, batch, g)
+            enqueue.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
-            wall, enqueue = [], []
-            for _ in range(AB_STEPS):
-                t0 = time.perf_counter()
-                step(model, state, batch, g)
-                enqueue.append(time.perf_counter() - t0)
-                torch.cuda.synchronize()
-                wall.append(time.perf_counter() - t0)
+            wall.append(time.perf_counter() - t0)
         segments = TRAIN_BATCH * TRAIN_CHUNKS
         runs.append({"fused": fused, "step_seconds": wall, "enqueue_seconds": enqueue,
                      "segments_per_s": segments / statistics.median(wall),
@@ -2483,25 +2617,24 @@ def remat_cases(dev, weights) -> dict:
 
     for name, remat, policy, fused in REMAT_CASES:
         model = build(remat, policy, fused)
-        with fused_norms() if fused else contextlib.nullcontext():
-            remat_step(model, batch, dev)                      # warm-up
-            for p in model.parameters():
-                p.grad = None
+        remat_step(model, batch, dev)                      # warm-up
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()                # counts set to 0 just before the runs
+        step_ms, per_step, grads = [], [], None
+        for _ in range(REMAT_STEPS):
+            grads = None              # the last run's grads are freed first
+            before = counts()
+            t0 = time.perf_counter()
+            loss, masked, grads, gen_state = remat_step(model, batch, dev)
             torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            reset_counts()                # counts set to 0 just before the runs
-            step_ms, per_step, grads = [], [], None
-            for _ in range(REMAT_STEPS):
-                grads = None              # the last run's grads are freed first
-                before = counts()
-                t0 = time.perf_counter()
-                loss, masked, grads, gen_state = remat_step(model, batch, dev)
-                torch.cuda.synchronize()
-                step_ms.append(1e3 * (time.perf_counter() - t0))
-                per_step.append(tuple(a - b for a, b in zip(counts(), before)))
-            peak = torch.cuda.max_memory_allocated(dev)
-            launched = counts()           # and read just after
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+        peak = torch.cuda.max_memory_allocated(dev)
+        launched = counts()           # and read just after
         check(len(set(per_step)) == 1, f"remat {name}: launches differ by step {per_step}")
         case = {"remat": remat, "policy": policy, "fused": fused, "loss": loss,
                 "launches": list(launched), "launches_per_step": list(per_step[0]),
@@ -2531,7 +2664,7 @@ def remat_cases(dev, weights) -> dict:
         torch.cuda.empty_cache()
     for name, case in cases.items():
         check(tuple(case["launches_per_step"]) == REMAT_LAUNCHES[name],
-              f"remat {name}: K1/K2/K4/K5 launches {case['launches_per_step']}, "
+              f"remat {name}: K1/K2/K4/K4B/K5 launches {case['launches_per_step']}, "
               f"want {REMAT_LAUNCHES[name]}")
         check(math.isfinite(case["loss"]), f"remat {name}: loss {case['loss']}")
         if case["remat"]:
@@ -2749,9 +2882,8 @@ def dispatch_cost_phase(dev) -> dict:
         model = MerlotPretrainModel(MerlotConfig.from_dict(
             dict(PRETRAIN_4SEG_MODEL, fuse_ln_matmul=fused)), device=dev)
         init_params(model, torch.Generator(device=dev).manual_seed(0))
-        with fused_norms() if fused else contextlib.nullcontext():
-            out["fused_step" if fused else "step"] = op_vs_direct(
-                lambda: remat_step(model, batch, dev), DISPATCH_STEPS)
+        out["fused_step" if fused else "step"] = op_vs_direct(
+            lambda: remat_step(model, batch, dev), DISPATCH_STEPS)
         del model
         torch.cuda.empty_cache()
     del batch
@@ -3058,6 +3190,8 @@ def kernel_family(name: str) -> str:
         return "K1 mask_tile_classes"
     if any(t in low for t in ("::gn_kernel<", "gn_kerneli")):  # demangled or mangled
         return "K4 groupnorm"
+    if "gn_bwd_" in low:  # gn_bwd_kernel and gn_bwd_params_kernel
+        return "K4B groupnorm_bwd"
     if "ln_matmul" in low:
         return "K5 ln_matmul"
     if "attention_decode" in low:
@@ -3077,6 +3211,12 @@ def kernel_family(name: str) -> str:
 # a kernel launched before the measured work: one that holds fewer
 # launches than the wrappers counted over the same run is taken again
 PROFILE_TRIES = 3
+# profile_device's counted for the GroupNorm and LayerNorm kernels: K4 and
+# K5 launch one kernel per call, K4B two (the cluster pass and the sum over
+# the batch)
+GN_AND_LN_COUNTED = {("K4 groupnorm",): lambda: counts()[2],
+                     ("K4B groupnorm_bwd",): lambda: 2 * counts()[3],
+                     ("K5 ln_matmul",): lambda: counts()[4]}
 # train steps under each torch.profiler window: reading a profile of the
 # pretrain step's ~34,000 launches took ~18 s a step with the CPU's
 # activity traced too and ~7 s with the card's alone (the same kernels,
@@ -6508,8 +6648,8 @@ def per_path(prefix: str, rows: dict, shapes: tuple, launches: int = 12) -> dict
 
 
 def remat_launches(rc: dict, i: int) -> dict:
-    """Launches of kernel ``i`` (K1, K2, K4, K5) over each remat case's
-    timed steps, where it launched."""
+    """Launches of kernel ``i`` (K1, K2, K4, K4B calls, K5) over each remat
+    case's timed steps, where it launched."""
     return {f"remat_{name}": c["launches"][i] for name, c in rc["remat"].items()
             if c["launches"][i]}
 
@@ -6521,8 +6661,9 @@ def rect_row(rc: dict, shape: str) -> dict:
                                 "bound_whole_cache_ms") if k in row}
 
 
-def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr, fprof,
-                   gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc, aw) -> list[dict]:
+def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k4b_rows, k5_rows, sl, tr, prof, fsl,
+                   ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc,
+                   aw) -> list[dict]:
     """The kernels line: one record per kernel from the phases' results;
     fd: the first-design phase's per-path times, or None (then the
     first_design_ms fields are null)."""
@@ -6738,44 +6879,72 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
     # per train step: the 54 GroupNorm sites and the 72 LayerNorm+matmul
     # sites (12 layers x 2 in each tower). "ms" is the kernel's device time
-    # on the fused path (torch.profiler, per step), "event_ms"
-    # CUDA events around its launches on the path (median of the timed
-    # steps), the others sums over the sites of the per-shape times; the
-    # zero_shot_* fields the same per fused zero-shot batch (54 K4 and 48
-    # K5 launches), the path's time from CUDA events
+    # on the path (torch.profiler, per step: K4's and K4B's in the default
+    # train step, K5's in the fused one), "event_ms" CUDA events around its
+    # calls on the path (K4, K4B: median of the default train phase's timed
+    # steps; K5: the fused step), the others sums over the sites of the
+    # per-shape times; the zero_shot_* fields the same per zero-shot batch
+    # (54 K4 and 48 K5 launches), the path's time from CUDA events
     gn = {r["shape"]: r for r in k4_rows}
-    gn_path = lambda frames, key: sum(spec[5] * gn[spec[0]][key] for spec in GN_SHAPES
-                                      if spec[1] == frames)
+    gnb = {r["shape"]: r for r in k4b_rows}
+    gn_path = lambda rows, frames, key: sum(spec[5] * rows[spec[0]][key] for spec in GN_SHAPES
+                                            if spec[1] == frames)
     train_frames, zs_frames = TRAIN_BATCH * TRAIN_CHUNKS, 2 * STORIES * CHUNKS
-    for frames, n in ((train_frames, FUSED_LAUNCHES_PER_STEP[2]),
-                      (zs_frames, FUSED_LAUNCHES_PER_BATCH[1])):
-        check(sum(spec[5] for spec in GN_SHAPES if spec[1] == frames) == n,
+    for frames in (train_frames, zs_frames):
+        check(sum(spec[5] for spec in GN_SHAPES if spec[1] == frames) == GN_SITES,
               f"the GroupNorm shapes of {frames} frames do not cover the path's sites")
+    # the default paths of every phase that counts them, then the fused ones
+    # and remat's
+    k4_by_path = {"zero_shot": sum(k4 for k4, _ in sl["groupnorm_launches_per_batch"]),
+                  "train": tr["launches"]["groupnorm"],
+                  "zero_shot_fused": fsl["launches"]["groupnorm"],
+                  "train_fused": ftr["launches"]["groupnorm"], **remat_launches(rc, 2)}
     k4_record = {
         "name": "groupnorm", "route": "cuda",
         "source": "merlot_tpu_torch/csrc/groupnorm.cu",
         "replaces": "merlot_tpu/ops/pallas_groupnorm.py:151",
-        "launches": fsl["launches"]["groupnorm"] + ftr["launches"]["groupnorm"]
-        + sum(remat_launches(rc, 2).values()),
-        "launches_by_path": {"zero_shot_fused": fsl["launches"]["groupnorm"],
-                             "train_fused": ftr["launches"]["groupnorm"],
-                             **remat_launches(rc, 2)},
+        "launches": sum(k4_by_path.values()), "launches_by_path": k4_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
-        "ms": fprof["families"]["K4 groupnorm"]["ms"] / fprof["steps"],
-        "event_ms": ftr["k4_ms"],
-        "plain_ms": gn_path(train_frames, "plain_ms"),
-        "bound_ms": gn_path(train_frames, "bound_ms"), "bound_by": gn["stem_c64"]["bound_by"],
-        "library_ms": gn_path(train_frames, "library_ms"),
-        "shape_sum_ms": gn_path(train_frames, "ms"),
+        "ms": prof["families"]["K4 groupnorm"]["ms"] / prof["steps"],
+        "event_ms": tr["k4_ms"],
+        "plain_ms": gn_path(gn, train_frames, "plain_ms"),
+        "bound_ms": gn_path(gn, train_frames, "bound_ms"),
+        "bound_by": gn["stem_c64"]["bound_by"],
+        "library_ms": gn_path(gn, train_frames, "library_ms"),
+        "shape_sum_ms": gn_path(gn, train_frames, "ms"),
         "first_design_ms": first["k4_train_step"],
         "zero_shot_ms_per_batch": fsl["k4_ms"],
-        "zero_shot_shape_sum_ms": gn_path(zs_frames, "ms"),
+        "zero_shot_shape_sum_ms": gn_path(gn, zs_frames, "ms"),
         "zero_shot_first_design_ms": first["k4_zero_shot_batch"],
-        "zero_shot_plain_ms": gn_path(zs_frames, "plain_ms"),
-        "zero_shot_bound_ms": gn_path(zs_frames, "bound_ms"),
-        "zero_shot_library_ms": gn_path(zs_frames, "library_ms"),
+        "zero_shot_plain_ms": gn_path(gn, zs_frames, "plain_ms"),
+        "zero_shot_bound_ms": gn_path(gn, zs_frames, "bound_ms"),
+        "zero_shot_library_ms": gn_path(gn, zs_frames, "library_ms"),
         "library_note": "F.group_norm on the NCHW view, + add, ReLU: not the same rounding",
         "unit": "per train step: 54 launches over 13 shapes, 128 frames, bf16"}
+    k4b_by_path = {"train": tr["launches"]["groupnorm_bwd"],
+                   "train_fused": ftr["launches"]["groupnorm_bwd"], **remat_launches(rc, 3)}
+    k4b_record = {
+        "name": "group_norm_act_bwd", "route": "cuda",
+        "source": "merlot_tpu_torch/csrc/groupnorm.cu",
+        "replaces": None,  # JAX's _gn_act_bwd is XLA math, no Pallas kernel
+        "launches": 2 * sum(k4b_by_path.values()),
+        "launches_by_path": {k: 2 * v for k, v in k4b_by_path.items()},
+        "max_abs_err": max(r["max_abs_err"] for r in k4b_rows),
+        "ms": prof["families"]["K4B groupnorm_bwd"]["ms"] / prof["steps"],
+        "event_ms": tr["k4b_ms"],
+        "plain_ms": gn_path(gnb, train_frames, "plain_ms"),
+        "autograd_ms": gn_path(gnb, train_frames, "autograd_ms"),
+        "bound_ms": gn_path(gnb, train_frames, "bound_ms"),
+        "bound_by": gnb["stem_c64"]["bound_by"],
+        "shape_sum_ms": gn_path(gnb, train_frames, "ms"),
+        "zero_shot_shape_sum_ms": gn_path(gnb, zs_frames, "ms"),
+        "zero_shot_plain_ms": gn_path(gnb, zs_frames, "plain_ms"),
+        "zero_shot_autograd_ms": gn_path(gnb, zs_frames, "autograd_ms"),
+        "zero_shot_bound_ms": gn_path(gnb, zs_frames, "bound_ms"),
+        "autograd_note": "autograd through norms.group_norm_act, the backward the port ran "
+                         "before K4B",
+        "unit": "per train step: 54 calls of 2 launches over 13 shapes, 128 frames, bf16; "
+                "zero_shot_*: a backward at the zero-shot batch's 54 sites (20 frames)"}
     ln = {r["shape"]: r for r in k5_rows}
     ln_path = lambda prefix, key: 12 * sum(ln[spec[0]][key] for spec in LN_SHAPES + TP_LN_SHAPES
                                            if spec[0].startswith(prefix))
@@ -6784,10 +6953,10 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
         "source": "merlot_tpu_torch/csrc/ln_matmul.cu",
         "replaces": "merlot_tpu/ops/pallas_ln_matmul.py:117",
         "launches": fsl["launches"]["ln_matmul"] + ftr["launches"]["ln_matmul"]
-        + sum(remat_launches(rc, 3).values()),
+        + sum(remat_launches(rc, 4).values()),
         "launches_by_path": {"zero_shot_fused": fsl["launches"]["ln_matmul"],
                              "train_fused": ftr["launches"]["ln_matmul"],
-                             **remat_launches(rc, 3)},
+                             **remat_launches(rc, 4)},
         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
         "ms": fprof["families"]["K5 ln_matmul"]["ms"] / fprof["steps"],
         "event_ms": ftr["k5_ms"],
@@ -6832,7 +7001,7 @@ def kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl, ftr
                 f"{pre['params']} parameters, bf16 moments",
         **{f"grover_{k}": gro[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                             "sumsq_ms", "host_enqueue_ms")}}
-    return [k1_record, k2_record, k3_record, k4_record, k5_record, aw_record]
+    return [k1_record, k2_record, k3_record, k4_record, k4b_record, k5_record, aw_record]
 
 
 def main() -> int:
@@ -6924,7 +7093,7 @@ def main() -> int:
     lap("k2")
     k3_rows = stacked_phase(dev)
     lap("k3")
-    k4_rows = gn_kernel_phase(dev)
+    k4_rows, k4b_rows = gn_kernel_phase(dev)
     lap("k4")
     k5_rows = ln_kernel_phase(dev)
     lap("k5")
@@ -6941,7 +7110,7 @@ def main() -> int:
     del zero_shot
     lap("fused_zero_shot")
     tr, model, state, step, batch, ref = train_phase(dev)
-    prof = profile_steps(dev, step, model, state, batch)
+    prof = profile_steps(dev, step, model, state, batch, counted=GN_AND_LN_COUNTED)
     del model, state, step, batch
     torch.cuda.empty_cache()
     lap("train")
@@ -6981,9 +7150,9 @@ def main() -> int:
     ppl = pipeline_parallel_phase(dev)
     lap("pipeline_parallel")
 
-    records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k5_rows, sl, tr, fsl,
-                             ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp, tp, ppl, rc,
-                             aw)
+    records = kernel_records(k1_rows, k2_rows, k3_rows, k4_rows, k4b_rows, k5_rows, sl, tr,
+                             prof, fsl, ftr, fprof, gv, sv, fd, cli, zs_cli, vcr, gt, cp, dp,
+                             tp, ppl, rc, aw)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -6992,7 +7161,8 @@ def main() -> int:
              "phase_seconds": phase_s,
              "kernel_shapes": k1_rows,
              "bwd_kernel_shapes": k2_rows, "stacked_kernel_shapes": k3_rows,
-             "groupnorm_kernel_shapes": k4_rows, "ln_matmul_kernel_shapes": k5_rows,
+             "groupnorm_kernel_shapes": k4_rows, "groupnorm_bwd_kernel_shapes": k4b_rows,
+             "ln_matmul_kernel_shapes": k5_rows,
              "adamw": aw,
              "slice": sl, "fused_slice": fsl, "train": tr, "profile": prof,
              "fused_train": ftr, "fused_profile": fprof, "remat_and_cross": rc,

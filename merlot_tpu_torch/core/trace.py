@@ -16,11 +16,11 @@ with the spans opened inside it, are kept in memory: ``recorded()`` gives
 them with the events resolved to milliseconds, ``clear()`` drops them.
 
 ``count(name, value)`` is a counter: a device scalar (a tensor the step
-already made, such as the expert layer's picks of its held experts) kept
-with the root span open at the call, while a profiler records; nothing
-otherwise. Its value is not read during the step: ``counted()`` resolves
-each root's counters after the window, as ``recorded()`` resolves the
-spans' events.
+already made, such as the expert layer's picks of its held experts) or a
+Python number (what path a call took, such as ``gn.kernel``) kept with the
+root span open at the call, while a profiler records; nothing otherwise.
+Its value is not read during the step: ``counted()`` resolves each root's
+counters after the window, as ``recorded()`` resolves the spans' events.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import collections
 import contextlib
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
@@ -96,14 +96,16 @@ def span(name: str):
     return _Span(name) if _recording() else _NULL
 
 
-def count(name: str, value: torch.Tensor) -> None:
-    """Keep ``value`` (a tensor scalar, not read now) as counter ``name`` of
-    the open root span, while a profiler records and a span is open."""
+def count(name: str, value: Union[torch.Tensor, float]) -> None:
+    """Keep ``value`` (a tensor scalar, not read now, or a number) as
+    counter ``name`` of the open root span, while a profiler records and a
+    span is open."""
     if not _recording():
         return
     stack = getattr(_open, "stack", None)
     if stack:
-        stack[0].counters.append((name, value.detach()))
+        kept = value.detach() if isinstance(value, torch.Tensor) else value
+        stack[0].counters.append((name, kept))
 
 
 def counted() -> List[Dict[str, List[float]]]:

@@ -112,10 +112,9 @@ class LayerNorm(nn.Module):
 class GroupNorm(nn.Module):
     """GroupNorm(32, eps 1e-4) with one-pass fp32 statistics over NHWC
     input; ``residual`` and ``relu`` fold the shortcut add and activation
-    that follow it. ``backend`` picks the implementation
-    (``ops.cuda_groupnorm.group_norm_act``): 'plain', the unfused
-    composition, or 'cuda', the fused kernel K4; None takes
-    ``cuda_groupnorm.BACKEND`` ('plain' unless set)."""
+    that follow it. It runs ``ops.cuda_groupnorm.group_norm_act`` at
+    ``cuda_groupnorm.BACKEND``: 'auto' (the fused kernels K4 and K4B on a
+    CUDA tensor, the unfused composition elsewhere) unless set."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -128,10 +127,9 @@ class GroupNorm(nn.Module):
             self.beta.zero_()
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                relu: bool = False, backend: Optional[str] = None) -> torch.Tensor:
+                relu: bool = False) -> torch.Tensor:
         return cuda_groupnorm.group_norm_act(x, self.gamma, self.beta,
-                                             residual=residual, relu=relu,
-                                             backend=backend)
+                                             residual=residual, relu=relu)
 
 
 def _same_pads(size: int, k: int, stride: int):

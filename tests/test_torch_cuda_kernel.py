@@ -1,6 +1,6 @@
 """The hand-written kernels (attention: K1 forward, K2 backward, K3 over the
-stacked KV cache; K4 the fused GroupNorm; K5 the LayerNorm fused into its
-consumer products) against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
+stacked KV cache; K4 the fused GroupNorm and K4B its backward; K5 the
+LayerNorm fused into its consumer products) against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; skipped where no card is present. Run on the
 card with ``python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernel.py``
 (tests/conftest.py imports jax, which the GPU machine may lack).
 
@@ -631,20 +631,235 @@ def test_groupnorm_kernel_refuses_bad_inputs(cuda):
 
 
 def test_groupnorm_autograd_runs_the_kernel(cuda):
-    """GroupNormAct on CUDA tensors launches K4 once, and its saved-stats
-    backward matches autograd through the unfused composition (fp32)."""
+    """GroupNormAct on CUDA tensors launches K4 once forward and K4B once
+    backward (through 'cuda' and 'auto' alike), and its gradients match
+    autograd through the unfused composition (fp32)."""
     x, gamma, beta, r = _gn_inputs(cuda, 2, 300, 128, torch.float32, True)
     dy = torch.randn_like(x)
     grads = []
-    for backend in ("cuda", "plain"):
+    for backend in ("cuda", "auto", "plain"):
         leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta, r)]
-        before = cuda_groupnorm.launches
+        before = cuda_groupnorm.launches, cuda_groupnorm.bwd_launches
         out = cuda_groupnorm.group_norm_act(*leaves[:3], residual=leaves[3], relu=True,
                                             backend=backend)
-        assert cuda_groupnorm.launches == before + (backend == "cuda")
+        kernels = backend != "plain"
+        assert cuda_groupnorm.launches == before[0] + kernels
         grads.append(torch.autograd.grad(out, leaves, dy))
-    for a, b in zip(*grads):
+        assert cuda_groupnorm.bwd_launches == before[1] + kernels
+    assert all(torch.equal(a, b) for a, b in zip(grads[0], grads[1]))
+    for a, b in zip(grads[0], grads[2]):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-4)
+
+
+# K4B: the fused backward, at every distinct (HW, C, residual, ReLU) site of
+# the LiteResNet [3, 4, 9] stem in the pretrain step (192x352 frames: 96x176
+# after the stem's first conv, then 48x88, 24x44, 12x22) and in zero-shot
+# (384x384: 192x192, 96x96, 48x48, 24x24); 2 images a case (the batch only
+# adds clusters). Against the plain saved-stats backward
+# (``norms.group_norm_act_bwd``) on the same saved (x, mean, rstd, out):
+#   - dx, fp32 inputs: within 1e-5 of the largest |dx|. Both run the same
+#     fp32 steps on each element; only m1 and m2 differ, by sums in another
+#     order (gamma factored out of the group sums): a few 1e-6 of the
+#     largest at worst.
+#   - dx, bf16 inputs: at most BF16_ULPS bf16 ulps of the largest |dx| and
+#     BF16_MEAN_TOL on average (that fp32 difference flips an element's bf16
+#     rounding now and then).
+#   - dgamma, dbeta: fp32 sums of B * HW terms in another order, within
+#     GN_SUM_TOL of the channel's sum of |terms| (a sum's rounding error is
+#     at most ~eps per sequential add of the longer path; K4B's is ~200).
+#   - dresidual: dy under the same mask, bit for bit.
+# Against autograd through the unfused composition (the forward the port ran
+# before 'auto') under K4's own ReLU mask (a pre-ReLU value within fp32 noise
+# of 0 may fall on either side of it in the two forwards): 2e-4 of the
+# largest |grad| in fp32, the bound of the existing autograd check (the
+# composition's backward through E[x^2] - E[x]^2 rounds differently); in
+# bf16, dx at most 2 bf16 ulps of the largest and 1e-4 on average.
+GN_SUM_TOL = 2e-5
+GN_BWD_SITES = [  # hw per resolution (pretrain, zero-shot), c, residual, relu
+    (0, 32, False, True), (0, 64, False, True), (1, 64, False, True), (1, 256, False, False),
+    (1, 256, True, True), (1, 128, False, True), (2, 128, False, True),
+    (2, 512, False, False), (2, 512, True, True), (2, 256, False, True),
+    (3, 256, False, True), (3, 1024, False, False), (3, 1024, True, True),
+]
+GN_HW = {"pretrain": (16896, 4224, 1056, 264), "zeroshot": (36864, 9216, 2304, 576)}
+GN_BWD_CASES = [(dt, GN_HW[path][level], c, res, relu)
+                for dt in (torch.float32, torch.bfloat16) for path in GN_HW
+                for level, c, res, relu in GN_BWD_SITES]
+
+
+def _close_to_max(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,hw,c,res,relu", GN_BWD_CASES)
+def test_groupnorm_bwd_kernel_matches_plain(cuda, dtype, hw, c, res, relu):
+    x, gamma, beta, r = _gn_inputs(cuda, 2, hw, c, dtype, res)
+    dy = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).to(dtype)
+    out, mean, rstd = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, r, num_groups=32,
+                                                         epsilon=1e-4, relu=relu)
+    saved = out if relu else None
+    before = cuda_groupnorm.bwd_launches
+    dx, dgamma, dbeta, dres = cuda_groupnorm.group_norm_act_bwd_cuda(
+        dy, x, gamma, mean, rstd, saved, res, 32)
+    torch.cuda.synchronize()
+    assert cuda_groupnorm.bwd_launches == before + 1
+    assert dx.dtype == dtype and dx.shape == x.shape and dgamma.dtype == torch.float32
+    w_dx, w_dgamma, w_dbeta, w_dres = norms.group_norm_act_bwd(dy, x, gamma, mean, rstd,
+                                                               saved, res, 32)
+    if dtype == torch.float32:
+        _close_to_max(dx, w_dx, 1e-5)
+    else:
+        diff = (dx.float() - w_dx.float()).abs()
+        assert diff.max().item() <= _bf16_bound(w_dx.float())
+        assert diff.mean().item() <= BF16_MEAN_TOL
+    dyg = (torch.where(out > 0, dy, 0) if relu else dy).float().reshape(-1, c)
+    x_hat = ((x.float().reshape(2, hw, 32, -1) - mean[:, None, :, None])
+             * rstd[:, None, :, None]).reshape(-1, c)
+    for got, want, terms in ((dbeta, w_dbeta, dyg), (dgamma, w_dgamma, dyg * x_hat)):
+        assert ((got - want).abs() <= GN_SUM_TOL * terms.abs().sum(0)).all()
+    assert (dres is None) == (not res)
+    if res:
+        assert torch.equal(dres, w_dres)
+    # autograd through the composition, under K4's mask
+    leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta, r) if t is not None]
+    comp = norms.group_norm_act(*leaves[:3], residual=leaves[3] if res else None, relu=False)
+    want = torch.autograd.grad(comp, leaves, dyg.reshape(x.shape).to(dtype))
+    if dtype == torch.float32:
+        _close_to_max(dx, want[0], 2e-4)
+    else:
+        diff = (dx.float() - want[0].float()).abs()
+        assert diff.max().item() <= 2 * _bf16_bound(want[0].float())
+        assert diff.mean().item() <= 1e-4
+    _close_to_max(dgamma, want[1], 2e-4)
+    _close_to_max(dbeta, want[2], 2e-4)
+    if res:
+        assert torch.equal(dres, want[3])
+
+
+def test_groupnorm_bwd_kernel_is_deterministic(cuda):
+    """K4B at a cluster of 16 that streams rows gives the same bits run to
+    run (no atomics; every sum in a fixed order)."""
+    x, gamma, beta, r = _gn_inputs(cuda, 3, 16896, 64, torch.bfloat16, True)
+    dy = torch.randn_like(x)
+    out, mean, rstd = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, r, num_groups=32,
+                                                         epsilon=1e-4, relu=True)
+    runs = [cuda_groupnorm.group_norm_act_bwd_cuda(dy, x, gamma, mean, rstd, out, True, 32)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_groupnorm_bwd_kernel_refuses_bad_inputs(cuda):
+    x, gamma, beta, _ = _gn_inputs(cuda, 2, 6, 64, torch.bfloat16, False)
+    out, mean, rstd = cuda_groupnorm.group_norm_act_cuda(x, gamma, beta, None, num_groups=32,
+                                                         epsilon=1e-4, relu=True)
+    dy = torch.randn_like(x)
+    with pytest.raises(ValueError, match="dy"):
+        cuda_groupnorm.group_norm_act_bwd_cuda(dy.float(), x, gamma, mean, rstd, out, False, 32)
+    with pytest.raises(ValueError, match="mean and rstd"):
+        cuda_groupnorm.group_norm_act_bwd_cuda(dy, x, gamma, mean[:, :16], rstd, out, False, 32)
+
+
+def test_gn_kernel_counter_on_the_card(cuda):
+    """``gn.kernel`` reads 1 for a CUDA call on the kernels ('auto'), 0 for
+    one on the composition ('plain')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from merlot_tpu_torch.core import trace
+    x, gamma, beta, _ = _gn_inputs(cuda, 2, 40, 64, torch.bfloat16, False)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("step"):
+            for backend in ("auto", "plain", None):
+                cuda_groupnorm.group_norm_act(x, gamma, beta, relu=True, backend=backend)
+    assert trace.counted()[-1]["gn.kernel"] == [1.0, 0.0, 1.0]
+    trace.clear()
+
+
+def _small_merlot_fp32(cuda):
+    from merlot_tpu_torch.models.config import MerlotConfig
+    from merlot_tpu_torch.models.pretrain import MerlotPretrainModel
+    from merlot_tpu_torch.nn.layers import init_params
+    cfg = MerlotConfig(hidden_size=128, num_attention_heads=2, intermediate_size=256,
+                       contrastive_size=128, num_hidden_layers=1,
+                       num_vision_transformer_hidden_layers=1,
+                       num_lang_transformer_hidden_layers=1, image_size=(64, 96),
+                       resnet_layers=(1, 1, 1), num_chunks_in_group=2, use_bfloat16=False,
+                       hidden_dropout_prob=0.0)
+    model = MerlotPretrainModel(cfg, device=cuda)
+    init_params(model, torch.Generator(device=cuda).manual_seed(0))
+    return model
+
+
+def _merlot_step(model, batch, cuda, replay=None):
+    """One forward and backward of the pretrain loss: (loss, grads, the
+    ReLU masks ``out > 0`` of every GroupNorm+ReLU site on the kernels, in
+    call order, K4 launches, K4B calls). With ``replay``, the composition's
+    ReLUs apply those masks in that order in place of their own."""
+    masks, replayed = [], iter(replay or ())
+    apply, composition = cuda_groupnorm.GroupNormAct.apply, norms.group_norm_act
+
+    def kernels(x, gamma, beta, residual, num_groups, epsilon, relu):
+        out = apply(x, gamma, beta, residual, num_groups, epsilon, relu)
+        if relu:
+            masks.append(out > 0)
+        return out
+
+    def unfused(x, gamma, beta, *, relu=False, **kw):
+        out = composition(x, gamma, beta, relu=relu and replay is None, **kw)
+        return torch.where(next(replayed), out, 0) if relu and replay is not None else out
+
+    before = cuda_groupnorm.launches, cuda_groupnorm.bwd_launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_groupnorm.GroupNormAct, "apply", kernels)
+        mp.setattr(norms, "group_norm_act", unfused)
+        model.zero_grad(set_to_none=True)
+        loss, _, _ = model(batch, deterministic=False,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+        loss.backward()
+    torch.cuda.synchronize()
+    assert next(replayed, None) is None
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    return (loss.item(), grads, masks, cuda_groupnorm.launches - before[0],
+            cuda_groupnorm.bwd_launches - before[1])
+
+
+def test_merlot_step_grads_on_the_kernels_match_the_composition(cuda, monkeypatch):
+    """One MERLOT pretrain step's forward and backward (fp32, dropout off,
+    the same masking draws, TF32 off) with the stem's 15 GroupNorms on K4
+    and K4B ('auto') and on the composition ('plain'): the loss within 1e-5
+    relative and each tensor's grads within 2e-4 of its largest |grad|
+    (floored at 1e-6 of the largest of all), the CPU step checks' bounds
+    (the two differ by fp32 sums in another order). The composition's 12
+    ReLUs take K4's masks: a pre-ReLU value within fp32 noise of 0 may fall
+    on either side in the two forwards, and move a weight-standardized
+    kernel's nearly cancelling grad by up to 4e-3 of its largest
+    (tests/test_torch_fused_step.py), which is no fault of either."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = _small_merlot_fp32(cuda)
+    examples, chunks, tokens = 2, 4, 8
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n_img = examples * chunks
+    batch = {"input_ids": torch.randint(100, 50357, (examples, chunks, tokens), generator=g,
+                                        device=cuda),
+             "images": torch.rand((n_img, 64, 96, 3), generator=g, device=cuda),
+             "shuffled_idx_img": torch.arange(2, device=cuda).repeat(n_img // 2),
+             "video_src_ids": torch.arange(n_img // 2, device=cuda).repeat_interleave(2)
+             .reshape(examples, chunks)}
+    monkeypatch.setattr(cuda_groupnorm, "BACKEND", "auto")
+    loss_a, ga, masks, k4, k4b = _merlot_step(model, batch, cuda)
+    assert (k4, k4b) == (15, 15) and len(masks) == 12
+    monkeypatch.setattr(cuda_groupnorm, "BACKEND", "plain")
+    loss_p, gp, _, k4, k4b = _merlot_step(model, batch, cuda, replay=masks)
+    assert (k4, k4b) == (0, 0)
+    assert abs(loss_a - loss_p) <= 1e-5 * abs(loss_p)
+    assert ga.keys() == gp.keys()
+    floor = 1e-6 * max(v.abs().max().item() for v in gp.values())
+    for n, want in gp.items():
+        err = (ga[n] - want).abs().max().item()
+        assert err <= 2e-4 * want.abs().max().item() + floor, (n, err)
 
 
 # K5: LayerNorm fused into J consumer products, bf16: at most BF16_ULPS bf16

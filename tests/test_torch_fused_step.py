@@ -81,7 +81,6 @@ def fused_kernels():
             return _orig(*a)
         mp.setattr(mod, "apply", counted)
     mp.setattr(cuda_groupnorm, "BACKEND", "cuda")
-    mp.setattr(cuda_groupnorm, "TRAIN_BACKEND", "cuda")
     mp.setattr(pgn, "BACKEND", "pallas")
     mp.setattr(pgn, "TRAIN_BACKEND", "pallas")
     mp.setattr(plm, "INTERPRET", True)

@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch.profiler import ProfilerActivity, profile
 
 from merlot_tpu.ops import pallas_groupnorm as pgn
+from merlot_tpu_torch.core import trace
 from merlot_tpu_torch.nn.layers import init_params
 from merlot_tpu_torch.nn.transformer import TransformerHParams
 from merlot_tpu_torch.nn.vit import LiteResNet, VisionBackbone
@@ -111,7 +113,7 @@ def test_saved_stats_backward_matches_unfused_autograd(mode):
 
 
 def test_backend_dispatch_and_defaults():
-    assert cuda_groupnorm.BACKEND == cuda_groupnorm.TRAIN_BACKEND == "plain"
+    assert cuda_groupnorm.BACKEND == "auto"
     *_, tx, tg, tb, _ = _inputs(4, (1, 3, 3, 32), "float32", False)
     with pytest.raises(ValueError, match="backend"):
         cuda_groupnorm.group_norm_act(tx, tg, tb, backend="pallas")
@@ -125,10 +127,139 @@ def test_backend_dispatch_and_defaults():
     assert not cuda_groupnorm.kernel_supported(64, 32, torch.float16)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["plain", "relu", "residual"])
+def test_auto_is_plain_on_cpu_bit_for_bit(dtype, mode):
+    """On CPU tensors 'auto' is the composition: the same outputs and
+    gradients, bit for bit, as 'plain'."""
+    *_, tx, tg, tb, tres = _inputs(7, (2, 5, 3, 64), dtype, mode == "residual")
+    dy = torch.from_numpy(np.random.default_rng(8).normal(0, 1, tx.shape)
+                          .astype(np.float32)).to(tx.dtype)
+    runs = []
+    for backend in ("auto", "plain"):
+        leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+                  for t in (tx, tg, tb, tres) if t is not None]
+        out = cuda_groupnorm.group_norm_act(
+            *leaves[:3], residual=leaves[3] if tres is not None else None,
+            relu=mode != "plain", backend=backend)
+        runs.append((out, *torch.autograd.grad(out, leaves, dy)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# 'auto''s rule at the stem's channel counts and beyond what the kernels
+# take: (C, groups, dtype). On a CUDA tensor 'auto' is ``GroupNormAct``
+# whatever the shape (K4 and K4B raise on what they refuse, as under
+# 'cuda'); on a CPU tensor it is the composition.
+AUTO_CASES = [
+    (32, 32, torch.bfloat16), (1024, 32, torch.bfloat16), (2048, 32, torch.bfloat16),
+    (4096, 32, torch.bfloat16), (1024, 32, torch.float32), (2048, 32, torch.float32),
+    (36, 4, torch.float32), (36, 4, torch.bfloat16), (64, 32, torch.float16),
+    (96, 32, torch.float32), (20, 4, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("c,groups,dtype", AUTO_CASES)
+def test_auto_picks_the_kernels_where_the_card_takes_them(monkeypatch, c, groups, dtype):
+    x = torch.from_numpy(np.random.default_rng(c).normal(0, 1, (1, 2, 2, c))
+                         .astype(np.float32)).to(dtype)
+    gamma, beta = torch.ones(c), torch.zeros(c)
+    kw = dict(num_groups=groups, relu=True)
+    # a CPU tensor: the composition, bit for bit
+    want = norms.group_norm_act(x, gamma, beta, **kw)
+    assert torch.equal(cuda_groupnorm.group_norm_act(x, gamma, beta, backend="auto", **kw),
+                       want)
+    # a tensor on the card: the kernels, never the composition
+    calls = []
+    _kernel_stand_ins(monkeypatch, calls)
+    monkeypatch.setattr(norms, "group_norm_act", lambda *a, **k: calls.append("plain"))
+    cuda_groupnorm.group_norm_act(x, gamma, beta, backend="auto", **kw)
+    assert calls == ["k4"]
+
+
+def _kernel_stand_ins(monkeypatch, calls):
+    """Take the kernels' path on CPU tensors: the device test says 'the
+    card', and K4 and K4B are stood in for by their plain versions (counted
+    in ``calls``)."""
+    def k4(x, gamma, beta, residual, *, num_groups, epsilon, relu):
+        calls.append("k4")
+        return norms.group_norm_act_plain(x, gamma, beta, residual, num_groups, epsilon, relu)
+
+    def k4b(*a):
+        calls.append("k4b")
+        return norms.group_norm_act_bwd(*a)
+
+    monkeypatch.setattr(cuda_groupnorm, "_on_card", lambda x: True)
+    monkeypatch.setattr(cuda_groupnorm, "group_norm_act_cuda", k4)
+    monkeypatch.setattr(cuda_groupnorm, "group_norm_act_bwd_cuda", k4b)
+
+
+@pytest.mark.parametrize("picks", [True, False])
+def test_auto_dispatch_follows_the_rule(monkeypatch, picks):
+    """'auto' runs ``GroupNormAct`` (forward K4, backward K4B) on the card,
+    and the composition on the CPU."""
+    calls = []
+    if picks:
+        _kernel_stand_ins(monkeypatch, calls)
+    applied = []
+    orig = cuda_groupnorm.GroupNormAct.apply
+    monkeypatch.setattr(cuda_groupnorm.GroupNormAct, "apply",
+                        lambda *a: applied.append(1) or orig(*a))
+    *_, tx, tg, tb, tres = _inputs(9, (2, 4, 4, 64), "float32", True)
+    leaves = [t.requires_grad_() for t in (tx, tg, tb, tres)]
+    out = cuda_groupnorm.group_norm_act(*leaves[:3], residual=leaves[3], relu=True,
+                                        backend="auto")
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    assert applied == ([1] if picks else []) and calls == (["k4", "k4b"] if picks else [])
+    want_out = norms.group_norm_act(*leaves[:3], residual=leaves[3], relu=True)
+    want = torch.autograd.grad(want_out.square().sum(), leaves)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def _gn_counts(fn):
+    """The ``gn.kernel`` values ``fn`` counted inside one root span while a
+    profiler recorded."""
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("step"):
+            fn()
+    counted = trace.counted()
+    trace.clear()
+    assert len(counted) == 1
+    return counted[0].get("gn.kernel", [])
+
+
+def test_gn_kernel_counter_records_each_call(monkeypatch):
+    """``gn.kernel`` is 0 for a call on the composition (every backend on a
+    CPU tensor) and 1 for one on the kernels; nothing without a profiler."""
+    *_, tx, tg, tb, _ = _inputs(10, (1, 3, 3, 32), "float32", False)
+
+    def calls():
+        for backend in ("plain", "cuda", "auto", None):
+            cuda_groupnorm.group_norm_act(tx, tg, tb, relu=True, backend=backend)
+
+    assert _gn_counts(calls) == [0.0] * 4
+    cuda_groupnorm.group_norm_act(tx, tg, tb, backend="auto")
+    assert trace.counted() == []
+    _kernel_stand_ins(monkeypatch, [])
+    assert _gn_counts(calls) == [0.0, 1.0, 1.0, 1.0]
+
+
+def test_gn_kernel_counter_over_the_stem():
+    """One counted call per GroupNorm site of the stem, in one forward."""
+    net = LiteResNet((1, 1, 1), dtype=torch.float32)
+    init_params(net, torch.Generator().manual_seed(2))
+    img = torch.from_numpy(np.random.default_rng(11).normal(0, 1, (1, 32, 48, 3))
+                           .astype(np.float32))
+    with torch.no_grad():
+        assert _gn_counts(lambda: net(img)) == [0.0] * (3 + 4 * 3)
+
+
 @pytest.mark.parametrize("deterministic", [True, False])
 def test_vision_backbone_picks_the_path_backend(monkeypatch, deterministic):
-    """VisionBackbone takes BACKEND on forward-only calls and TRAIN_BACKEND
-    in training, for every one of the stem's GroupNorms; LiteResNet's
+    """VisionBackbone takes BACKEND on forward-only and training calls
+    alike, for every one of the stem's GroupNorms; LiteResNet's
     channels-last GroupNorm inputs are contiguous, as K4 requires."""
     calls = []
     orig = cuda_groupnorm.GroupNormAct.apply
@@ -138,9 +269,6 @@ def test_vision_backbone_picks_the_path_backend(monkeypatch, deterministic):
         return orig(x, *a)
 
     monkeypatch.setattr(cuda_groupnorm.GroupNormAct, "apply", counting)
-    monkeypatch.setattr(cuda_groupnorm, "BACKEND", "cuda" if deterministic else "plain")
-    monkeypatch.setattr(cuda_groupnorm, "TRAIN_BACKEND",
-                        "plain" if deterministic else "cuda")
     hp = TransformerHParams(hidden_size=64, num_layers=1, num_heads=4,
                             intermediate_size=128, dtype=torch.float32,
                             hidden_dropout_prob=0.0)
@@ -149,16 +277,15 @@ def test_vision_backbone_picks_the_path_backend(monkeypatch, deterministic):
     init_params(vb, torch.Generator().manual_seed(0))
     img = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, (2, 32, 48, 3))
                            .astype(np.float32))
-    with torch.no_grad():
-        vb(img, attn_backend="plain", deterministic=deterministic)
-    assert len(calls) == 3 + 4 * 3 and all(calls)     # stem + 3 blocks with projections
-    calls.clear()
-    with torch.no_grad():
-        vb.resnet(img.to(torch.float32) - 0.5, gn_backend="plain")
-    assert calls == []
+    for backend, sites in (("cuda", 3 + 4 * 3), ("plain", 0)):  # stem + 3 blocks
+        monkeypatch.setattr(cuda_groupnorm, "BACKEND", backend)
+        calls.clear()
+        with torch.no_grad():
+            vb(img, attn_backend="plain", deterministic=deterministic)
+        assert len(calls) == sites and all(calls)
 
 
-def test_resnet_cuda_backend_matches_plain_on_cpu():
+def test_resnet_cuda_backend_matches_plain_on_cpu(monkeypatch):
     """The whole LiteResNet, fused path (plain version of K4) against the
     unfused one, fp32: the same function up to the order of fp32 sums."""
     net = LiteResNet((1, 1, 1), dtype=torch.float32)
@@ -166,8 +293,10 @@ def test_resnet_cuda_backend_matches_plain_on_cpu():
     img = torch.from_numpy(np.random.default_rng(6).normal(0, 1, (2, 32, 48, 3))
                            .astype(np.float32))
     with torch.no_grad():
-        a = net(img, gn_backend="cuda")
-        b = net(img, gn_backend="plain")
+        monkeypatch.setattr(cuda_groupnorm, "BACKEND", "cuda")
+        a = net(img)
+        monkeypatch.setattr(cuda_groupnorm, "BACKEND", "plain")
+        b = net(img)
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
@@ -274,3 +403,88 @@ def test_cluster_reduction_order_gives_the_stats(monkeypatch, hw, c, target_rows
         m, r = _kernel_order_stats(x[b], plan, GROUPS, EPS)
         torch.testing.assert_close(m, mean[b], atol=1e-6, rtol=1e-5)
         torch.testing.assert_close(r, rstd[b], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hw,c,groups,elem", PLAN_SITES)
+def test_bwd_launch_plan_covers_every_row_once(hw, c, groups, elem):
+    """K4B's plan (two resident slabs, x and dy) at the same sites: every row
+    once, in rank order, within SMEM_TARGET, the smallest cluster whose
+    blocks hold their rows, else 16 that stream."""
+    plan = cuda_groupnorm.launch_plan(hw, c, groups, elem, slabs=2)
+    cs = plan["cluster"]
+    assert plan["smem_bytes"] == cuda_groupnorm.smem_bytes(plan["res_rows"], c, groups, elem, 2)
+    assert plan["smem_bytes"] <= cuda_groupnorm.SMEM_TARGET
+    rows = []
+    for rank in range(cs):
+        res, streamed = _block_rows(plan, hw, rank)
+        rows += list(res) + list(streamed)
+    assert rows == list(range(hw))
+    assert plan["res_rows"] == plan["rows_per_block"] or cs == cuda_groupnorm.MAX_CLUSTER
+    fwd = cuda_groupnorm.launch_plan(hw, c, groups, elem)
+    assert cs >= fwd["cluster"] and plan["res_rows"] <= fwd["res_rows"]
+
+
+def _k4b_order(x, dy, out, gamma, mean, rstd, plan, groups):
+    """K4B on one image x, dy, out [hw, c] fp32 in its order of sums: each
+    block's channel partials over its rows, rank k's slice of channels
+    summed over the ranks in order, its gamma-weighted group partials over
+    the slice (channels in order), the ranks' group partials in order.
+    Returns (dx, S1, S2)."""
+    hw, c = x.shape
+    cs, cpg = plan["cluster"], c // groups
+    dyg = torch.where(out > 0, dy, torch.zeros(())) if out is not None else dy
+    mean_c = mean.repeat_interleave(cpg)
+    rstd_c = rstd.repeat_interleave(cpg)
+    x_hat = (x - mean_c) * rstd_c
+    parts = []
+    for rank in range(cs):
+        res, streamed = _block_rows(plan, hw, rank)
+        rows = list(res) + list(streamed)
+        parts.append((dyg[rows].sum(0), (dyg[rows] * x_hat[rows]).sum(0)))
+    chunk = -(-c // cs)
+    s1, s2 = torch.zeros(c), torch.zeros(c)
+    gparts = []
+    for k in range(cs):
+        lo, hi = min(c, k * chunk), min(c, k * chunk + chunk)
+        for p1, p2 in parts:
+            s1[lo:hi] += p1[lo:hi]
+            s2[lo:hi] += p2[lo:hi]
+        g1, g2 = torch.zeros(groups), torch.zeros(groups)
+        for ch in range(lo, hi):
+            g1[ch // cpg] += gamma[ch] * s1[ch]
+            g2[ch // cpg] += gamma[ch] * s2[ch]
+        gparts.append((g1, g2))
+    n = float(hw * cpg)
+    m1 = sum(g for g, _ in gparts) / n
+    m2 = sum(g for _, g in gparts) / n
+    dx = rstd_c * ((dyg * gamma - m1.repeat_interleave(cpg)) - x_hat * m2.repeat_interleave(cpg))
+    return dx, s1, s2
+
+
+@pytest.mark.parametrize("hw,c,groups,target_rows,relu",
+                         [(600, 64, 32, 20, True), (300, 40, 4, 12, True), (77, 32, 32, 3, False)])
+def test_bwd_cluster_order_gives_the_plain_backward(monkeypatch, hw, c, groups, target_rows,
+                                                    relu):
+    """K4B's slices of channels (a group split across ranks where the
+    cluster outnumbers the groups: 10 channels a group over slices of 3),
+    its gamma-weighted group partials and its rank-order sums give the plain
+    saved-stats backward (fp32 sums in another order)."""
+    fixed = cuda_groupnorm.smem_bytes(0, c, groups, 4, 2)
+    monkeypatch.setattr(cuda_groupnorm, "SMEM_TARGET", fixed + target_rows * 2 * c * 4)
+    plan = cuda_groupnorm.launch_plan(hw, c, groups, 4, slabs=2)
+    assert plan["cluster"] > 1
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(0.3, 1.0, (2, hw, c)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1, (2, hw, c)).astype(np.float32))
+    gamma = torch.from_numpy(rng.normal(1, 0.1, c).astype(np.float32))
+    out, mean, rstd = norms.group_norm_act_plain(x, gamma, torch.zeros(c), None, groups,
+                                                 EPS, relu)
+    saved = out if relu else None
+    want_dx, want_dgamma, want_dbeta, _ = norms.group_norm_act_bwd(dy, x, gamma, mean, rstd,
+                                                                   saved, False, groups)
+    got = [_k4b_order(x[b], dy[b], None if saved is None else saved[b], gamma, mean[b],
+                      rstd[b], plan, groups) for b in range(2)]
+    dx = torch.stack([g[0] for g in got])
+    torch.testing.assert_close(dx, want_dx, atol=1e-5 * want_dx.abs().max().item(), rtol=0)
+    torch.testing.assert_close(got[0][1] + got[1][1], want_dbeta, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(got[0][2] + got[1][2], want_dgamma, atol=1e-4, rtol=1e-5)

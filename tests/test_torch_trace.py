@@ -30,7 +30,7 @@ TINY = dict(hidden_size=64, num_attention_heads=4, intermediate_size=128,
             hidden_dropout_prob=0.1)
 OPT = dict(learning_rate=1e-3, num_train_steps=10, num_warmup_steps=1)
 PRETRAIN_TREE = [("step", None), ("step.forward", "step"), ("model.vision", "step.forward"),
-                 ("model.language", "step.forward"), ("model.masking", "step.forward"),
+                 ("model.vision.stem", "model.vision"), ("model.language", "step.forward"), ("model.masking", "step.forward"),
                  ("model.joint", "step.forward"), ("step.backward", "step"),
                  ("step.update", "step")]
 
@@ -136,6 +136,7 @@ def test_zero_shot_tree():
     ids = torch.randint(100, cfg.vocab_size, (2, 3, 8), generator=g)
     roots, names = _traced(lambda: fn(model, images, ids))
     assert [_tree(r) for r in roots] == [[("step", None), ("model.vision", "step"),
+                                          ("model.vision.stem", "model.vision"),
                                           ("model.joint", "step")]]
     assert {"step", "model.vision", "model.joint"} <= names
 
